@@ -1,0 +1,88 @@
+"""JAX-package variables -> the port's ``state_dict``.
+
+The inverse of the JAX package's torch-reference import for FC_STGNN
+(``gnn_rul_tpu/compat/torch_import.py::_map_fc_stgnn``): it takes the flax
+``{"params", "batch_stats"}`` tree as numpy arrays and returns a
+``state_dict`` under the original torch reference's keys, which the port's
+modules carry:
+
+  - Dense kernel ``(in, out)``   -> Linear weight ``(out, in)``   [transpose]
+  - Conv kernel ``(k, in, out)`` -> Conv1d weight ``(out, in, k)``
+  - BatchNorm ``scale/bias`` + ``mean/var`` -> ``weight/bias`` +
+    ``running_mean/running_var``, with ``num_batches_tracked`` 0
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+
+def _fc_stgnn_layout() -> List[Tuple[str, str, Tuple[str, ...]]]:
+    """``(torch prefix, kind, flax path)`` for every FC_STGNN layer."""
+    enc = ("nonlin_map",)
+    rows = [
+        ("nonlin_map.conv_block1.0", "conv", enc + ("conv1", "Conv_0")),
+        ("nonlin_map.conv_block1.1", "bn",
+         enc + ("bn1", "BatchNorm1d_0", "BatchNorm_0")),
+        ("nonlin_map.conv_block2.0", "conv", enc + ("conv2", "Conv_0")),
+        ("nonlin_map.conv_block2.1", "bn",
+         enc + ("bn2", "BatchNorm1d_0", "BatchNorm_0")),
+        ("nonlin_map2.0", "linear", ("nonlin_map2", "Dense_0")),
+        ("nonlin_map2.1", "bn", ("nonlin_map2_bn", "BatchNorm_0")),
+    ]
+    for i in (1, 2):
+        m = f"mpnn{i}"
+        rows += [
+            (f"MPNN{i}.graph_construction.mapping", "linear",
+             (m, "graph_mapping", "Dense_0")),
+            (f"MPNN{i}.BN", "bn", (m, "bn_in", "BatchNorm_0")),
+            (f"MPNN{i}.MPNN.theta.0", "linear", (m, "theta0", "Dense_0")),
+            (f"MPNN{i}.MPNN.bn1", "bn", (m, "bn_out", "BatchNorm_0")),
+        ]
+    rows += [(f"fc.fc{k}", "linear", (f"fc{k}", "Dense_0"))
+             for k in (1, 2, 3, 4)]
+    return rows
+
+
+def _get(tree: Dict[str, Any], path: Tuple[str, ...]) -> Dict[str, Any]:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def from_jax_variables(method: str,
+                       variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map the JAX package's ``{"params", "batch_stats"}`` for ``method``
+    onto the port's ``state_dict`` (CPU tensors, for
+    ``load_state_dict(strict=True)``)."""
+    if method != "FC_STGNN":
+        raise NotImplementedError(
+            f"from_jax_variables: {method} is not ported yet; the port's "
+            "order of work is in ROADMAP.md")
+    params = variables["params"]
+    stats = variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for prefix, kind, path in _fc_stgnn_layout():
+        p = _get(params, path)
+        if kind == "linear":
+            sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+            sd[f"{prefix}.bias"] = _t(p["bias"])
+        elif kind == "conv":
+            sd[f"{prefix}.weight"] = _t(
+                np.asarray(p["kernel"]).transpose(2, 1, 0))
+        else:
+            s = _get(stats, path)
+            sd[f"{prefix}.weight"] = _t(p["scale"])
+            sd[f"{prefix}.bias"] = _t(p["bias"])
+            sd[f"{prefix}.running_mean"] = _t(s["mean"])
+            sd[f"{prefix}.running_var"] = _t(s["var"])
+            sd[f"{prefix}.num_batches_tracked"] = torch.tensor(
+                0, dtype=torch.long)
+    return sd

@@ -1,0 +1,120 @@
+"""The port's ops (gnn_rul_tpu_torch.ops) against the JAX package's, on the
+same seeded numpy inputs. The fused dot-graph wrapper runs its plain version
+here (CPU tensors); its CUDA kernel is checked against that plain version on
+the card by chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gnn_rul_tpu.ops import encoding as jenc
+from gnn_rul_tpu.ops import graphs as jgraphs
+from gnn_rul_tpu.ops import message_passing as jmp
+from gnn_rul_tpu.ops import windows as jwin
+from gnn_rul_tpu.ops.pallas.fused_gnn import (
+    fused_dot_graph_spmm_packed, fused_dot_graph_spmm_pallas,
+    fused_dot_graph_spmm_reference)
+from gnn_rul_tpu_torch.ops import encoding, graphs, message_passing, windows
+from gnn_rul_tpu_torch.ops.kernels import fused_gnn
+from gnn_rul_tpu_torch.ops.kernels.fused_gnn import (
+    fused_dot_graph_spmm, fused_dot_graph_spmm_plain)
+
+torch.set_num_threads(1)
+
+
+def _np(a):
+    return np.asarray(a.detach().numpy() if isinstance(a, torch.Tensor) else a)
+
+
+def test_patchify_exact():
+    x = np.random.default_rng(0).normal(size=(3, 14, 50)).astype(np.float32)
+    got = windows.patchify(torch.from_numpy(x), 2, 25)
+    np.testing.assert_array_equal(_np(got), _np(jwin.patchify(x, 2, 25)))
+
+
+@pytest.mark.parametrize("window,stride", [(2, 1), (2, 2), (3, 2)])
+def test_sliding_time_windows_exact(window, stride):
+    x = np.random.default_rng(1).normal(size=(2, 6, 5, 4)).astype(np.float32)
+    got = windows.sliding_time_windows(torch.from_numpy(x), window, stride)
+    want = jwin.sliding_time_windows(jnp.asarray(x), window, stride)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("num_node,window,decay", [(14, 2, 0.7), (5, 3, 0.5)])
+def test_decay_mask_exact(num_node, window, decay):
+    np.testing.assert_array_equal(
+        _np(windows.decay_mask(num_node, window, decay)),
+        _np(jwin.decay_mask(num_node, window, decay)))
+
+
+@pytest.mark.parametrize("length,d_model", [(2, 16), (5, 7)])
+def test_sinusoidal_encoding(length, d_model):
+    np.testing.assert_allclose(
+        _np(encoding.sinusoidal_encoding(length, d_model, base=100.0)),
+        _np(jenc.sinusoidal_encoding(length, d_model, base=100.0)),
+        atol=1e-6, rtol=1e-5)
+
+
+def test_dot_graph_from_mapped_and_spmm():
+    rng = np.random.default_rng(2)
+    h = rng.normal(size=(3, 28, 16)).astype(np.float32)
+    x = rng.normal(size=(3, 28, 16)).astype(np.float32)
+    adj = graphs.dot_graph_from_mapped(torch.from_numpy(h))
+    jadj = jgraphs.dot_graph_from_mapped(jnp.asarray(h))
+    np.testing.assert_allclose(_np(adj), _np(jadj), atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(
+        _np(message_passing.spmm(adj, torch.from_numpy(x))),
+        _np(jmp.spmm(jadj, jnp.asarray(x))), atol=1e-6, rtol=1e-5)
+
+
+def _fused_inputs(b, n, d, f, seed):
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(b, n, d)).astype(np.float32)
+    x = rng.normal(size=(b, n, f)).astype(np.float32)
+    if n == 28:
+        mask = np.array(jwin.decay_mask(14, 2, 0.7))
+    else:
+        mask = rng.uniform(size=(n, n)).astype(np.float32)
+    return h, x, mask
+
+
+@pytest.mark.parametrize("b,n,d,f", [(6, 28, 16, 16), (3, 1, 4, 4),
+                                     (4, 5, 3, 7)])
+@pytest.mark.parametrize("jax_fn", ["reference", "packed", "pallas"])
+def test_fused_plain_matches_jax(b, n, d, f, jax_fn):
+    h, x, mask = _fused_inputs(b, n, d, f, seed=n)
+    if jax_fn == "reference":
+        want = fused_dot_graph_spmm_reference(h, x, mask)
+    elif jax_fn == "packed":
+        want = fused_dot_graph_spmm_packed(h, x, mask, interpret=True)
+    else:
+        want = fused_dot_graph_spmm_pallas(h, x, mask, interpret=True)
+    got = fused_dot_graph_spmm_plain(
+        torch.from_numpy(h), torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+
+
+def test_wrapper_on_cpu_runs_plain_and_counts_no_launch():
+    h, x, mask = _fused_inputs(6, 28, 16, 16, seed=3)
+    th, tx, tm = map(torch.from_numpy, (h, x, mask))
+    before = fused_dot_graph_spmm.launches
+    got = fused_dot_graph_spmm(th, tx, tm)
+    assert fused_dot_graph_spmm.launches == before == 0
+    np.testing.assert_array_equal(
+        _np(got), _np(fused_dot_graph_spmm_plain(th, tx, tm)))
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    h, x, mask = map(torch.from_numpy, _fused_inputs(2, 5, 3, 7, seed=4))
+    with pytest.raises(TypeError):
+        fused_dot_graph_spmm(h.double(), x, mask)
+    with pytest.raises(ValueError, match="shared"):
+        fused_dot_graph_spmm(h, x, mask.expand(2, 5, 5).contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_dot_graph_spmm(h, x, mask.t())
+    wide = torch.zeros(2, 5, fused_gnn.MAX_FEAT + 1)
+    with pytest.raises(ValueError, match="D, F <="):
+        fused_dot_graph_spmm(wide, x, mask)
+    with pytest.raises(ValueError, match="D, F <="):
+        fused_dot_graph_spmm(h, wide, mask)
