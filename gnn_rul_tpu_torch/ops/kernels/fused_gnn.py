@@ -1,37 +1,37 @@
-"""Fused dot-graph chain: a hand-written CUDA kernel and its plain version.
+"""Fused dot-graph chain: hand-written CUDA kernels and their plain versions.
 
     out = ((softmax(leaky_relu(h h^T - 1e8 I, 0.01)) + I) * mask) @ x
 
 h ``(B, N, D)``, x ``(B, N, F)``, mask ``(N, N)`` -> ``(B, N, F)``, fp32.
 
-Counterpart of ``gnn_rul_tpu/ops/pallas/fused_gnn.py`` (forward only; the
-backward kernel belongs to the training slice). :data:`fused_dot_graph_spmm`
-is the wrapper the model calls: on a CUDA tensor it launches the kernel in
-``gnn_rul_tpu_torch/csrc/fused_gnn.cu`` or raises; on a CPU tensor it runs
-:func:`fused_dot_graph_spmm_plain`.
+Counterpart of ``gnn_rul_tpu/ops/pallas/fused_gnn.py``, forward and
+backward. :data:`fused_dot_graph_spmm` is the wrapper the model calls. It
+is differentiable through a ``torch.autograd.Function`` that saves h, x and
+mask and recomputes the chain in the backward, as the TPU kernel does, so
+nothing ``(N, N)`` is kept between the passes. On a CUDA tensor the forward
+launches the kernel in ``gnn_rul_tpu_torch/csrc/fused_gnn.cu`` and the
+backward the two kernels in ``csrc/fused_gnn_bwd.cu``, or they raise; on a
+CPU tensor they run :func:`fused_dot_graph_spmm_plain` and
+:func:`fused_dot_graph_spmm_bwd_plain`.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/`` at the repository root, keyed by a hash of the source, and called
-through ``ctypes`` on PyTorch's current stream.
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use
+(``ops/kernels/build.py``) and called through ``ctypes`` on PyTorch's
+current stream.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "fused_gnn.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-MAX_FEAT = 128  # kMaxFeat in the source: the limit on D and on F
-_ROWS_PER_BLOCK = 8  # kRowsPerBlock in the source
+from .build import build_libraries
+
+MAX_FEAT = 128  # kMaxFeat in the sources: the limit on D and on F
+_ROWS_PER_BLOCK = 8  # kRowsPerBlock in the sources
+BWD_LAUNCHES_PER_CALL = 2  # the backward's row pass and column pass
 
 
 def fused_dot_graph_spmm_plain(h: torch.Tensor, x: torch.Tensor,
@@ -47,40 +47,36 @@ def fused_dot_graph_spmm_plain(h: torch.Tensor, x: torch.Tensor,
     return torch.einsum("...nm,...md->...nd", a, x)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the fused_gnn kernel is built from "
-                       f"{SOURCE} with the CUDA toolkit")
+def fused_dot_graph_spmm_bwd_plain(
+        h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
+        g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward, step by step as the JAX
+    ``_bwd_kernel`` writes it. Returns ``(dh, dx, dmask_per_sample)``; the
+    last is ``(B, N, N)``, to be summed over the batch for the mask's
+    gradient."""
+    n = h.shape[-2]
+    eye = torch.eye(n, dtype=h.dtype, device=h.device)
+    s = torch.einsum("...nd,...md->...nm", h, h) - eye * 1e8
+    p = torch.softmax(F.leaky_relu(s, 0.01), dim=-1)
+    a = (p + eye) * mask
+    dx = torch.einsum("...nm,...nf->...mf", a, g)
+    da = torch.einsum("...nf,...mf->...nm", g, x)
+    dmask = (p + eye) * da
+    dp = da * mask
+    inner = (dp * p).sum(dim=-1, keepdim=True)
+    dz = p * (dp - inner)
+    ds = dz * torch.where(s >= 0, 1.0, 0.01).to(s.dtype)
+    dh = (torch.einsum("...nm,...md->...nd", ds, h)
+          + torch.einsum("...nm,...nd->...md", ds, h))
+    return dh, dx, dmask
 
 
-def build_library() -> tuple[Path, str]:
-    """Compile the source into ``build/`` unless a library of the same
-    source hash is there. Returns ``(library path, nvcc's -Xptxas -v log)``;
-    the log is empty when the library was already built."""
-    src = SOURCE.read_bytes()
-    lib = BUILD_DIR / f"fused_gnn_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.so")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
-
-
-def _check(h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor) -> None:
-    for name, t in (("h", h), ("x", x), ("mask", mask)):
+def _check(h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
+           g: Optional[torch.Tensor] = None) -> None:
+    named = [("h", h), ("x", x), ("mask", mask)]
+    if g is not None:
+        named.append(("g", g))
+    for name, t in named:
         if t.dtype != torch.float32:
             raise TypeError(f"fused_dot_graph_spmm: {name} must be float32, "
                             f"got {t.dtype}")
@@ -96,6 +92,9 @@ def _check(h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor) -> None:
     if x.shape[:2] != (b, n):
         raise ValueError(f"fused_dot_graph_spmm: x {tuple(x.shape)} does not "
                          f"match h {tuple(h.shape)}")
+    if g is not None and g.shape != x.shape:
+        raise ValueError(f"fused_dot_graph_spmm: g {tuple(g.shape)} does not "
+                         f"match x {tuple(x.shape)}")
     if mask.shape != (n, n):
         raise ValueError(f"fused_dot_graph_spmm: mask must be one shared (N, N) "
                          f"= ({n}, {n}), got {tuple(mask.shape)}")
@@ -106,44 +105,83 @@ def _check(h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor) -> None:
                          f"kernel takes D, F <= {MAX_FEAT}")
     if -(-n // _ROWS_PER_BLOCK) > 65535:
         raise ValueError(f"fused_dot_graph_spmm: N={n} exceeds the grid limit")
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_dot_graph_spmm: no kernel for {h.device}")
+
+
+class _Chain(torch.autograd.Function):
+    """Saves h, x and mask; the backward recomputes the chain."""
+
+    @staticmethod
+    def forward(ctx, op, h, x, mask):
+        ctx.op = op
+        ctx.save_for_backward(h, x, mask)
+        return op.forward(h, x, mask)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        h, x, mask = ctx.saved_tensors
+        _, need_h, need_x, need_mask = ctx.needs_input_grad
+        # Autograd does not promise a contiguous cotangent.
+        dh, dx, dmask = ctx.op.backward(h, x, mask, g.contiguous(),
+                                        need_dmask=need_mask)
+        return (None, dh if need_h else None, dx if need_x else None,
+                dmask.sum(dim=0) if need_mask else None)
 
 
 class FusedDotGraphSpmm:
-    """The wrapper. ``launches`` counts kernel launches, nothing else."""
+    """The wrapper. ``launches`` counts launches of the forward kernel and
+    ``bwd_launches`` those of the backward's two kernels; nothing else adds
+    to them."""
 
     def __init__(self) -> None:
         self.launches = 0
-        self._lib: Optional[ctypes.CDLL] = None
+        self.bwd_launches = 0
+        self._fwd: Optional[ctypes.CDLL] = None
+        self._bwd: Optional[ctypes.CDLL] = None
 
     def load(self) -> str:
-        """Build (if needed) and load the library; returns the build log."""
-        if self._lib is not None:
+        """Build (if needed) and load the libraries; returns nvcc's log of
+        the sources built by this call."""
+        if self._fwd is not None:
             return ""
-        path, log = build_library()
-        lib = ctypes.CDLL(str(path))
-        lib.fused_dot_graph_spmm_fwd.argtypes = (
+        built = build_libraries()
+        fwd = ctypes.CDLL(str(built["fused_gnn"][0]))
+        fwd.fused_dot_graph_spmm_fwd.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.fused_dot_graph_spmm_fwd.restype = ctypes.c_int
-        lib.fused_dot_graph_spmm_error_string.argtypes = [ctypes.c_int]
-        lib.fused_dot_graph_spmm_error_string.restype = ctypes.c_char_p
-        lib.fused_dot_graph_spmm_max_feat.argtypes = []
-        lib.fused_dot_graph_spmm_max_feat.restype = ctypes.c_int
-        if lib.fused_dot_graph_spmm_max_feat() != MAX_FEAT:
-            raise RuntimeError(f"{path}: kernel limit differs from MAX_FEAT")
-        self._lib = lib
-        return log
+        fwd.fused_dot_graph_spmm_fwd.restype = ctypes.c_int
+        fwd.fused_dot_graph_spmm_error_string.argtypes = [ctypes.c_int]
+        fwd.fused_dot_graph_spmm_error_string.restype = ctypes.c_char_p
+        bwd = ctypes.CDLL(str(built["fused_gnn_bwd"][0]))
+        bwd.fused_dot_graph_spmm_bwd_rows.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        bwd.fused_dot_graph_spmm_bwd_cols.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        bwd.fused_dot_graph_spmm_bwd_rows.restype = ctypes.c_int
+        bwd.fused_dot_graph_spmm_bwd_cols.restype = ctypes.c_int
+        bwd.fused_dot_graph_spmm_bwd_error_string.argtypes = [ctypes.c_int]
+        bwd.fused_dot_graph_spmm_bwd_error_string.restype = ctypes.c_char_p
+        for lib, fn in ((fwd, "fused_dot_graph_spmm_max_feat"),
+                        (bwd, "fused_dot_graph_spmm_bwd_max_feat")):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ctypes.c_int
+            if getattr(lib, fn)() != MAX_FEAT:
+                raise RuntimeError(f"{fn}: kernel limit differs from MAX_FEAT")
+        self._fwd, self._bwd = fwd, bwd
+        return "".join(log for _, log in built.values())
 
     def __call__(self, h: torch.Tensor, x: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
         _check(h, x, mask)
+        return _Chain.apply(self, h, x, mask)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        """The chain without autograd: the kernel on CUDA, plain on the
+        CPU."""
         if h.device.type == "cpu":
             return fused_dot_graph_spmm_plain(h, x, mask)
-        if h.device.type != "cuda":
-            raise ValueError(f"fused_dot_graph_spmm: no kernel for {h.device}")
-        if h.requires_grad or x.requires_grad or mask.requires_grad:
-            raise NotImplementedError(
-                "fused_dot_graph_spmm: no backward kernel yet (training "
-                "slice, ROADMAP.md); run under torch.inference_mode()")
         self.load()
         b, n, d = h.shape
         f = x.shape[2]
@@ -152,15 +190,55 @@ class FusedDotGraphSpmm:
             return out
         with torch.cuda.device(h.device):
             stream = torch.cuda.current_stream(h.device).cuda_stream
-            err = self._lib.fused_dot_graph_spmm_fwd(
+            err = self._fwd.fused_dot_graph_spmm_fwd(
                 h.data_ptr(), x.data_ptr(), mask.data_ptr(), out.data_ptr(),
                 b, n, d, f, stream)
         if err != 0:
-            msg = self._lib.fused_dot_graph_spmm_error_string(err).decode()
+            msg = self._fwd.fused_dot_graph_spmm_error_string(err).decode()
             raise RuntimeError(f"fused_dot_graph_spmm launch failed "
                                f"(B={b}, N={n}, D={d}, F={f}): {msg}")
         self.launches += 1
         return out
+
+    def backward(self, h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
+                 g: torch.Tensor, need_dmask: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """``(dh, dx, dmask_per_sample)`` for the cotangent ``g``: the two
+        kernels on CUDA, plain on the CPU. ``dmask_per_sample`` is
+        ``(B, N, N)`` when ``need_dmask``, else None."""
+        _check(h, x, mask, g)
+        if h.device.type == "cpu":
+            dh, dx, dmask = fused_dot_graph_spmm_bwd_plain(h, x, mask, g)
+            return dh, dx, dmask if need_dmask else None
+        self.load()
+        b, n, d = h.shape
+        f = x.shape[2]
+        dh = torch.empty_like(h)
+        dx = torch.empty_like(x)
+        dmask = (torch.empty((b, n, n), dtype=h.dtype, device=h.device)
+                 if need_dmask else None)
+        if b == 0:
+            return dh, dx, dmask
+        stats = torch.empty((b, n, 3), dtype=h.dtype, device=h.device)
+        lib = self._bwd
+        with torch.cuda.device(h.device):
+            stream = torch.cuda.current_stream(h.device).cuda_stream
+            err = lib.fused_dot_graph_spmm_bwd_rows(
+                h.data_ptr(), x.data_ptr(), mask.data_ptr(), g.data_ptr(),
+                dh.data_ptr(), dmask.data_ptr() if need_dmask else None,
+                stats.data_ptr(), b, n, d, f, stream)
+            if err == 0:
+                self.bwd_launches += 1
+                err = lib.fused_dot_graph_spmm_bwd_cols(
+                    h.data_ptr(), x.data_ptr(), mask.data_ptr(), g.data_ptr(),
+                    stats.data_ptr(), dh.data_ptr(), dx.data_ptr(),
+                    b, n, d, f, stream)
+        if err != 0:
+            msg = lib.fused_dot_graph_spmm_bwd_error_string(err).decode()
+            raise RuntimeError(f"fused_dot_graph_spmm backward launch failed "
+                               f"(B={b}, N={n}, D={d}, F={f}): {msg}")
+        self.bwd_launches += 1
+        return dh, dx, dmask
 
 
 fused_dot_graph_spmm = FusedDotGraphSpmm()

@@ -31,7 +31,8 @@ def test_source_imports_nothing_of_jax(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, gnn_rul_tpu_torch.export; "
+    code = ("import sys, gnn_rul_tpu_torch.export, gnn_rul_tpu_torch.cli, "
+            "gnn_rul_tpu_torch.train.trainer; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in {'jax', 'flax', 'optax', 'gnn_rul_tpu'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

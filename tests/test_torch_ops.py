@@ -3,6 +3,7 @@ same seeded numpy inputs. The fused dot-graph wrapper runs its plain version
 here (CPU tensors); its CUDA kernel is checked against that plain version on
 the card by chip_smoke.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,12 +14,13 @@ from gnn_rul_tpu.ops import graphs as jgraphs
 from gnn_rul_tpu.ops import message_passing as jmp
 from gnn_rul_tpu.ops import windows as jwin
 from gnn_rul_tpu.ops.pallas.fused_gnn import (
-    fused_dot_graph_spmm_packed, fused_dot_graph_spmm_pallas,
-    fused_dot_graph_spmm_reference)
+    fused_dot_graph_spmm_bwd_pallas, fused_dot_graph_spmm_packed,
+    fused_dot_graph_spmm_pallas, fused_dot_graph_spmm_reference)
 from gnn_rul_tpu_torch.ops import encoding, graphs, message_passing, windows
 from gnn_rul_tpu_torch.ops.kernels import fused_gnn
 from gnn_rul_tpu_torch.ops.kernels.fused_gnn import (
-    fused_dot_graph_spmm, fused_dot_graph_spmm_plain)
+    fused_dot_graph_spmm, fused_dot_graph_spmm_bwd_plain,
+    fused_dot_graph_spmm_plain)
 
 torch.set_num_threads(1)
 
@@ -118,3 +120,64 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fused_dot_graph_spmm(wide, x, mask)
     with pytest.raises(ValueError, match="D, F <="):
         fused_dot_graph_spmm(h, wide, mask)
+
+
+BWD_SHAPES = [(6, 28, 16, 16), (3, 1, 4, 4), (4, 5, 3, 7)]
+
+
+@pytest.mark.parametrize("b,n,d,f", BWD_SHAPES)
+@pytest.mark.parametrize("jax_fn", ["vjp", "pallas"])
+def test_fused_bwd_plain_matches_jax(b, n, d, f, jax_fn):
+    h, x, mask = _fused_inputs(b, n, d, f, seed=n)
+    g = np.random.default_rng(n + 1).normal(size=(b, n, f)).astype(
+        np.float32)
+    if jax_fn == "vjp":
+        _, vjp = jax.vjp(fused_dot_graph_spmm_reference, h, x, mask)
+        want = vjp(g)
+    else:
+        dh, dx, dmask = fused_dot_graph_spmm_bwd_pallas(h, x, mask, g,
+                                                        interpret=True)
+        want = (dh, dx, jnp.sum(dmask, axis=0))
+    dh, dx, dmask = fused_dot_graph_spmm_bwd_plain(
+        *map(torch.from_numpy, (h, x, mask, g)))
+    assert dmask.shape == (b, n, n)
+    for got, ref in zip((dh, dx, dmask.sum(dim=0)), want):
+        np.testing.assert_allclose(_np(got), _np(ref), atol=1e-5, rtol=1e-5)
+
+
+def _grads(fn, h, x, mask, g):
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (h, x, mask)]
+    fn(*leaves).backward(g)
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("b,n,d,f", BWD_SHAPES)
+def test_wrapper_gradients_on_cpu_equal_autograd_of_plain(b, n, d, f):
+    h, x, mask = _fused_inputs(b, n, d, f, seed=n + 2)
+    g = torch.from_numpy(np.random.default_rng(n).normal(
+        size=(b, n, f)).astype(np.float32))
+    got = _grads(fused_dot_graph_spmm, h, x, mask, g)
+    want = _grads(fused_dot_graph_spmm_plain, h, x, mask, g)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(_np(a), _np(w), atol=1e-5, rtol=1e-5)
+    assert fused_dot_graph_spmm.launches == 0
+    assert fused_dot_graph_spmm.bwd_launches == 0
+
+
+def test_wrapper_backward_takes_a_non_contiguous_cotangent():
+    h, x, mask = _fused_inputs(3, 5, 3, 7, seed=6)
+    g = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(7, 5, 3)).astype(np.float32)).permute(2, 1, 0)
+    assert not g.is_contiguous()
+    got = _grads(fused_dot_graph_spmm, h, x, mask, g)
+    want = _grads(fused_dot_graph_spmm_plain, h, x, mask, g.contiguous())
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(_np(a), _np(w), atol=1e-5, rtol=1e-5)
+
+
+def test_wrapper_skips_the_mask_gradient_of_a_buffer():
+    h, x, mask = map(torch.from_numpy, _fused_inputs(2, 5, 3, 7, seed=7))
+    h.requires_grad_()
+    x.requires_grad_()
+    fused_dot_graph_spmm(h, x, mask).sum().backward()
+    assert mask.grad is None and h.grad is not None and x.grad is not None
