@@ -12,19 +12,25 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    all at once;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, on seeded inputs at the serving and training shapes and at ragged
-   shapes: the forward, then the backward (dh, dx, the batch-summed dmask);
-4. serve: FC_STGNN/FD001 at full width with seeded weights through
-   ``serving_model``; every answer against the same weights on the CPU, and
-   the forward kernel's launches counted over that run alone;
-5. train, parity: 5 steps at batch 100 on the card and on the CPU from the
-   same weights on the same batches; losses and parameters compared, the
-   backward kernels' launches counted;
-6. train, entry point: ``cli.main`` trains one epoch of a synthetic
-   processed FD001 at the real size on the card, with both kernels'
-   launches counted over that run alone; its results.csv and checkpoint.pt
-   are read back, and the checkpoint serves on the card as on the CPU;
-7. times: CUDA-event medians of each kernel and its plain version, the
-   serving latency and samples/s, the training step and epoch, and
+   shapes: the dot-graph forward, then its backward (dh, dx, the
+   batch-summed dmask); the LSTM recurrence forward (ys, the c trajectory,
+   c_fin), then its backward (dxg, dw_hh, with both outputs' cotangents
+   nonzero), at LOGO's, HAGCN's and ragged (T, B, H);
+4. serve: FC_STGNN/FD001, then LOGO/FD001, at full width with seeded
+   weights through ``serving_model``; every answer against the same weights
+   on the CPU at the same batch, and each path's kernel launches counted
+   over that path's run alone;
+5. train, parity: for each model, 5 steps at batch 100 on the card and on
+   the CPU from the same weights on the same batches, dropout off; losses
+   and parameters compared, the forward and backward launches counted;
+6. train, entry point: for each model, ``cli.main`` trains one epoch of a
+   synthetic processed FD001 at the real size on the card, with the
+   kernels' launches counted over that run alone; its results.csv and
+   checkpoint.pt are read back, and the checkpoint serves on the card as on
+   the CPU;
+7. times: CUDA-event medians of each kernel, its plain version and, for
+   the LSTM recurrence, cuDNN's ``torch.nn.LSTM``; the serving latency and
+   samples/s, the training step and epoch of each model, and
    torch.profiler breakdowns of one request and one training step.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the last
@@ -33,6 +39,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -48,7 +55,7 @@ from gnn_rul_tpu_torch import cli
 from gnn_rul_tpu_torch.configs.hparams import train_params
 from gnn_rul_tpu_torch.data.io import save_processed
 from gnn_rul_tpu_torch.export import build_model, serving_model
-from gnn_rul_tpu_torch.ops.kernels import build, fused_gnn
+from gnn_rul_tpu_torch.ops.kernels import build, fused_gnn, fused_lstm
 from gnn_rul_tpu_torch.ops.windows import decay_mask
 from gnn_rul_tpu_torch.train.algorithms import get_algorithm_spec
 from gnn_rul_tpu_torch.train.engine import Engine
@@ -66,7 +73,16 @@ PARITY_STEPS = 5
 FD001_ENGINES, FD001_ROWS, WINDOW, MAX_RUL = 100, 20631, 50, 125
 SMI = ""  # nvidia-smi's name and power limit, beside every time printed
 OUR_KERNELS = ("fused_dot_graph_spmm_kernel", "bwd_rows_kernel",
-               "bwd_cols_kernel")
+               "bwd_cols_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel",
+               "lstm_dw_partial_kernel", "lstm_dw_reduce_kernel")
+METHODS = ("FC_STGNN", "LOGO")
+# Each method's kernel wrapper, its calls per model forward (the dot-graph
+# chain once per scale, the LSTM recurrence once per Bi-LSTM layer) and the
+# backward's launches per call.
+KERNEL_OF = {"FC_STGNN": (fused_gnn.fused_dot_graph_spmm, 2,
+                          fused_gnn.BWD_LAUNCHES_PER_CALL),
+             "LOGO": (fused_lstm.lstm_recurrence, 3,
+                      fused_lstm.BWD_LAUNCHES_PER_CALL)}
 
 
 def _device() -> str:
@@ -93,6 +109,12 @@ def _build() -> None:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {stem}: {line.strip()}")
     fused_gnn.fused_dot_graph_spmm.load()
+    fused_lstm.lstm_recurrence.load()
+    for h in sorted({h for _, _, h in LSTM_CASES}):
+        fwd, bwd = fused_lstm.lstm_recurrence.w_hh_in_shared_memory(h)
+        print(f"  lstm H={h}: W_hh in "
+              f"{'shared' if fwd else 'global'} memory (forward), "
+              f"{'shared' if bwd else 'global'} memory (backward)")
 
 
 def _fused_inputs(b: int, n: int, d: int, f: int, seed: int):
@@ -136,13 +158,32 @@ def _kernel_vs_plain() -> float:
     return worst
 
 
+def _hold(what: str, got, want, exact) -> float:
+    """``got`` against the fp32 plain ``want`` at TOL; a component that
+    misses is held against ``exact()``, the plain version in fp64 on the
+    card, at the same tolerance (PR 2's rule: it passes only if the kernel
+    is the closer of the two to the exact function). Returns the error."""
+    err = (got - want).abs()
+    ok = bool((err <= TOL_ATOL + TOL_RTOL * want.abs()).all())
+    ref = "fp32 plain"
+    if not ok:
+        p64 = exact()
+        ref = (f"fp64 plain (fp32 plain off by "
+               f"{(want.double() - p64).abs().max().item():.3e})")
+        err = (got.double() - p64).abs()
+        ok = bool((err <= TOL_ATOL + TOL_RTOL * p64.abs()).all())
+    max_err = err.max().item()
+    print(f"{what}: max_abs_err={max_err:.3e} against the {ref} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok or not torch.isfinite(got).all():
+        raise AssertionError(f"{what} disagrees with its plain version")
+    return max_err
+
+
 def _bwd_vs_plain() -> float:
     """The backward kernels against the plain backward at every case, dmask
-    included. The tolerance is the forward's, against the fp32 plain
-    version. Where dS = P (dP - inner) cancels, the fp32 plain version's
-    own rounding can exceed it; a component that misses it is held against
-    the plain version in fp64 on the card at the same tolerance, which
-    passes only if the kernel is the closer of the two to the exact chain."""
+    included, by :func:`_hold`: where dS = P (dP - inner) cancels, the fp32
+    plain version's own rounding can exceed the tolerance."""
     kernel = fused_gnn.fused_dot_graph_spmm
     plain = fused_gnn.fused_dot_graph_spmm_bwd_plain
     worst = 0.0
@@ -155,37 +196,80 @@ def _bwd_vs_plain() -> float:
         pdh, pdx, pdmask = plain(h, x, mask, g)
         want = (pdh, pdx, pdmask.sum(dim=0))
         torch.cuda.synchronize()
-        exact = None
-        for name, k, p in zip(("dh", "dx", "dmask"), got, want):
-            ref = "fp32 plain"
-            err = (k - p).abs()
-            ok = bool((err <= TOL_ATOL + TOL_RTOL * p.abs()).all())
-            if not ok:
-                if exact is None:
-                    e = plain(*(t.double() for t in (h, x, mask, g)))
-                    exact = (e[0], e[1], e[2].sum(dim=0))
-                p64 = exact[("dh", "dx", "dmask").index(name)]
-                ref = (f"fp64 plain (fp32 plain off by "
-                       f"{(p.double() - p64).abs().max().item():.3e})")
-                err = (k.double() - p64).abs()
-                ok = bool((err <= TOL_ATOL + TOL_RTOL * p64.abs()).all())
-            max_err = err.max().item()
-            print(f"backward vs plain B={b} N={n} D={d} F={f} {name}: "
-                  f"max_abs_err={max_err:.3e} against the {ref} "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok or not torch.isfinite(k).all():
-                raise AssertionError(
-                    f"fused_dot_graph_spmm backward disagrees with its plain "
-                    f"version in {name} at B={b} N={n} D={d} F={f}")
-            worst = max(worst, max_err)
+
+        @functools.cache
+        def exact():
+            e = plain(*(t.double() for t in (h, x, mask, g)))
+            return e[0], e[1], e[2].sum(dim=0)
+
+        for k, name in enumerate(("dh", "dx", "dmask")):
+            worst = max(worst, _hold(
+                f"backward vs plain B={b} N={n} D={d} F={f} {name}", got[k],
+                want[k], lambda k=k: exact()[k]))
     return worst
 
 
-def _seeded_state_dict(seed: int = 0):
-    """FC_STGNN/FD001 weights from ``seed``, with BN running statistics set
-    away from (0, 1) so that eval-mode BN is not the identity."""
+# (T, B, H) of the LSTM recurrence: LOGO training (T = the batch of 100,
+# B = 70 node-patches, H = 24 and 48), the epoch's remainder batch, the
+# symbolic serving batch of 1000, HAGCN (T = 1400 at B = 5, H = 60, 120),
+# W_hh beyond shared memory (H = 192), ragged shapes.
+LSTM_CASES = [(100, 70, 24), (100, 70, 48), (31, 70, 24), (1000, 70, 48),
+              (1400, 5, 60), (1400, 5, 120), (100, 70, 192), (7, 13, 30),
+              (1, 1, 8)]
+
+
+def _lstm_inputs(t: int, b: int, h: int, seed: int):
+    """Seeded recurrence inputs on the card: unit-normal gate inputs, W_hh
+    from nn.LSTM's U(-1/sqrt(H), 1/sqrt(H)), unit-normal cotangents of ys
+    and c_fin."""
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(size=(t, 2, b, 4 * h)),
+              rng.uniform(-1, 1, size=(2, h, 4 * h)) / np.sqrt(h),
+              rng.normal(size=(t, 2, b, h)), rng.normal(size=(2, b, h)))
+    return tuple(torch.as_tensor(a, dtype=torch.float32).cuda().contiguous()
+                 for a in arrays)
+
+
+def _lstm_vs_plain():
+    """The recurrence kernels against their plain versions at LSTM_CASES:
+    the forward's ys, c trajectory and c_fin; the backward's dxg and dw_hh
+    on the kernel's saved trajectories, with nonzero cotangents of both
+    outputs. Returns the largest (forward, backward) errors."""
+    kernel = fused_lstm.lstm_recurrence
+    worst_fwd = worst_bwd = 0.0
+    for i, (t, b, h) in enumerate(LSTM_CASES):
+        xg, w, dys, dcf = _lstm_inputs(t, b, h, seed=200 + i)
+        ys, cs, c_fin = kernel.forward(xg, w)
+        p_ys, p_cs = fused_lstm.lstm_trajectory_plain(xg, w)
+        torch.cuda.synchronize()
+        fwd64 = functools.cache(lambda: fused_lstm.lstm_trajectory_plain(
+            xg.double(), w.double()))
+        shape = f"T={t} B={b} H={h}"
+        for name, got, want, exact in (
+                ("ys", ys, p_ys, lambda: fwd64()[0]),
+                ("cs", cs, p_cs, lambda: fwd64()[1]),
+                ("c_fin", c_fin, p_cs[-1], lambda: fwd64()[1][-1])):
+            worst_fwd = max(worst_fwd, _hold(
+                f"lstm forward vs plain {shape} {name}", got, want, exact))
+
+        dxg, dw = kernel.backward(xg, w, ys, cs, dys, dcf)
+        want = fused_lstm.lstm_recurrence_bwd_plain(xg, w, ys, cs, dys, dcf)
+        torch.cuda.synchronize()
+        bwd64 = functools.cache(lambda: fused_lstm.lstm_recurrence_bwd_plain(
+            *(a.double() for a in (xg, w, ys, cs, dys, dcf))))
+        for k, (name, got) in enumerate((("dxg", dxg), ("dw", dw))):
+            worst_bwd = max(worst_bwd, _hold(
+                f"lstm backward vs plain {shape} {name}", got, want[k],
+                lambda k=k: bwd64()[k]))
+    return worst_fwd, worst_bwd
+
+
+def _seeded_state_dict(method: str = "FC_STGNN", seed: int = 0):
+    """``method``/FD001 weights from ``seed``, with any BN running
+    statistics set away from (0, 1) so that eval-mode BN is not the
+    identity."""
     torch.manual_seed(seed)
-    sd = build_model("FC_STGNN", "CMAPSS", "FD001").state_dict()
+    sd = build_model(method, "CMAPSS", "FD001").state_dict()
     gen = torch.Generator().manual_seed(seed)
     for k, v in sd.items():
         if k.endswith("running_mean"):
@@ -195,65 +279,75 @@ def _seeded_state_dict(seed: int = 0):
     return sd
 
 
-def _serve():
-    """Drive the serving path; return the models, a request of each size and
-    the kernel's launches over the run."""
-    sd = _seeded_state_dict()
-    fixed = serving_model("FC_STGNN", "CMAPSS", "FD001", sd,
-                          batch_size=SERVE_BATCH)
-    symbolic = serving_model("FC_STGNN", "CMAPSS", "FD001", sd)
-    on_cpu = serving_model("FC_STGNN", "CMAPSS", "FD001", sd, device="cpu")
+def _serve(method: str):
+    """Drive ``method``'s serving path; return the models, a request of each
+    size and the kernel's launches over the run. Each answer is held
+    against the CPU at the same batch: LOGO's answers depend on the other
+    rows of a forward, the padding rows included."""
+    sd = _seeded_state_dict(method)
+    models = {bs: {dev: serving_model(method, "CMAPSS", "FD001", sd,
+                                      batch_size=bs, device=dev)
+                   for dev in ("cuda", "cpu")}
+              for bs in (SERVE_BATCH, None)}
     rng = np.random.default_rng(1)
-    requests = [(fixed, rng.normal(size=(n, 14, 50)).astype(np.float32))
+    requests = [(SERVE_BATCH, rng.normal(size=(n, 14, 50)).astype(np.float32))
                 for n in [SERVE_BATCH] * 5 + [37]]
-    requests.append((symbolic, rng.normal(size=(1000, 14, 50))
+    requests.append((None, rng.normal(size=(1000, 14, 50))
                      .astype(np.float32)))
-    forwards = sum(-(-len(x) // (m.meta["input_shape"][0] or len(x)))
-                   for m, x in requests)
+    forwards = sum(-(-len(x) // (bs or len(x))) for bs, x in requests)
 
-    kernel = fused_gnn.fused_dot_graph_spmm
+    kernel, per_forward, _ = KERNEL_OF[method]
     kernel.launches = 0
-    answers = [model(x) for model, x in requests]
+    answers = [models[bs]["cuda"](x) for bs, x in requests]
     torch.cuda.synchronize()
     launches = kernel.launches
 
-    for (_, x), got in zip(requests, answers):
-        want = on_cpu(x)
+    for (bs, x), got in zip(requests, answers):
+        want = models[bs]["cpu"](x)
         if got.shape != (len(x),) or not np.isfinite(got).all():
             raise AssertionError(f"serving answer of shape {got.shape} for "
                                  f"{len(x)} rows, or not finite")
         np.testing.assert_allclose(got, want, atol=SERVE_ATOL,
                                    rtol=SERVE_RTOL)
-    print(f"serve: {len(requests)} requests, {forwards} forwards, "
-          f"fused_dot_graph_spmm launches={launches}; every answer matches "
-          f"the CPU (atol={SERVE_ATOL}, rtol={SERVE_RTOL})")
-    if launches != 2 * forwards:
-        raise AssertionError(f"expected 2 launches per forward (one per "
-                             f"scale), got {launches} for {forwards}")
-    return fixed, symbolic, requests[0][1], requests[-1][1], launches
+    name = type(kernel).__name__
+    print(f"serve {method}: {len(requests)} requests, {forwards} forwards, "
+          f"{name} launches={launches}; every answer matches the CPU "
+          f"(atol={SERVE_ATOL}, rtol={SERVE_RTOL})")
+    if launches != per_forward * forwards:
+        raise AssertionError(f"expected {per_forward} launches per forward, "
+                             f"got {launches} for {forwards}")
+    return (models[SERVE_BATCH]["cuda"], models[None]["cuda"],
+            requests[0][1], requests[-1][1], launches)
 
 
-def _train_parity() -> None:
+def _no_dropout(model):
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def _train_parity(method: str) -> None:
     """PARITY_STEPS steps at batch 100 on the card and on the CPU from the
-    same weights on the same batches, PE dropout off, cuDNN deterministic
-    and without TF32 for this phase."""
+    same weights on the same batches, dropout off, cuDNN deterministic and
+    without TF32 for this phase."""
     torch.backends.cudnn.deterministic = True
     torch.manual_seed(0)
-    sd = build_model("FC_STGNN", "CMAPSS", "FD001").state_dict()
+    sd = build_model(method, "CMAPSS", "FD001").state_dict()
     engines = {}
     for device in ("cuda", "cpu"):
-        model = build_model("FC_STGNN", "CMAPSS", "FD001")
+        model = build_model(method, "CMAPSS", "FD001")
         model.load_state_dict(sd)
-        model.pe_dropout.p = 0.0
-        engines[device] = Engine(model, get_algorithm_spec("FC_STGNN"),
-                                 train_params("CMAPSS", "FD001", "FC_STGNN"),
+        engines[device] = Engine(_no_dropout(model),
+                                 get_algorithm_spec(method),
+                                 train_params("CMAPSS", "FD001", method),
                                  device=device)
     rng = np.random.default_rng(2)
     xs = rng.normal(size=(PARITY_STEPS, SERVE_BATCH, 14, 50)).astype(
         np.float32)
     ys = rng.uniform(size=(PARITY_STEPS, SERVE_BATCH, 1)).astype(np.float32)
 
-    kernel = fused_gnn.fused_dot_graph_spmm
+    kernel, per_forward, bwd_per_call = KERNEL_OF[method]
     kernel.launches = kernel.bwd_launches = 0
     card = [engines["cuda"].train_step(torch.from_numpy(x).cuda(),
                                        torch.from_numpy(y).cuda())
@@ -270,20 +364,19 @@ def _train_parity() -> None:
     param_diff = max((p.detach().cpu() - cpu_params[k].detach()).abs().max()
                      .item()
                      for k, p in engines["cuda"].model.named_parameters())
-    print(f"train parity: {PARITY_STEPS} steps at batch {SERVE_BATCH}, losses "
-          f"card {card.tolist()} cpu {cpu.tolist()}; max |param card - cpu| "
-          f"{param_diff:.3e}; launches forward {fwd_launches}, backward "
-          f"{bwd_launches}")
+    print(f"train parity {method}: {PARITY_STEPS} steps at batch "
+          f"{SERVE_BATCH}, losses card {card.tolist()} cpu {cpu.tolist()}; "
+          f"max |param card - cpu| {param_diff:.3e}; launches forward "
+          f"{fwd_launches}, backward {bwd_launches}")
     np.testing.assert_allclose(card, cpu, rtol=LOSS_RTOL, atol=LOSS_ATOL)
     if not param_diff < PARAM_MAX_DIFF:
         raise AssertionError(f"parameters on the card and the CPU differ by "
                              f"{param_diff} after {PARITY_STEPS} steps")
-    want_bwd = 2 * fused_gnn.BWD_LAUNCHES_PER_CALL * PARITY_STEPS
-    if bwd_launches != want_bwd or fwd_launches != 2 * PARITY_STEPS:
-        raise AssertionError(
-            f"expected {2 * PARITY_STEPS} forward and {want_bwd} backward "
-            f"launches (2 scales per step), got {fwd_launches} and "
-            f"{bwd_launches}")
+    want = (per_forward * PARITY_STEPS,
+            per_forward * bwd_per_call * PARITY_STEPS)
+    if (fwd_launches, bwd_launches) != want:
+        raise AssertionError(f"expected (forward, backward) launches {want}, "
+                             f"got {(fwd_launches, bwd_launches)}")
 
 
 def _write_fd001(root: str, seed: int = 3):
@@ -321,33 +414,33 @@ def _write_fd001(root: str, seed: int = 3):
             os.path.join(root, "Processed_dataset"))
 
 
-def _train_entry_point(root: str):
-    """The main path: ``cli.main`` trains one epoch on the card. Returns
-    the training data and the kernels' launches over that run."""
-    (train_x, train_y), test_x, data_root = _write_fd001(root)
-    save_dir = os.path.join(root, "logs")
-    kernel = fused_gnn.fused_dot_graph_spmm
+def _train_entry_point(method: str, fd001):
+    """The main path: ``cli.main`` trains one epoch of ``method`` on the
+    card. Returns the kernel's (forward, backward) launches over that run."""
+    (train_x, _), test_x, data_root = fd001
+    save_dir = os.path.join(os.path.dirname(data_root), "logs")
+    kernel, per_forward, bwd_per_call = KERNEL_OF[method]
     kernel.launches = kernel.bwd_launches = 0
     t0 = time.perf_counter()
     results = cli.main([
-        "--GNN_method", "FC_STGNN", "--dataset", "CMAPSS", "--dataset_id",
+        "--GNN_method", method, "--dataset", "CMAPSS", "--dataset_id",
         "FD001", "--data_path", data_root, "--save_dir", save_dir,
         "--epochs", "1", "--num_runs", "1"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd_launches, bwd_launches = kernel.launches, kernel.bwd_launches
 
-    run_dir = os.path.join(save_dir, "GNN_RUL", "run_1", "FC_STGNN_run_0")
+    run_dir = os.path.join(save_dir, "GNN_RUL", "run_1", f"{method}_run_0")
     with open(os.path.join(run_dir, "logs_run_0.log")) as f:
         losses = [float(v) for v in re.findall(r"loss\t: (\S+)", f.read())]
     with open(os.path.join(run_dir, "results.csv")) as f:
         rows = [line.strip().split(",") for line in f if line.strip()]
     best = results[0][None]
-    print(f"train entry point: cli.main, 1 epoch of {len(train_x)} windows "
-          f"on the card in {wall:.2f} s (build, upload and evaluation "
-          f"included); epoch loss {losses}; best (Score_v1, Score_v2, MAE, "
-          f"RMSE) {best}; launches forward {fwd_launches}, backward "
-          f"{bwd_launches}")
+    print(f"train entry point {method}: cli.main, 1 epoch of {len(train_x)} "
+          f"windows on the card in {wall:.2f} s (build, upload and "
+          f"evaluation included); epoch loss {losses}; best (Score_v1, "
+          f"Score_v2, MAE, RMSE) {best}; launches forward {fwd_launches}, "
+          f"backward {bwd_launches}")
     if len(losses) != 1 or not np.isfinite(losses[0]):
         raise AssertionError(f"epoch losses {losses}")
     if rows[0] != ["Score_v1", "Score_v2", "MAE", "RMSE"] or len(rows) != 2 \
@@ -355,27 +448,27 @@ def _train_entry_point(root: str):
         raise AssertionError(f"results.csv holds {rows}")
     steps = -(-len(train_x) // SERVE_BATCH)
     evals = -(-len(test_x) // SERVE_BATCH)
-    want = (2 * (steps + evals),
-            2 * fused_gnn.BWD_LAUNCHES_PER_CALL * steps)
+    want = (per_forward * (steps + evals),
+            per_forward * bwd_per_call * steps)
     if (fwd_launches, bwd_launches) != want:
         raise AssertionError(f"expected (forward, backward) launches {want}, "
                              f"got {(fwd_launches, bwd_launches)}")
 
     ckpt = torch.load(os.path.join(run_dir, "checkpoint.pt"),
                       map_location="cpu", weights_only=True)
-    on_card = serving_model("FC_STGNN", "CMAPSS", "FD001", ckpt["model_dict"],
-                            batch_size=SERVE_BATCH)
-    on_cpu = serving_model("FC_STGNN", "CMAPSS", "FD001", ckpt["model_dict"],
-                           device="cpu")
+    on_card, on_cpu = (serving_model(method, "CMAPSS", "FD001",
+                                     ckpt["model_dict"],
+                                     batch_size=SERVE_BATCH, device=dev)
+                       for dev in ("cuda", "cpu"))
     got, want_pred = on_card(test_x), on_cpu(test_x)
     if got.shape != (len(test_x),) or not np.isfinite(got).all():
         raise AssertionError(f"checkpoint serves {got.shape} or non-finite")
     np.testing.assert_allclose(got, want_pred, atol=SERVE_ATOL,
                                rtol=SERVE_RTOL)
-    print(f"train entry point: checkpoint.pt serves {len(test_x)} test "
-          f"windows on the card as on the CPU (atol={SERVE_ATOL}, "
+    print(f"train entry point {method}: checkpoint.pt serves {len(test_x)} "
+          f"test windows on the card as on the CPU (atol={SERVE_ATOL}, "
           f"rtol={SERVE_RTOL})")
-    return (train_x, train_y), fwd_launches, bwd_launches
+    return fwd_launches, bwd_launches
 
 
 def _graph_ms(fn, inner: int = 50, reps: int = 21) -> float:
@@ -502,39 +595,146 @@ def _step_ms(engine: Engine, x, y, warmup: int = 5, reps: int = 30) -> float:
     return statistics.median(times)
 
 
-def main() -> None:
-    kind = _device()
-    _build()
-    max_err = _kernel_vs_plain()
-    bwd_max_err = _bwd_vs_plain()
-    fixed, symbolic, x100, x1000, serve_launches = _serve()
-    _train_parity()
-    with tempfile.TemporaryDirectory() as tmp:
-        data, fwd_launches, bwd_launches = _train_entry_point(tmp)
+def _lstm_bound_ms(t: int, b: int, h: int, backward: bool = False):
+    """Least time for the recurrence on an H100 SXM, the larger of its bytes
+    at the HBM rate and its fp32 operations at the fp32 peak, per (step,
+    direction, column). Forward: xg and w_hh read, ys and the c trajectory
+    written; 8H^2 for the recurrent product, 4H gate additions, 5H
+    activations and 5H for the cell. Backward: xg, w_hh, ys, cs, dys and
+    dc_fin read, dxg and dw_hh written; three recurrent products (the
+    recomputed gates, dh, dW: 24H^2) and 4H + 5H + 5H + 16H elementwise."""
+    rows = t * 2 * b
+    if backward:
+        nbytes = 4 * (rows * (4 * h + 3 * h + 4 * h) + 2 * 2 * h * 4 * h
+                      + 2 * b * h)
+        flops = rows * (24 * h * h + 30 * h)
+    else:
+        nbytes = 4 * (rows * (4 * h + 2 * h) + 2 * h * 4 * h)
+        flops = rows * (8 * h * h + 14 * h)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
 
-    kernel = fused_gnn.fused_dot_graph_spmm
-    fwd = _kernel_times("fused_dot_graph_spmm", KERNEL_CASES[:2], kernel,
-                        fused_gnn.fused_dot_graph_spmm_plain, backward=False)
-    bwd = _kernel_times("fused_dot_graph_spmm_bwd", KERNEL_CASES[:2],
-                        kernel.backward,
-                        fused_gnn.fused_dot_graph_spmm_bwd_plain,
-                        backward=True)
+
+def _event_ms(fn, inner: int = 10, reps: int = 5) -> float:
+    """Median device ms of one ``fn()`` from CUDA events around ``inner``
+    back-to-back calls (no CUDA graph: cuDNN's LSTM is timed as a caller
+    would run it), after 3 warmup calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+class _Clocks:
+    """Samples the card's SM clock and power draw every 100 ms with
+    nvidia-smi while the block runs; on leaving it stops the sampler and
+    prints their range."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=60)
+        rows = []
+        for line in out.splitlines():
+            fields = [f.strip() for f in line.split(",")]
+            if len(fields) == 3 and all(f.replace(".", "", 1).isdigit()
+                                        for f in fields):
+                rows.append([float(f) for f in fields])
+        if rows:
+            sm, top, watts = (sorted(col) for col in zip(*rows))
+            print(f"clocks during the kernel timings [{SMI}]: {len(rows)} "
+                  f"samples, SM clock {sm[0]:.0f}/{statistics.median(sm):.0f}"
+                  f"/{sm[-1]:.0f} MHz (min/median/max; max possible "
+                  f"{top[-1]:.0f}), power draw {watts[0]:.1f}/"
+                  f"{statistics.median(watts):.1f}/{watts[-1]:.1f} W")
+        return False
+
+
+def _lstm_times(shapes):
+    """{(T, B, H): {"fwd": (kernel, plain, bound, bound by, cuDNN),
+    "bwd": (...)}} in ms. The plain versions loop over T in Python, so
+    their CUDA graphs hold fewer calls; cuDNN's ``torch.nn.LSTM(H, H,
+    bidirectional=True, batch_first=True)`` on x (B, T, H) includes its
+    input projection: forward under no_grad for the forward, forward and
+    backward minus the training forward for the backward."""
+    kernel = fused_lstm.lstm_recurrence
+    out = {}
+    for t, b, h in shapes:
+        xg, w, dys, dcf = _lstm_inputs(t, b, h, seed=0)
+        ys, cs, _ = kernel.forward(xg, w)
+        inner = max(1, 500 // t)
+        lib = torch.nn.LSTM(h, h, bidirectional=True, batch_first=True).cuda()
+        x = torch.randn(b, t, h, device="cuda", requires_grad=True)
+        g = torch.randn(b, t, 2 * h, device="cuda")
+
+        def lib_fwd():
+            with torch.no_grad():
+                lib(x)
+
+        def lib_train():
+            lib(x)[0].backward(g)
+
+        train_fwd = _event_ms(lambda: lib(x))
+        out[(t, b, h)] = {
+            "fwd": (_graph_ms(lambda: kernel.forward(xg, w)),
+                    _graph_ms(lambda: fused_lstm.lstm_trajectory_plain(xg, w),
+                              inner=inner),
+                    *_lstm_bound_ms(t, b, h), _event_ms(lib_fwd)),
+            "bwd": (_graph_ms(lambda: kernel.backward(xg, w, ys, cs, dys,
+                                                      dcf)),
+                    _graph_ms(lambda: fused_lstm.lstm_recurrence_bwd_plain(
+                        xg, w, ys, cs, dys, dcf), inner=max(1, inner // 3)),
+                    *_lstm_bound_ms(t, b, h, backward=True),
+                    _event_ms(lib_train) - train_fwd),
+        }
+        for part, name in (("fwd", "lstm_recurrence"),
+                           ("bwd", "lstm_recurrence_bwd")):
+            row = out[(t, b, h)][part]
+            print(f"times [{SMI}]: {name} T={t} B={b} H={h}: kernel "
+                  f"{row[0]:.6f} ms ({row[0] / t * 1e3:.3f} us per step), "
+                  f"plain {row[1]:.6f} ms, bound {row[2]:.6f} ms ({row[3]}), "
+                  f"cuDNN nn.LSTM {row[4]:.6f} ms")
+    return out
+
+
+def _serve_times(method: str, fixed, symbolic, x100, x1000) -> None:
     for name, model, xs in (("batch 100", fixed, x100),
                             ("batch 1000", symbolic, x1000)):
         req_ms = _request_ms(model, xs)
         x_dev = torch.from_numpy(xs).cuda()
         with torch.inference_mode():
             fwd_ms = _graph_ms(lambda: model.model(x_dev), inner=10)
-        print(f"serve {name} [{SMI}]: {req_ms:.4f} ms/request, "
+        print(f"serve {method} {name} [{SMI}]: {req_ms:.4f} ms/request, "
               f"{len(xs) / req_ms * 1e3:.1f} samples/s; the forward's device "
               f"work alone (CUDA graph) {fwd_ms:.4f} ms")
-        _profile(f"serve {name}", lambda: model(xs), req_ms, "request")
+        _profile(f"serve {method} {name}", lambda: model(xs), req_ms,
+                 "request")
 
-    train_x, train_y = data
+
+def _train_times(method: str, fd001) -> None:
+    (train_x, train_y), _, _ = fd001
     torch.manual_seed(0)
-    engine = Engine(build_model("FC_STGNN", "CMAPSS", "FD001"),
-                    get_algorithm_spec("FC_STGNN"),
-                    train_params("CMAPSS", "FD001", "FC_STGNN"))
+    engine = Engine(build_model(method, "CMAPSS", "FD001"),
+                    get_algorithm_spec(method),
+                    train_params("CMAPSS", "FD001", method))
     xb = torch.from_numpy(train_x[:SERVE_BATCH]).cuda()
     yb = torch.from_numpy(train_y[:SERVE_BATCH]).cuda()
     step_ms = _step_ms(engine, xb, yb)
@@ -543,32 +743,78 @@ def main() -> None:
     engine.run_epoch(train_x, train_y, 2, shuffle=True)
     epoch_s = time.perf_counter() - t0
     steps = -(-len(train_x) // SERVE_BATCH)
-    print(f"train [{SMI}]: {step_ms:.4f} ms per step at batch {SERVE_BATCH} "
-          f"(median of 30); one epoch of {len(train_x)} windows in "
-          f"{steps} steps {epoch_s:.4f} s, {len(train_x) / epoch_s:.1f} "
-          f"samples/s; backward launches per step "
-          f"{2 * fused_gnn.BWD_LAUNCHES_PER_CALL}")
-    _profile("train step", lambda: engine.train_step(xb, yb), step_ms,
-             "step")
+    _, per_forward, bwd_per_call = KERNEL_OF[method]
+    print(f"train {method} [{SMI}]: {step_ms:.4f} ms per step at batch "
+          f"{SERVE_BATCH} (median of 30); one epoch of {len(train_x)} "
+          f"windows in {steps} steps {epoch_s:.4f} s, "
+          f"{len(train_x) / epoch_s:.1f} samples/s; backward launches per "
+          f"step {per_forward * bwd_per_call}")
+    _profile(f"train step {method}", lambda: engine.train_step(xb, yb),
+             step_ms, "step")
+
+
+def main() -> None:
+    kind = _device()
+    _build()
+    max_err = _kernel_vs_plain()
+    bwd_max_err = _bwd_vs_plain()
+    lstm_err, lstm_bwd_err = _lstm_vs_plain()
+    served = {m: _serve(m) for m in METHODS}
+    for method in METHODS:
+        _train_parity(method)
+    with tempfile.TemporaryDirectory() as tmp:
+        fd001 = _write_fd001(tmp)
+        trained = {m: _train_entry_point(m, fd001) for m in METHODS}
+
+        kernel = fused_gnn.fused_dot_graph_spmm
+        fwd = _kernel_times("fused_dot_graph_spmm", KERNEL_CASES[:2], kernel,
+                            fused_gnn.fused_dot_graph_spmm_plain,
+                            backward=False)
+        bwd = _kernel_times("fused_dot_graph_spmm_bwd", KERNEL_CASES[:2],
+                            kernel.backward,
+                            fused_gnn.fused_dot_graph_spmm_bwd_plain,
+                            backward=True)
+        with _Clocks():
+            lstm = _lstm_times([(100, 70, 24), (100, 70, 48),
+                                (1400, 5, 120)])
+        for method in METHODS:
+            _serve_times(method, *served[method][:4])
+            _train_times(method, fd001)
 
     def entry(name, times, max_abs_err, launches, **extra):
-        ms, plain_ms, bound_ms, bound_by = times[KERNEL_CASES[0]]
+        ms, plain_ms, bound_ms, bound_by, *library = times
         return {"name": name, "route": "cuda", **extra,
                 "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
                 "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}
+                "bound_by": bound_by,
+                "library_ms": library[0] if library else None}
 
+    lstm_shape = (100, 70, 48)
     print(json.dumps({"kernels": [
-        entry("fused_dot_graph_spmm", fwd, max_err, fwd_launches,
+        entry("fused_dot_graph_spmm", fwd[KERNEL_CASES[0]], max_err,
+              trained["FC_STGNN"][0],
               source="gnn_rul_tpu_torch/csrc/fused_gnn.cu",
               replaces="gnn_rul_tpu/ops/pallas/fused_gnn.py:45 (_kernel), "
                        "gnn_rul_tpu/ops/pallas/fused_gnn.py:116 "
                        "(_packed_kernel)",
-              launches_serve=serve_launches),
-        entry("fused_dot_graph_spmm_bwd", bwd, bwd_max_err, bwd_launches,
+              launches_serve=served["FC_STGNN"][4]),
+        entry("fused_dot_graph_spmm_bwd", bwd[KERNEL_CASES[0]], bwd_max_err,
+              trained["FC_STGNN"][1],
               source="gnn_rul_tpu_torch/csrc/fused_gnn_bwd.cu",
               replaces="gnn_rul_tpu/ops/pallas/fused_gnn.py:235 "
                        "(_bwd_kernel)"),
+        entry("fused_lstm", lstm[lstm_shape]["fwd"], lstm_err,
+              trained["LOGO"][0], source="gnn_rul_tpu_torch/csrc/fused_lstm.cu",
+              replaces="gnn_rul_tpu/ops/pallas/fused_lstm.py:77 (_fwd_kernel)",
+              shape="T=100 B=70 H=48", library="torch.nn.LSTM forward",
+              launches_serve=served["LOGO"][4]),
+        entry("fused_lstm_bwd", lstm[lstm_shape]["bwd"], lstm_bwd_err,
+              trained["LOGO"][1],
+              source="gnn_rul_tpu_torch/csrc/fused_lstm_bwd.cu",
+              replaces="gnn_rul_tpu/ops/pallas/fused_lstm.py:106 "
+                       "(_bwd_kernel)",
+              shape="T=100 B=70 H=48",
+              library="torch.nn.LSTM forward+backward minus forward"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,15 +1,18 @@
 """JAX-package variables -> the port's ``state_dict``.
 
-The inverse of the JAX package's torch-reference import for FC_STGNN
-(``gnn_rul_tpu/compat/torch_import.py::_map_fc_stgnn``): it takes the flax
-``{"params", "batch_stats"}`` tree as numpy arrays and returns a
-``state_dict`` under the original torch reference's keys, which the port's
-modules carry:
+The inverse of the JAX package's torch-reference import
+(``gnn_rul_tpu/compat/torch_import.py``: ``_map_fc_stgnn``, ``_map_logo``)
+for the ported methods: it takes the flax ``{"params", "batch_stats"}``
+tree as numpy arrays and returns a ``state_dict`` under the original torch
+reference's keys, which the port's modules carry:
 
   - Dense kernel ``(in, out)``   -> Linear weight ``(out, in)``   [transpose]
   - Conv kernel ``(k, in, out)`` -> Conv1d weight ``(out, in, k)``
   - BatchNorm ``scale/bias`` + ``mean/var`` -> ``weight/bias`` +
     ``running_mean/running_var``, with ``num_batches_tracked`` 0
+  - LSTM ``w_ih (D, 4H)``, ``w_hh (H, 4H)``, ``b_ih``, ``b_hh`` ->
+    ``weight_ih_l0 (4H, D)``, ``weight_hh_l0 (4H, H)``, ``bias_ih_l0``,
+    ``bias_hh_l0`` (``_reverse`` for the backward direction)
 """
 
 from __future__ import annotations
@@ -20,7 +23,10 @@ import numpy as np
 import torch
 
 
-def _fc_stgnn_layout() -> List[Tuple[str, str, Tuple[str, ...]]]:
+Layout = List[Tuple[str, str, Tuple[str, ...]]]
+
+
+def _fc_stgnn_layout() -> Layout:
     """``(torch prefix, kind, flax path)`` for every FC_STGNN layer."""
     enc = ("nonlin_map",)
     rows = [
@@ -47,6 +53,27 @@ def _fc_stgnn_layout() -> List[Tuple[str, str, Tuple[str, ...]]]:
     return rows
 
 
+def _logo_layout() -> Layout:
+    """``(torch prefix, kind, flax path)`` for every LOGO layer; the flax
+    tree sits under ``core``."""
+    rows = [("nonlin_map", "linear", ("core", "nonlin_map", "Dense_0")),
+            ("MPNN.theta.0", "linear", ("core", "MPNN", "theta0", "Dense_0")),
+            ("fc.fc1", "linear", ("core", "fc1", "Dense_0")),
+            ("fc.fc2", "linear", ("core", "fc2", "Dense_0")),
+            ("cls", "linear", ("core", "cls", "Dense_0"))]
+    rows += [(f"graph_attn_blk.{name}", "linear",
+              ("core", "graph_attn_blk", name, "Dense_0"))
+             for name in ("W_Z_T", "W_Z_G", "W_R_T", "W_R_G", "W_h_T", "W_h")]
+    for i in (1, 2, 3):
+        rows += [(f"TD.bi_lstm{i}", "lstm", ("core", "TD", f"bi_lstm{i}_fwd")),
+                 (f"TD.bi_lstm{i}", "lstm_reverse",
+                  ("core", "TD", f"bi_lstm{i}_bwd"))]
+    return rows
+
+
+_LAYOUTS = {"FC_STGNN": _fc_stgnn_layout, "LOGO": _logo_layout}
+
+
 def _get(tree: Dict[str, Any], path: Tuple[str, ...]) -> Dict[str, Any]:
     for key in path:
         tree = tree[key]
@@ -62,16 +89,22 @@ def from_jax_variables(method: str,
     """Map the JAX package's ``{"params", "batch_stats"}`` for ``method``
     onto the port's ``state_dict`` (CPU tensors, for
     ``load_state_dict(strict=True)``)."""
-    if method != "FC_STGNN":
+    if method not in _LAYOUTS:
         raise NotImplementedError(
             f"from_jax_variables: {method} is not ported yet; the port's "
             "order of work is in ROADMAP.md")
     params = variables["params"]
-    stats = variables["batch_stats"]
+    stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
-    for prefix, kind, path in _fc_stgnn_layout():
+    for prefix, kind, path in _LAYOUTS[method]():
         p = _get(params, path)
-        if kind == "linear":
+        if kind in ("lstm", "lstm_reverse"):
+            sfx = "_reverse" if kind == "lstm_reverse" else ""
+            sd[f"{prefix}.weight_ih_l0{sfx}"] = _t(np.asarray(p["w_ih"]).T)
+            sd[f"{prefix}.weight_hh_l0{sfx}"] = _t(np.asarray(p["w_hh"]).T)
+            sd[f"{prefix}.bias_ih_l0{sfx}"] = _t(p["b_ih"])
+            sd[f"{prefix}.bias_hh_l0{sfx}"] = _t(p["b_hh"])
+        elif kind == "linear":
             sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
             sd[f"{prefix}.bias"] = _t(p["bias"])
         elif kind == "conv":

@@ -16,6 +16,10 @@ result trimmed, so callers always get one prediction per input row.
                           batch_size=100)
     rul = model(x)          # x: (n, 14, 50) -> (n,)
 
+The ported methods are ``models.MODELS``: FC_STGNN and LOGO. LOGO's
+recurrence runs along the batch axis, so its answer for a row depends on
+the other rows of the forward, padding rows included.
+
 The model runs in ``eval()`` under ``torch.inference_mode()``, on the card
 by default. The serialized artifact (``torch.export``) is not ported yet
 (ROADMAP.md).
@@ -31,7 +35,7 @@ from torch import nn
 
 from .configs.data_configs import get_dataset_config
 from .configs.hparams import model_hparams
-from .models.fc_stgnn import FCSTGNN
+from .models import MODELS
 
 
 def resolve_device(device: str = "cuda") -> torch.device:
@@ -48,11 +52,11 @@ def resolve_device(device: str = "cuda") -> torch.device:
 def build_model(method: str, dataset: str,
                 dataset_id: Optional[str]) -> nn.Module:
     """The ``method`` model at the hparam bank's widths, on the CPU."""
-    if method != "FC_STGNN":
+    if method not in MODELS:
         raise NotImplementedError(
             f"{method} is not ported yet; the port's order of work is in "
             "ROADMAP.md")
-    return FCSTGNN(**model_hparams(dataset, dataset_id, method))
+    return MODELS[method](**model_hparams(dataset, dataset_id, method))
 
 
 def _model_keys(state_dict: Mapping[str, Any]) -> Dict[str, Any]:

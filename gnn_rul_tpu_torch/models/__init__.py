@@ -1,1 +1,7 @@
-"""Models of the port."""
+"""Models of the port. :data:`MODELS` maps each ported method to its
+class; the serving entry point and the algorithm registry both read it."""
+
+from .fc_stgnn import FCSTGNN
+from .logo import LOGO
+
+MODELS = {"FC_STGNN": FCSTGNN, "LOGO": LOGO}

@@ -1,5 +1,6 @@
 """Dense adjacency construction (counterpart of ``gnn_rul_tpu/ops/graphs.py``;
-only what FC_STGNN needs so far)."""
+only what FC_STGNN and LOGO need so far). ``record_edges`` waits for
+``ops/edge_count.py`` (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -23,3 +24,18 @@ def dot_graph_from_mapped(h: torch.Tensor) -> torch.Tensor:
     sim = torch.einsum("...nd,...md->...nm", h, h)
     sim = leaky_relu(sim - eye * 1e8)
     return torch.softmax(sim, dim=-1) + eye
+
+
+def pearson_graph(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Pearson correlation between the rows of ``x``: ``(..., N, L) ->
+    (..., N, N)`` (reference models/LOGO/Model.py:17-35).
+
+    ``eps`` is added to the denominator as the JAX package adds it, so a
+    row of zero variance gives 0 where ``torch.corrcoef`` gives nan.
+    """
+    xc = x - x.mean(dim=-1, keepdim=True)
+    cov = torch.einsum("...nl,...ml->...nm", xc, xc)
+    var = torch.sqrt(torch.clamp(torch.einsum("...nl,...nl->...n", xc, xc),
+                                 min=0.0))
+    denom = var[..., :, None] * var[..., None, :]
+    return cov / (denom + eps)

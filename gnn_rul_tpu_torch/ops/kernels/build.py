@@ -2,9 +2,10 @@
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, in ``build/`` at the repository root and
-named by a hash of the source, so an unchanged source is built once. The
-sources not yet built are compiled together, one ``nvcc`` each. The
-wrappers in this package load the libraries with ``ctypes`` at first use.
+named by a hash of the source and the headers beside it (``csrc/*.cuh``),
+so an unchanged source is built once. The sources not yet built are
+compiled together, one ``nvcc`` each. The wrappers in this package load the
+libraries with ``ctypes`` at first use.
 """
 
 from __future__ import annotations
@@ -32,7 +33,10 @@ def _nvcc() -> str:
 
 
 def _library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}_{digest}.so"
 
 

@@ -1,0 +1,282 @@
+"""Whole bidirectional LSTM recurrence: hand-written CUDA kernels and their
+plain versions.
+
+    lstm_recurrence(xg (T, 2, B, 4H), w_hh (2, H, 4H))
+        -> ys (T, 2, B, H), c_fin (2, B, H)
+
+xg holds the projected gate inputs ``x @ w_ih + b_ih + b_hh`` of both
+directions, direction 1 already flipped in time; w_hh is in the JAX layout
+(rows h, columns the gates [i, f, g, o]); h and c start at zero; fp32.
+
+Counterpart of ``gnn_rul_tpu/ops/pallas/fused_lstm.py``, forward and
+backward. :data:`lstm_recurrence` is the wrapper ``nn/recurrent.py`` calls.
+It is differentiable through a ``torch.autograd.Function`` that saves xg,
+w_hh, ys and the whole c trajectory, as the JAX ``_fwd`` does, and whose
+backward returns dxg and dw_hh; the cotangent of an output the caller
+never used (LOGO never reads c_fin) is zeros. On a CUDA tensor the forward
+launches the kernel in ``gnn_rul_tpu_torch/csrc/fused_lstm.cu`` and the
+backward the three kernels in ``csrc/fused_lstm_bwd.cu`` (the reverse
+sweep, the dW_hh partial sums, their fixed-order reduction), or they raise;
+on a CPU tensor they run :func:`lstm_recurrence_plain` and
+:func:`lstm_recurrence_bwd_plain`.
+
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use
+(``ops/kernels/build.py``) and called through ``ctypes`` on PyTorch's
+current stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from .build import build_libraries
+
+MAX_HIDDEN = 1024  # kMaxHidden in the sources: one thread per hidden unit
+BWD_LAUNCHES_PER_CALL = 3  # the reverse sweep, dW partials, dW reduction
+
+
+def _gates(gates: torch.Tensor):
+    i, f, g, o = gates.chunk(4, dim=-1)
+    return torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+
+
+def lstm_trajectory_plain(xg: torch.Tensor, w_hh: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ys, cs)``, both ``(T, 2, B, H)``: the time loop of the JAX
+    ``lstm_recurrence_reference``, keeping every step's c."""
+    _, _, b, _ = xg.shape
+    h = xg.new_zeros((2, b, w_hh.shape[1]))
+    c = torch.zeros_like(h)
+    ys, cs = [], []
+    for xt in xg:
+        i, f, g, o = _gates(xt + torch.bmm(h, w_hh))
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys.append(h)
+        cs.append(c)
+    return torch.stack(ys), torch.stack(cs)
+
+
+def lstm_recurrence_plain(xg: torch.Tensor, w_hh: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward: ``(ys, c_fin)``."""
+    ys, cs = lstm_trajectory_plain(xg, w_hh)
+    return ys, cs[-1]
+
+
+def lstm_recurrence_bwd_plain(
+        xg: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor,
+        cs: torch.Tensor, dys: torch.Tensor, dc_fin: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward, step by step as the JAX
+    ``_bwd_kernel`` writes it: the reverse sweep recomputes the gates from
+    the saved h and c, seeds dc from ``dc_fin`` and returns ``(dxg, dw_hh)``
+    in the forward's layouts."""
+    zeros = torch.zeros_like(ys[0])
+    dh, dc = zeros, dc_fin
+    dxg = torch.empty_like(xg)
+    dw = torch.zeros_like(w_hh)
+    for t in reversed(range(xg.shape[0])):
+        h_prev = ys[t - 1] if t else zeros
+        c_prev = cs[t - 1] if t else zeros
+        i, f, g, o = _gates(xg[t] + torch.bmm(h_prev, w_hh))
+        dh = dh + dys[t]
+        tc = torch.tanh(cs[t])
+        dc = dh * o * (1.0 - tc * tc) + dc
+        dgates = torch.cat([dc * g * i * (1.0 - i),
+                            dc * c_prev * f * (1.0 - f),
+                            dc * i * (1.0 - g * g),
+                            dh * tc * o * (1.0 - o)], dim=-1)
+        dxg[t] = dgates
+        dh = torch.bmm(dgates, w_hh.transpose(1, 2))
+        dc = dc * f
+        dw += torch.bmm(h_prev.transpose(1, 2), dgates)
+    return dxg, dw
+
+
+def _check(xg: torch.Tensor, w_hh: torch.Tensor, **extra: torch.Tensor
+           ) -> None:
+    named = [("xg", xg), ("w_hh", w_hh), *extra.items()]
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"lstm_recurrence: {name} must be float32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"lstm_recurrence: {name} must be contiguous")
+        if t.device != xg.device:
+            raise ValueError(f"lstm_recurrence: {name} is on {t.device}, xg "
+                             f"on {xg.device}")
+    if xg.dim() != 4 or xg.shape[1] != 2 or w_hh.dim() != 3:
+        raise ValueError(f"lstm_recurrence: xg and w_hh must be (T, 2, B, 4H) "
+                         f"and (2, H, 4H), got {tuple(xg.shape)} and "
+                         f"{tuple(w_hh.shape)}")
+    t, _, b, g = xg.shape
+    hid = w_hh.shape[1]
+    if w_hh.shape != (2, hid, 4 * hid) or g != 4 * hid:
+        raise ValueError(f"lstm_recurrence: w_hh {tuple(w_hh.shape)} does not "
+                         f"match xg {tuple(xg.shape)}")
+    if min(t, b, hid) == 0:
+        raise ValueError("lstm_recurrence: T, B and H must be nonzero")
+    if hid > MAX_HIDDEN:
+        raise ValueError(f"lstm_recurrence: H={hid}; the kernels take "
+                         f"H <= {MAX_HIDDEN}")
+    want = {"ys": (t, 2, b, hid), "cs": (t, 2, b, hid),
+            "dys": (t, 2, b, hid), "dc_fin": (2, b, hid)}
+    for name, tensor in extra.items():
+        if tuple(tensor.shape) != want[name]:
+            raise ValueError(f"lstm_recurrence: {name} must be {want[name]}, "
+                             f"got {tuple(tensor.shape)}")
+    if xg.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm_recurrence: no kernel for {xg.device}")
+
+
+class _Recurrence(torch.autograd.Function):
+    """Saves xg, w_hh, ys and the c trajectory; the backward recomputes the
+    gates from them."""
+
+    @staticmethod
+    def forward(ctx, op, xg, w_hh):
+        ys, cs, c_fin = op.forward(xg, w_hh)
+        ctx.op = op
+        ctx.save_for_backward(xg, w_hh, ys, cs)
+        return ys, c_fin
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dys, dc_fin):
+        # An output the caller never used (LOGO ignores c_fin) arrives as
+        # zeros: autograd materialises undefined gradients by default.
+        xg, w_hh, ys, cs = ctx.saved_tensors
+        dxg, dw = ctx.op.backward(xg, w_hh, ys, cs, dys.contiguous(),
+                                  dc_fin.contiguous())
+        _, need_xg, need_w = ctx.needs_input_grad
+        return None, dxg if need_xg else None, dw if need_w else None
+
+
+class FusedLstmRecurrence:
+    """The wrapper. ``launches`` counts launches of the forward kernel and
+    ``bwd_launches`` those of the backward's three kernels; nothing else
+    adds to them."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self.bwd_launches = 0
+        self._fwd: Optional[ctypes.CDLL] = None
+        self._bwd: Optional[ctypes.CDLL] = None
+
+    def load(self) -> None:
+        """Build (if needed) and load the libraries."""
+        if self._fwd is not None:
+            return
+        built = build_libraries()
+        fwd = ctypes.CDLL(str(built["fused_lstm"][0]))
+        bwd = ctypes.CDLL(str(built["fused_lstm_bwd"][0]))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        signatures = [
+            (fwd.fused_lstm_fwd, [ptr] * 5 + [i32] * 3 + [ptr]),
+            (bwd.fused_lstm_bwd_recurrence, [ptr] * 8 + [i32] * 3 + [ptr]),
+            (bwd.fused_lstm_bwd_dw_partial, [ptr] * 3 + [i32] * 3 + [ptr]),
+            (bwd.fused_lstm_bwd_dw_reduce, [ptr] * 2 + [i32] * 3 + [ptr]),
+            (bwd.fused_lstm_bwd_dw_chunks, [i32] * 3),
+            (fwd.fused_lstm_fwd_w_shared, [i32]),
+            (bwd.fused_lstm_bwd_w_shared, [i32]),
+            (fwd.fused_lstm_max_hidden, []),
+            (bwd.fused_lstm_bwd_max_hidden, []),
+        ]
+        for fn, argtypes in signatures:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        for fn in (fwd.fused_lstm_error_string,
+                   bwd.fused_lstm_bwd_error_string):
+            fn.argtypes = [ctypes.c_int]
+            fn.restype = ctypes.c_char_p
+        for fn in (fwd.fused_lstm_max_hidden, bwd.fused_lstm_bwd_max_hidden):
+            if fn() != MAX_HIDDEN:
+                raise RuntimeError(f"{fn.__name__}: kernel limit differs from "
+                                   "MAX_HIDDEN")
+        self._fwd, self._bwd = fwd, bwd
+
+    def w_hh_in_shared_memory(self, hidden: int) -> Tuple[bool, bool]:
+        """Whether the forward and the backward recurrence keep W_hh in
+        shared memory at this H on the current device (else they read it
+        from global memory)."""
+        self.load()
+        return (bool(self._fwd.fused_lstm_fwd_w_shared(hidden)),
+                bool(self._bwd.fused_lstm_bwd_w_shared(hidden)))
+
+    def __call__(self, xg: torch.Tensor, w_hh: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        _check(xg, w_hh)
+        return _Recurrence.apply(self, xg, w_hh)
+
+    def forward(self, xg: torch.Tensor, w_hh: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(ys, cs, c_fin)`` without autograd: the kernel on CUDA, plain
+        on the CPU."""
+        if xg.device.type == "cpu":
+            ys, cs = lstm_trajectory_plain(xg, w_hh)
+            return ys, cs, cs[-1].clone()
+        self.load()
+        t, _, b, g = xg.shape
+        hid = g // 4
+        ys = torch.empty((t, 2, b, hid), dtype=xg.dtype, device=xg.device)
+        cs = torch.empty_like(ys)
+        c_fin = torch.empty((2, b, hid), dtype=xg.dtype, device=xg.device)
+        with torch.cuda.device(xg.device):
+            stream = torch.cuda.current_stream(xg.device).cuda_stream
+            err = self._fwd.fused_lstm_fwd(
+                xg.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), cs.data_ptr(),
+                c_fin.data_ptr(), t, b, hid, stream)
+        if err != 0:
+            msg = self._fwd.fused_lstm_error_string(err).decode()
+            raise RuntimeError(f"lstm_recurrence launch failed (T={t}, B={b}, "
+                               f"H={hid}): {msg}")
+        self.launches += 1
+        return ys, cs, c_fin
+
+    def backward(self, xg: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor,
+                 cs: torch.Tensor, dys: torch.Tensor, dc_fin: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(dxg, dw_hh)``: the three kernels on CUDA, plain on the CPU."""
+        _check(xg, w_hh, ys=ys, cs=cs, dys=dys, dc_fin=dc_fin)
+        if xg.device.type == "cpu":
+            return lstm_recurrence_bwd_plain(xg, w_hh, ys, cs, dys, dc_fin)
+        self.load()
+        t, _, b, g = xg.shape
+        hid = g // 4
+        lib = self._bwd
+        # W_hh^T is read only where W_hh does not fit in shared memory.
+        w_t = (w_hh if lib.fused_lstm_bwd_w_shared(hid)
+               else w_hh.transpose(1, 2).contiguous())
+        dxg = torch.empty_like(xg)
+        dw = torch.empty_like(w_hh)
+        chunks = lib.fused_lstm_bwd_dw_chunks(t, b, hid)
+        partial = torch.empty((2, chunks, hid, g), dtype=torch.float64,
+                              device=xg.device)  # the dW sums run in fp64
+        with torch.cuda.device(xg.device):
+            stream = torch.cuda.current_stream(xg.device).cuda_stream
+            err = lib.fused_lstm_bwd_recurrence(
+                xg.data_ptr(), w_hh.data_ptr(), w_t.data_ptr(), ys.data_ptr(),
+                cs.data_ptr(), dys.data_ptr(), dc_fin.data_ptr(),
+                dxg.data_ptr(), t, b, hid, stream)
+            if err == 0:
+                self.bwd_launches += 1
+                err = lib.fused_lstm_bwd_dw_partial(
+                    ys.data_ptr(), dxg.data_ptr(), partial.data_ptr(), t, b,
+                    hid, stream)
+            if err == 0:
+                self.bwd_launches += 1
+                err = lib.fused_lstm_bwd_dw_reduce(
+                    partial.data_ptr(), dw.data_ptr(), t, b, hid, stream)
+        if err != 0:
+            msg = lib.fused_lstm_bwd_error_string(err).decode()
+            raise RuntimeError(f"lstm_recurrence backward launch failed "
+                               f"(T={t}, B={b}, H={hid}): {msg}")
+        self.bwd_launches += 1
+        return dxg, dw
+
+
+lstm_recurrence = FusedLstmRecurrence()

@@ -5,8 +5,8 @@ Every method trains with ``Adam(lr, weight_decay)`` and
 auxiliary output (graph regularization for LOGO, KL for HAGCN,
 reconstruction for STNet and GDAGDL; RGCNU's is unused, weight 0).
 LOGO_bearing also steps a MultiStepLR([5, 10, 20, 25], 0.5) per batch.
-The table names all 21 methods of the reference; only FC_STGNN is ported,
-and every other name raises.
+The table names all 21 methods of the reference; the ported ones are
+``models.MODELS`` (FC_STGNN and LOGO), and every other name raises.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
-from ..models.fc_stgnn import FCSTGNN
+from ..models import MODELS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,17 +52,15 @@ _TABLE: Dict[str, Dict[str, Any]] = {
     "HierCorrPool_bearing": {},
 }
 
-_PORTED = {"FC_STGNN": FCSTGNN}
-
 
 def get_algorithm_spec(name: str) -> AlgorithmSpec:
     if name not in _TABLE:
         raise NotImplementedError(f"Algorithm not found: {name}")
-    if name not in _PORTED:
+    if name not in MODELS:
         raise NotImplementedError(
             f"{name} is not ported yet; the port's order of work is in "
             "ROADMAP.md")
-    return AlgorithmSpec(_PORTED[name], **_TABLE[name])
+    return AlgorithmSpec(MODELS[name], **_TABLE[name])
 
 
 def resolve_aux_weight(spec: AlgorithmSpec, train_params: Dict) -> float:

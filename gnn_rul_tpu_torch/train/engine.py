@@ -110,8 +110,12 @@ class Engine:
     def evaluate(self, x_test: np.ndarray) -> np.ndarray:
         """Predictions for the whole test set, in eval mode. The set is
         padded with its last row to a multiple of the eval batch and the
-        padding's predictions are dropped; running BN statistics and no
-        dropout make the padding exact."""
+        padding's predictions are dropped, as the JAX engine does. The
+        padding leaves the real rows' answers unchanged only in a model
+        without a recurrence along the batch axis (running BN statistics,
+        no dropout): LOGO's Bi-LSTM runs over the rows of the batch, so its
+        backward direction carries the padding rows into the real rows'
+        answers."""
         n = x_test.shape[0]
         ebs = min(self.eval_batch_size, n)
         n_batches = -(-n // ebs)
