@@ -15,11 +15,15 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    shapes: the dot-graph forward, then its backward (dh, dx, the
    batch-summed dmask); the LSTM recurrence forward (ys, the c trajectory,
    c_fin), then its backward (dxg, dw_hh, with both outputs' cotangents
-   nonzero), at LOGO's, HAGCN's and ragged (T, B, H);
-4. serve: FC_STGNN/FD001, then LOGO/FD001, at full width with seeded
-   weights through ``serving_model``; every answer against the same weights
-   on the CPU at the same batch, and each path's kernel launches counted
-   over that path's run alone;
+   nonzero), at LOGO's, HAGCN's and ragged (T, B, H); the graph attention
+   at STAGNN's and STFA's (B, N, D), both adjacency layouts, GAT_LSTM's D
+   and GDAGDL's N, and ragged shapes;
+4. serve: FC_STGNN/FD001, LOGO/FD001, STAGNN/FD001 and STFA/FD001, at full
+   width with seeded weights through ``serving_model``; every answer
+   against the same weights on the CPU at the same batch, and each path's
+   kernel launches counted over that path's run alone; for STAGNN, whose
+   graph is ``cov > 0``, the smallest |cov| and the adjacency entries that
+   differ between card and CPU;
 5. train, parity: for each model, 5 steps at batch 100 on the card and on
    the CPU from the same weights on the same batches, dropout off; losses
    and parameters compared, the forward and backward launches counted;
@@ -33,8 +37,8 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    samples/s, the training step and epoch of each model, and
    torch.profiler breakdowns of one request and one training step.
 
-The line before the last is one JSON object ``{"kernels": [...]}``; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object ``{"kernels": [...]}`` (five
+entries); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -47,15 +51,19 @@ import statistics
 import subprocess
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from gnn_rul_tpu_torch import cli
-from gnn_rul_tpu_torch.configs.hparams import train_params
+from gnn_rul_tpu_torch.configs.hparams import model_hparams, train_params
 from gnn_rul_tpu_torch.data.io import save_processed
 from gnn_rul_tpu_torch.export import build_model, serving_model
-from gnn_rul_tpu_torch.ops.kernels import build, fused_gnn, fused_lstm
+from gnn_rul_tpu_torch.models.stfa import prior_knowledge_graph
+from gnn_rul_tpu_torch.ops.graphs import covariance_threshold_graph
+from gnn_rul_tpu_torch.ops.kernels import (build, fused_gat, fused_gnn,
+                                           fused_lstm)
 from gnn_rul_tpu_torch.ops.windows import decay_mask
 from gnn_rul_tpu_torch.train.algorithms import get_algorithm_spec
 from gnn_rul_tpu_torch.train.engine import Engine
@@ -74,15 +82,50 @@ FD001_ENGINES, FD001_ROWS, WINDOW, MAX_RUL = 100, 20631, 50, 125
 SMI = ""  # nvidia-smi's name and power limit, beside every time printed
 OUR_KERNELS = ("fused_dot_graph_spmm_kernel", "bwd_rows_kernel",
                "bwd_cols_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel",
-               "lstm_dw_partial_kernel", "lstm_dw_reduce_kernel")
-METHODS = ("FC_STGNN", "LOGO")
-# Each method's kernel wrapper, its calls per model forward (the dot-graph
-# chain once per scale, the LSTM recurrence once per Bi-LSTM layer) and the
-# backward's launches per call.
-KERNEL_OF = {"FC_STGNN": (fused_gnn.fused_dot_graph_spmm, 2,
-                          fused_gnn.BWD_LAUNCHES_PER_CALL),
-             "LOGO": (fused_lstm.lstm_recurrence, 3,
-                      fused_lstm.BWD_LAUNCHES_PER_CALL)}
+               "lstm_dw_partial_kernel", "lstm_dw_reduce_kernel",
+               "fused_gat_kernel")
+METHODS = ("FC_STGNN", "LOGO", "STAGNN", "STFA")
+
+
+class Path(NamedTuple):
+    """A method's kernel wrapper and its launches: per model forward, per
+    backward call (0 where the backward is the plain recompute, as for the
+    graph attention), and per forward of a training step at the hparam
+    bank's dropout."""
+    kernel: object
+    per_forward: int
+    bwd_per_call: int
+    train_per_forward: int
+
+
+_STAGNN_HP = model_hparams("CMAPSS", "FD001", "STAGNN")
+_STFA_HP = model_hparams("CMAPSS", "FD001", "STFA")
+# The dot-graph chain runs once per scale, the LSTM recurrence once per
+# Bi-LSTM layer, the graph attention once per head: STAGNN's two GAT layers
+# of 3 heads, STFA's 10 heads. STFA's attention dropout (0.2) sends its
+# training forwards down the plain path, so they launch none.
+KERNEL_OF = {
+    "FC_STGNN": Path(fused_gnn.fused_dot_graph_spmm, 2,
+                     fused_gnn.BWD_LAUNCHES_PER_CALL, 2),
+    "LOGO": Path(fused_lstm.lstm_recurrence, 3,
+                 fused_lstm.BWD_LAUNCHES_PER_CALL, 3),
+    "STAGNN": Path(fused_gat.fused_gat, 2 * _STAGNN_HP["num_heads"], 0,
+                   2 * _STAGNN_HP["num_heads"]),
+    "STFA": Path(fused_gat.fused_gat, _STFA_HP["num_heads"], 0,
+                 0 if _STFA_HP["dropout"] > 0 else _STFA_HP["num_heads"]),
+}
+
+
+def _reset(kernel) -> None:
+    kernel.launches = 0
+    if hasattr(kernel, "bwd_launches"):
+        kernel.bwd_launches = 0
+
+
+def _counts(kernel):
+    """(forward, backward) launches; a wrapper without a backward kernel
+    counts none."""
+    return kernel.launches, getattr(kernel, "bwd_launches", 0)
 
 
 def _device() -> str:
@@ -110,6 +153,7 @@ def _build() -> None:
                 print(f"  ptxas {stem}: {line.strip()}")
     fused_gnn.fused_dot_graph_spmm.load()
     fused_lstm.lstm_recurrence.load()
+    fused_gat.fused_gat.load()
     for h in sorted({h for _, _, h in LSTM_CASES}):
         fwd, bwd = fused_lstm.lstm_recurrence.w_hh_in_shared_memory(h)
         print(f"  lstm H={h}: W_hh in "
@@ -264,6 +308,80 @@ def _lstm_vs_plain():
     return worst_fwd, worst_bwd
 
 
+# (B, N, D, per-graph adj, bias, slope) of the graph attention: STAGNN's
+# serving shapes (per-graph covariance graphs), STFA's (B x 25 patch graphs
+# on the shared prior graph: 2500 at batch 100, 25,000 for a request of
+# 1000), GDAGDL's N = 17 at GAT_LSTM's D = 300, ragged shapes, and a
+# negative bias at slope 0.01.
+GAT_CASES = [(100, 14, 64, True, 0.3, 0.1), (1000, 14, 64, True, 0.3, 0.1),
+             (2500, 14, 5, False, 0.3, 0.1), (25000, 14, 5, False, 0.3, 0.1),
+             (3, 17, 300, True, 0.3, 0.1), (1, 1, 1, True, 0.3, 0.1),
+             (5, 33, 7, False, 0.3, 0.1), (2, 130, 16, True, 0.3, 0.1),
+             (7, 33, 40, True, -0.4, 0.01)]
+
+
+def _gat_inputs(b: int, n: int, d: int, batched: bool, bias: float,
+                seed: int):
+    """Seeded attention inputs on the card: unit-normal wh, f1 and f2
+    (logits of unit scale, as a Linear projection gives), a random 0/1
+    per-graph adjacency with its diagonal set (a covariance graph's
+    variances), or STFA's prior graph where the shared one is 14 x 14."""
+    rng = np.random.default_rng(seed)
+    wh = rng.normal(size=(b, n, d))
+    f1 = rng.normal(size=(b, n))
+    f2 = rng.normal(size=(b, n))
+    if batched:
+        adj = (rng.uniform(size=(b, n, n)) > 0.5).astype(np.float64)
+        adj[:, np.arange(n), np.arange(n)] = 1.0
+    elif n == 14:
+        adj = prior_knowledge_graph().numpy()
+    else:
+        adj = (rng.uniform(size=(n, n)) > 0.5).astype(np.float64)
+    return tuple(torch.as_tensor(t, dtype=torch.float32).cuda().contiguous()
+                 for t in (wh, f1, f2, adj, np.float64(bias)))
+
+
+def _gat_vs_plain() -> float:
+    """The attention kernel against its plain version at GAT_CASES, by
+    :func:`_hold`."""
+    kernel = fused_gat.fused_gat
+    worst = 0.0
+    for i, (b, n, d, batched, bias, slope) in enumerate(GAT_CASES):
+        args = _gat_inputs(b, n, d, batched, bias, seed=300 + i)
+        got = kernel(*args, slope)
+        want = fused_gat.fused_gat_plain(*args, slope)
+        torch.cuda.synchronize()
+        worst = max(worst, _hold(
+            f"gat vs plain B={b} N={n} D={d} "
+            f"adj={'per-graph' if batched else 'shared'} bias={bias} "
+            f"slope={slope}", got, want,
+            lambda: fused_gat.fused_gat_plain(
+                *(t.double() for t in args), slope)))
+    return worst
+
+
+def _adjacency_margin(what: str, x: np.ndarray) -> int:
+    """STAGNN's adjacency is ``cov > threshold``, a step function. Prints
+    the smallest nonzero |cov - threshold| over the windows ``x`` (fp64 on
+    the host; a constant row gives an exact 0 on every device) and the
+    number of adjacency entries on which the card's graph and the CPU's
+    differ. A differing entry is reported, and the answers are still held
+    at the same tolerance. Returns the count."""
+    threshold = _STAGNN_HP["threshold"]
+    x64 = torch.from_numpy(x).double()
+    xc = x64 - x64.mean(dim=-1, keepdim=True)
+    cov = torch.einsum("...nl,...ml->...nm", xc, xc) / (x.shape[-1] - 1)
+    gap = (cov - threshold).abs()
+    card = covariance_threshold_graph(torch.from_numpy(x).cuda(), threshold)
+    cpu = covariance_threshold_graph(torch.from_numpy(x), threshold)
+    differ = int((card.cpu() != cpu).sum())
+    print(f"adjacency STAGNN {what}: {len(x)} windows, smallest nonzero "
+          f"|cov - {threshold}| {gap[gap > 0].min().item():.3e} (fp64), "
+          f"{int((gap == 0).sum())} entries exactly at it; {differ} of "
+          f"{cpu.numel()} entries differ between card and CPU")
+    return differ
+
+
 def _seeded_state_dict(method: str = "FC_STGNN", seed: int = 0):
     """``method``/FD001 weights from ``seed``, with any BN running
     statistics set away from (0, 1) so that eval-mode BN is not the
@@ -296,12 +414,15 @@ def _serve(method: str):
                      .astype(np.float32)))
     forwards = sum(-(-len(x) // (bs or len(x))) for bs, x in requests)
 
-    kernel, per_forward, _ = KERNEL_OF[method]
-    kernel.launches = 0
+    path = KERNEL_OF[method]
+    _reset(path.kernel)
     answers = [models[bs]["cuda"](x) for bs, x in requests]
     torch.cuda.synchronize()
-    launches = kernel.launches
+    launches = path.kernel.launches
 
+    if method == "STAGNN":
+        _adjacency_margin("serving requests",
+                          np.concatenate([x for _, x in requests]))
     for (bs, x), got in zip(requests, answers):
         want = models[bs]["cpu"](x)
         if got.shape != (len(x),) or not np.isfinite(got).all():
@@ -309,13 +430,13 @@ def _serve(method: str):
                                  f"{len(x)} rows, or not finite")
         np.testing.assert_allclose(got, want, atol=SERVE_ATOL,
                                    rtol=SERVE_RTOL)
-    name = type(kernel).__name__
+    name = type(path.kernel).__name__
     print(f"serve {method}: {len(requests)} requests, {forwards} forwards, "
           f"{name} launches={launches}; every answer matches the CPU "
           f"(atol={SERVE_ATOL}, rtol={SERVE_RTOL})")
-    if launches != per_forward * forwards:
-        raise AssertionError(f"expected {per_forward} launches per forward, "
-                             f"got {launches} for {forwards}")
+    if launches != path.per_forward * forwards:
+        raise AssertionError(f"expected {path.per_forward} launches per "
+                             f"forward, got {launches} for {forwards}")
     return (models[SERVE_BATCH]["cuda"], models[None]["cuda"],
             requests[0][1], requests[-1][1], launches)
 
@@ -347,13 +468,13 @@ def _train_parity(method: str) -> None:
         np.float32)
     ys = rng.uniform(size=(PARITY_STEPS, SERVE_BATCH, 1)).astype(np.float32)
 
-    kernel, per_forward, bwd_per_call = KERNEL_OF[method]
-    kernel.launches = kernel.bwd_launches = 0
+    path = KERNEL_OF[method]
+    _reset(path.kernel)
     card = [engines["cuda"].train_step(torch.from_numpy(x).cuda(),
                                        torch.from_numpy(y).cuda())
             for x, y in zip(xs, ys)]
     torch.cuda.synchronize()
-    fwd_launches, bwd_launches = kernel.launches, kernel.bwd_launches
+    fwd_launches, bwd_launches = _counts(path.kernel)
     cpu = [engines["cpu"].train_step(torch.from_numpy(x), torch.from_numpy(y))
            for x, y in zip(xs, ys)]
     torch.backends.cudnn.deterministic = False
@@ -372,8 +493,9 @@ def _train_parity(method: str) -> None:
     if not param_diff < PARAM_MAX_DIFF:
         raise AssertionError(f"parameters on the card and the CPU differ by "
                              f"{param_diff} after {PARITY_STEPS} steps")
-    want = (per_forward * PARITY_STEPS,
-            per_forward * bwd_per_call * PARITY_STEPS)
+    # Dropout is off here, so every training forward takes the kernel.
+    want = (path.per_forward * PARITY_STEPS,
+            path.per_forward * path.bwd_per_call * PARITY_STEPS)
     if (fwd_launches, bwd_launches) != want:
         raise AssertionError(f"expected (forward, backward) launches {want}, "
                              f"got {(fwd_launches, bwd_launches)}")
@@ -419,8 +541,8 @@ def _train_entry_point(method: str, fd001):
     card. Returns the kernel's (forward, backward) launches over that run."""
     (train_x, _), test_x, data_root = fd001
     save_dir = os.path.join(os.path.dirname(data_root), "logs")
-    kernel, per_forward, bwd_per_call = KERNEL_OF[method]
-    kernel.launches = kernel.bwd_launches = 0
+    path = KERNEL_OF[method]
+    _reset(path.kernel)
     t0 = time.perf_counter()
     results = cli.main([
         "--GNN_method", method, "--dataset", "CMAPSS", "--dataset_id",
@@ -428,7 +550,7 @@ def _train_entry_point(method: str, fd001):
         "--epochs", "1", "--num_runs", "1"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd_launches, bwd_launches = kernel.launches, kernel.bwd_launches
+    fwd_launches, bwd_launches = _counts(path.kernel)
 
     run_dir = os.path.join(save_dir, "GNN_RUL", "run_1", f"{method}_run_0")
     with open(os.path.join(run_dir, "logs_run_0.log")) as f:
@@ -448,12 +570,14 @@ def _train_entry_point(method: str, fd001):
         raise AssertionError(f"results.csv holds {rows}")
     steps = -(-len(train_x) // SERVE_BATCH)
     evals = -(-len(test_x) // SERVE_BATCH)
-    want = (per_forward * (steps + evals),
-            per_forward * bwd_per_call * steps)
+    want = (path.train_per_forward * steps + path.per_forward * evals,
+            path.train_per_forward * path.bwd_per_call * steps)
     if (fwd_launches, bwd_launches) != want:
         raise AssertionError(f"expected (forward, backward) launches {want}, "
                              f"got {(fwd_launches, bwd_launches)}")
 
+    if method == "STAGNN":
+        _adjacency_margin("FD001 test windows", test_x)
     ckpt = torch.load(os.path.join(run_dir, "checkpoint.pt"),
                       map_location="cpu", weights_only=True)
     on_card, on_cpu = (serving_model(method, "CMAPSS", "FD001",
@@ -578,6 +702,40 @@ def _kernel_times(name: str, shapes, kernel_fn, plain_fn, backward: bool):
         print(f"times [{SMI}]: {name} B={shape[0]} N={shape[1]} "
               f"D={shape[2]} F={shape[3]}: " + "kernel {:.6f} ms, plain "
               "{:.6f} ms, bound {:.6f} ms ({})".format(*times[shape]))
+    return times
+
+
+def _gat_bound_ms(b: int, n: int, d: int, batched: bool):
+    """Least time for the graph attention on an H100 SXM, the larger of its
+    bytes at the HBM rate and its fp32 operations at the fp32 peak: wh, f1,
+    f2, adj (one (N, N) when shared) and bias read and out written;
+    2*B*N^2*D for the product with wh and 6*B*N^2 for the logits, the
+    leaky_relu, the exponent, the normalisation and the mask."""
+    nbytes = 4 * (2 * b * n * d + 2 * b * n + (b if batched else 1) * n * n
+                  + 1)
+    flops = 2 * b * n * n * d + 6 * b * n * n
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def _gat_times(cases):
+    """{case: (kernel ms, plain ms, bound ms, bound by)} at ``cases`` of
+    GAT_CASES. No single PyTorch call computes a softmax followed by a
+    multiplicative mask and the product, so there is no library time."""
+    times = {}
+    for case in cases:
+        b, n, d, batched, bias, slope = case
+        args = _gat_inputs(b, n, d, batched, bias, seed=0)
+        times[case] = (
+            _graph_ms(lambda: fused_gat.fused_gat.forward(*args, slope)),
+            _graph_ms(lambda: fused_gat.fused_gat_plain(*args, slope)),
+            *_gat_bound_ms(b, n, d, batched))
+        print(f"times [{SMI}]: fused_gat B={b} N={n} D={d} adj="
+              f"{'per-graph' if batched else 'shared'}: " + "kernel {:.6f} "
+              "ms, plain {:.6f} ms, bound {:.6f} ms ({}); library none"
+              .format(*times[case]))
     return times
 
 
@@ -743,12 +901,13 @@ def _train_times(method: str, fd001) -> None:
     engine.run_epoch(train_x, train_y, 2, shuffle=True)
     epoch_s = time.perf_counter() - t0
     steps = -(-len(train_x) // SERVE_BATCH)
-    _, per_forward, bwd_per_call = KERNEL_OF[method]
+    path = KERNEL_OF[method]
     print(f"train {method} [{SMI}]: {step_ms:.4f} ms per step at batch "
           f"{SERVE_BATCH} (median of 30); one epoch of {len(train_x)} "
           f"windows in {steps} steps {epoch_s:.4f} s, "
-          f"{len(train_x) / epoch_s:.1f} samples/s; backward launches per "
-          f"step {per_forward * bwd_per_call}")
+          f"{len(train_x) / epoch_s:.1f} samples/s; launches per step "
+          f"forward {path.train_per_forward}, backward "
+          f"{path.train_per_forward * path.bwd_per_call}")
     _profile(f"train step {method}", lambda: engine.train_step(xb, yb),
              step_ms, "step")
 
@@ -759,6 +918,7 @@ def main() -> None:
     max_err = _kernel_vs_plain()
     bwd_max_err = _bwd_vs_plain()
     lstm_err, lstm_bwd_err = _lstm_vs_plain()
+    gat_err = _gat_vs_plain()
     served = {m: _serve(m) for m in METHODS}
     for method in METHODS:
         _train_parity(method)
@@ -777,6 +937,9 @@ def main() -> None:
         with _Clocks():
             lstm = _lstm_times([(100, 70, 24), (100, 70, 48),
                                 (1400, 5, 120)])
+            # The serving and training shapes of both models, and the two
+            # check shapes of few large graphs.
+            gat = _gat_times([GAT_CASES[k] for k in (0, 1, 2, 3, 4, 7)])
         for method in METHODS:
             _serve_times(method, *served[method][:4])
             _train_times(method, fd001)
@@ -815,6 +978,16 @@ def main() -> None:
                        "(_bwd_kernel)",
               shape="T=100 B=70 H=48",
               library="torch.nn.LSTM forward+backward minus forward"),
+        entry("fused_gat", gat[GAT_CASES[0]], gat_err, trained["STAGNN"][0],
+              source="gnn_rul_tpu_torch/csrc/fused_gat.cu",
+              replaces="gnn_rul_tpu/ops/pallas/fused_gat.py:46 (_kernel)",
+              shape="B=100 N=14 D=64 per-graph adj (STAGNN)",
+              launches_serve=served["STAGNN"][4],
+              launches_stfa_serve=served["STFA"][4],
+              launches_stfa_epoch=trained["STFA"][0],
+              stfa_ms=gat[GAT_CASES[2]][0],
+              stfa_plain_ms=gat[GAT_CASES[2]][1],
+              stfa_bound_ms=gat[GAT_CASES[2]][2]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,8 +6,9 @@ The reference CLI's flags (main.py:8-39) and the JAX package's:
         --dataset_id FD001 --data_path Processed_dataset --num_runs 5
 
 Trains on the card (``--device cuda``, the default; it raises where CUDA is
-absent) or on the CPU (``--device cpu``). The ported methods are FC_STGNN
-and LOGO (``models.MODELS``); any other ``--GNN_method`` raises. Flags
+absent) or on the CPU (``--device cpu``). The ported methods are FC_STGNN,
+LOGO, STAGNN and STFA (``models.MODELS``); any other ``--GNN_method``
+raises. Flags
 that select what is not ported yet raise ``NotImplementedError``; the
 port's order of work is in ROADMAP.md.
 """

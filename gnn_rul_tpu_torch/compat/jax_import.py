@@ -1,13 +1,17 @@
 """JAX-package variables -> the port's ``state_dict``.
 
 The inverse of the JAX package's torch-reference import
-(``gnn_rul_tpu/compat/torch_import.py``: ``_map_fc_stgnn``, ``_map_logo``)
-for the ported methods: it takes the flax ``{"params", "batch_stats"}``
-tree as numpy arrays and returns a ``state_dict`` under the original torch
-reference's keys, which the port's modules carry:
+(``gnn_rul_tpu/compat/torch_import.py``: ``_map_fc_stgnn``, ``_map_logo``,
+``_map_stagnn``, ``_map_stfa``) for the ported methods: it takes the flax
+``{"params", "batch_stats"}`` tree as numpy arrays and returns a
+``state_dict`` under the original torch reference's keys, which the port's
+modules carry:
 
   - Dense kernel ``(in, out)``   -> Linear weight ``(out, in)``   [transpose]
-  - Conv kernel ``(k, in, out)`` -> Conv1d weight ``(out, in, k)``
+  - Conv kernel ``(k, in, out)`` -> Conv1d weight ``(out, in, k)``, and its
+    ``bias`` where the flax tree has one
+  - GAT ``att_kernel (2d, 1)``, ``att_bias (1,)`` -> the attention Linear's
+    ``weight (1, 2d)``, ``bias (1,)``
   - BatchNorm ``scale/bias`` + ``mean/var`` -> ``weight/bias`` +
     ``running_mean/running_var``, with ``num_batches_tracked`` 0
   - LSTM ``w_ih (D, 4H)``, ``w_hh (H, 4H)``, ``b_ih``, ``b_hh`` ->
@@ -71,7 +75,65 @@ def _logo_layout() -> Layout:
     return rows
 
 
-_LAYOUTS = {"FC_STGNN": _fc_stgnn_layout, "LOGO": _logo_layout}
+def _heads(tree: Dict[str, Any]) -> List[str]:
+    """The GAT heads ``attention_{i}`` in a flax subtree, in order."""
+    return [f"attention_{i}"
+            for i in range(sum(k.startswith("attention_") for k in tree))]
+
+
+def _gat_rows(prefix: str, path: Tuple[str, ...], head: str) -> Layout:
+    return [(f"{prefix}.{head}.linear", "linear", path + (head, "linear",
+                                                          "Dense_0")),
+            (f"{prefix}.{head}.attention", "attention", path + (head,))]
+
+
+def _tcn_rows(name: str, downsample: bool) -> Layout:
+    rows = []
+    for block in (1, 2):
+        rows += [(f"{name}.conv_block{block}.0", "conv",
+                  (name, f"conv{block}", "Conv_0")),
+                 (f"{name}.conv_block{block}.2", "bn",
+                  (name, f"bn{block}", "BatchNorm1d_0", "BatchNorm_0"))]
+    if downsample:
+        rows.append((f"{name}.downsample0", "conv",
+                     (name, "downsample0", "Conv_0")))
+    return rows
+
+
+def _stagnn_layout(params: Dict[str, Any]) -> Layout:
+    """``(torch prefix, kind, flax path)`` for every STAGNN layer; the head
+    count is read off the tree."""
+    rows = [(f"gcn{i}.linear", "linear", (f"gcn{i}", "linear", "Dense_0"))
+            for i in (1, 2)]
+    for gat in ("gat1", "gat2"):
+        for head in _heads(params[gat]):
+            rows += _gat_rows(gat, (gat,), head)
+    for tcn in ("tcn1", "tcn2"):
+        rows += _tcn_rows(tcn, "downsample0" in params[tcn])
+    for enc in ("temporal_encoder1", "temporal_encoder2"):
+        rows += [(f"{enc}.linears.{i}", "linear",
+                  (enc, f"linear_{i}", "Dense_0"))
+                 for i in range(len(params[enc]))]
+    rows.append(("fc", "linear", ("fc", "Dense_0")))
+    return rows
+
+
+def _stfa_layout(params: Dict[str, Any]) -> Layout:
+    """``(torch prefix, kind, flax path)`` for every STFA layer: the heads
+    sit at the top of the flax tree and under ``gat`` in the port."""
+    rows = []
+    for head in _heads(params):
+        rows += _gat_rows("gat", (), head)
+    return rows + [("v", "linear", ("v", "Dense_0")),
+                   ("lstm", "lstm", ("lstm",)),
+                   ("fc", "linear", ("fc", "Dense_0"))]
+
+
+# method -> its layout, from the flax params (STAGNN's and STFA's head
+# counts are read off the tree).
+_LAYOUTS = {"FC_STGNN": lambda params: _fc_stgnn_layout(),
+            "LOGO": lambda params: _logo_layout(),
+            "STAGNN": _stagnn_layout, "STFA": _stfa_layout}
 
 
 def _get(tree: Dict[str, Any], path: Tuple[str, ...]) -> Dict[str, Any]:
@@ -96,7 +158,7 @@ def from_jax_variables(method: str,
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
-    for prefix, kind, path in _LAYOUTS[method]():
+    for prefix, kind, path in _LAYOUTS[method](params):
         p = _get(params, path)
         if kind in ("lstm", "lstm_reverse"):
             sfx = "_reverse" if kind == "lstm_reverse" else ""
@@ -107,9 +169,14 @@ def from_jax_variables(method: str,
         elif kind == "linear":
             sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
             sd[f"{prefix}.bias"] = _t(p["bias"])
+        elif kind == "attention":
+            sd[f"{prefix}.weight"] = _t(np.asarray(p["att_kernel"]).T)
+            sd[f"{prefix}.bias"] = _t(p["att_bias"])
         elif kind == "conv":
             sd[f"{prefix}.weight"] = _t(
                 np.asarray(p["kernel"]).transpose(2, 1, 0))
+            if "bias" in p:
+                sd[f"{prefix}.bias"] = _t(p["bias"])
         else:
             s = _get(stats, path)
             sd[f"{prefix}.weight"] = _t(p["scale"])

@@ -16,9 +16,12 @@ result trimmed, so callers always get one prediction per input row.
                           batch_size=100)
     rul = model(x)          # x: (n, 14, 50) -> (n,)
 
-The ported methods are ``models.MODELS``: FC_STGNN and LOGO. LOGO's
-recurrence runs along the batch axis, so its answer for a row depends on
-the other rows of the forward, padding rows included.
+The ported methods are ``models.MODELS``: FC_STGNN, LOGO, STAGNN and STFA.
+LOGO's recurrence runs along the batch axis, so its answer for a row
+depends on the other rows of the forward, padding rows included. STAGNN's
+adjacency is ``cov > 0`` per window, a step function: a covariance within
+rounding of 0 can give another graph, and so another answer, on the card
+than on the CPU.
 
 The model runs in ``eval()`` under ``torch.inference_mode()``, on the card
 by default. The serialized artifact (``torch.export``) is not ported yet

@@ -1,5 +1,5 @@
 """Graph-NN blocks shared across models (counterpart of
-``gnn_rul_tpu/nn/gnn_blocks.py``; only what LOGO needs so far)."""
+``gnn_rul_tpu/nn/gnn_blocks.py``; only what LOGO and STAGNN need so far)."""
 
 from __future__ import annotations
 
@@ -7,7 +7,7 @@ import torch
 from torch import nn
 
 from ..ops.graphs import leaky_relu
-from ..ops.message_passing import khop_aggregate
+from ..ops.message_passing import khop_aggregate, spmm
 
 
 class MPNNmk(nn.Module):
@@ -25,3 +25,21 @@ class MPNNmk(nn.Module):
         hops = khop_aggregate(adj, x, self.k)
         out = sum(theta(h) for theta, h in zip(self.theta, hops))
         return leaky_relu(out)
+
+
+class GCNLayer(nn.Module):
+    """Symmetric-normalized GCN with self-loops,
+    ``leaky_relu(linear(D^-1/2 (A+I) D^-1/2 X))`` (reference
+    models/STAGNN/Model.py:8-22); the Linear is ``linear``. The JAX layer's
+    ReLU variant (RGCNU) is not ported yet."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.linear = nn.Linear(in_features, out_features)
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        n = adj.shape[-1]
+        a = adj + torch.eye(n, dtype=adj.dtype, device=adj.device)
+        d_inv_sqrt = a.sum(dim=-1) ** -0.5
+        a_hat = a * d_inv_sqrt[..., :, None] * d_inv_sqrt[..., None, :]
+        return leaky_relu(self.linear(spmm(a_hat, x)))

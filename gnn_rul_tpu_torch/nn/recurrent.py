@@ -1,5 +1,5 @@
-"""The bidirectional LSTM layer (counterpart of
-``gnn_rul_tpu/nn/recurrent.py``; only what LOGO needs so far).
+"""LSTM layers (counterpart of ``gnn_rul_tpu/nn/recurrent.py``; only what
+LOGO and STFA need so far).
 
 Gates in torch's order [i, f, g, o]; weights U(-1/sqrt(H), 1/sqrt(H)), as
 ``torch.nn.LSTM`` initialises them. Input ``(B, T, D)`` (batch_first).
@@ -9,8 +9,12 @@ product each and runs the whole recurrence of both directions through
 ``ops/kernels/fused_lstm.py``: the CUDA kernels on the card, at every T,
 and their plain versions on the CPU. The JAX package's scan, its unroll
 policy and its scan/Pallas dispatch are XLA and TPU scheduling facts and
-have no counterpart here. ``LSTMLayer``, ``LSTM``, ``GRULayer`` and ``GRU``
-are not ported yet (ROADMAP.md).
+have no counterpart here.
+
+:class:`LSTMLayer`, the single-direction layer, is ``torch.nn.LSTM``: its
+JAX counterpart is a ``lax.scan`` that reaches no Pallas kernel, so no
+kernel of the port replaces it. ``LSTM``, ``GRULayer`` and ``GRU`` are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -82,3 +86,18 @@ def bilstm_fused(x: torch.Tensor, params_fwd: Params, params_bwd: Params):
     ys_f = ys[:, 0].transpose(0, 1)                 # (B, T, H)
     ys_b = ys[:, 1].flip(0).transpose(0, 1)         # the flip undone
     return ys_f, ys_b, ((ys_f[:, -1], c_fin[0]), (ys_b[:, 0], c_fin[1]))
+
+
+class LSTMLayer(nn.LSTM):
+    """Single-direction, single-layer LSTM over ``x (B, T, D)``: returns
+    ``ys (B, T, H)`` and ``(h_n, c_n)``, each ``(B, H)``, from zero initial
+    states, the contract of the JAX ``LSTMLayer``. It is
+    ``torch.nn.LSTM(batch_first=True)`` under its own parameter names
+    (``weight_ih_l0`` ...), the reference's keys."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__(input_size, hidden_size, batch_first=True)
+
+    def forward(self, x: torch.Tensor):
+        ys, (h, c) = super().forward(x)
+        return ys, (h[0], c[0])

@@ -1,5 +1,5 @@
 """Dense adjacency construction (counterpart of ``gnn_rul_tpu/ops/graphs.py``;
-only what FC_STGNN and LOGO need so far). ``record_edges`` waits for
+only what FC_STGNN, LOGO and STAGNN need so far). ``record_edges`` waits for
 ``ops/edge_count.py`` (ROADMAP.md)."""
 
 from __future__ import annotations
@@ -39,3 +39,16 @@ def pearson_graph(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
                                  min=0.0))
     denom = var[..., :, None] * var[..., None, :]
     return cov / (denom + eps)
+
+
+def covariance_threshold_graph(x: torch.Tensor,
+                               threshold: float) -> torch.Tensor:
+    """``A = (cov > threshold)`` as float over the rows of ``(..., N, L)``,
+    with the unbiased row covariance (reference models/STAGNN/Model.py:
+    197-204), computed in the JAX order: centre, product, divide by
+    ``L - 1``, compare. A step function: an entry whose covariance lies
+    within rounding of the threshold can flip between two summation
+    orders."""
+    xc = x - x.mean(dim=-1, keepdim=True)
+    cov = torch.einsum("...nl,...ml->...nm", xc, xc) / (x.shape[-1] - 1)
+    return (cov > threshold).to(x.dtype)

@@ -1,0 +1,162 @@
+"""Fused dense graph attention: a hand-written CUDA kernel and its plain
+version.
+
+    e_ij = leaky_relu(f1_i + f2_j + bias, slope)
+    out  = (softmax_j(e) * adj) @ wh
+
+wh ``(B, N, D)``, f1 and f2 ``(B, N)``, adj ``(B, N, N)`` or one ``(N, N)``
+shared by every graph, bias a one-element tensor, slope a float ->
+``(B, N, D)``, fp32.
+
+Counterpart of ``gnn_rul_tpu/ops/pallas/fused_gat.py``. :data:`fused_gat`
+is the wrapper ``nn/attention.py`` calls. It is differentiable through a
+``torch.autograd.Function`` that saves wh, f1, f2, adj and bias and whose
+backward recomputes through :func:`fused_gat_plain`, as the JAX ``_bwd``
+recomputes through ``fused_gat_reference``: the TPU kernel has no backward,
+and neither has this one. bias is a tensor so that it gets its gradient. On
+a CUDA tensor the forward launches the kernel in
+``gnn_rul_tpu_torch/csrc/fused_gat.cu`` or raises; on a CPU tensor it runs
+:func:`fused_gat_plain`.
+
+The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use
+(``ops/kernels/build.py``) and called through ``ctypes`` on PyTorch's
+current stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .build import build_libraries
+
+
+def fused_gat_plain(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+                    adj: torch.Tensor, bias: torch.Tensor,
+                    slope: float) -> torch.Tensor:
+    """Plain PyTorch version, in the order of the JAX
+    ``fused_gat_reference``."""
+    e = f1[..., :, None] + f2[..., None, :] + bias
+    e = F.leaky_relu(e, slope)
+    attn = torch.softmax(e, dim=-1) * adj
+    return torch.einsum("...nm,...md->...nd", attn, wh)
+
+
+def _check(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+           adj: torch.Tensor, bias: torch.Tensor) -> None:
+    named = (("wh", wh), ("f1", f1), ("f2", f2), ("adj", adj), ("bias", bias))
+    for name, t in named:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"fused_gat: {name} must be a tensor, got "
+                            f"{type(t).__name__}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_gat: {name} must be float32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_gat: {name} must be contiguous")
+        if t.device != wh.device:
+            raise ValueError(f"fused_gat: {name} is on {t.device}, wh on "
+                             f"{wh.device}")
+    if wh.dim() != 3:
+        raise ValueError(f"fused_gat: wh must be (B, N, D), got "
+                         f"{tuple(wh.shape)}")
+    b, n, d = wh.shape
+    if f1.shape != (b, n) or f2.shape != (b, n):
+        raise ValueError(f"fused_gat: f1 {tuple(f1.shape)} and f2 "
+                         f"{tuple(f2.shape)} must be (B, N) = ({b}, {n})")
+    if adj.shape not in ((n, n), (b, n, n)):
+        raise ValueError(f"fused_gat: adj must be (N, N) or (B, N, N) with "
+                         f"B={b}, N={n}, got {tuple(adj.shape)}")
+    if bias.numel() != 1:
+        raise ValueError(f"fused_gat: bias must hold one value, got "
+                         f"{tuple(bias.shape)}")
+    if min(n, d) == 0:
+        raise ValueError("fused_gat: N and D must be nonzero")
+    if wh.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_gat: no kernel for {wh.device}")
+
+
+class _Gat(torch.autograd.Function):
+    """Saves wh, f1, f2, adj and bias; the backward recomputes through the
+    plain version."""
+
+    @staticmethod
+    def forward(ctx, op, wh, f1, f2, adj, bias, slope):
+        ctx.slope = slope
+        ctx.save_for_backward(wh, f1, f2, adj, bias)
+        return op.forward(wh, f1, f2, adj, bias, slope)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[1:6]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            out = fused_gat_plain(*inputs, ctx.slope)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, need in zip(inputs, needs) if need], g))
+        return (None, *(next(grads) if need else None for need in needs),
+                None)
+
+
+class FusedGat:
+    """The wrapper. ``launches`` counts launches of the kernel; nothing else
+    adds to it."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def load(self) -> str:
+        """Build (if needed) and load the library; returns nvcc's log of the
+        sources built by this call."""
+        if self._lib is not None:
+            return ""
+        built = build_libraries()
+        lib = ctypes.CDLL(str(built["fused_gat"][0]))
+        lib.fused_gat_fwd.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.fused_gat_fwd.restype = ctypes.c_int
+        lib.fused_gat_error_string.argtypes = [ctypes.c_int]
+        lib.fused_gat_error_string.restype = ctypes.c_char_p
+        self._lib = lib
+        return "".join(log for _, log in built.values())
+
+    def __call__(self, wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+                 adj: torch.Tensor, bias: torch.Tensor,
+                 slope: float) -> torch.Tensor:
+        _check(wh, f1, f2, adj, bias)
+        return _Gat.apply(self, wh, f1, f2, adj, bias, float(slope))
+
+    def forward(self, wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+                adj: torch.Tensor, bias: torch.Tensor,
+                slope: float) -> torch.Tensor:
+        """The attention without autograd: the kernel on CUDA, plain on the
+        CPU."""
+        if wh.device.type == "cpu":
+            return fused_gat_plain(wh, f1, f2, adj, bias, slope)
+        self.load()
+        b, n, d = wh.shape
+        out = torch.empty_like(wh)
+        if b == 0:
+            return out
+        with torch.cuda.device(wh.device):
+            stream = torch.cuda.current_stream(wh.device).cuda_stream
+            err = self._lib.fused_gat_fwd(
+                wh.data_ptr(), f1.data_ptr(), f2.data_ptr(), adj.data_ptr(),
+                bias.data_ptr(), slope, out.data_ptr(), b, n, d,
+                int(adj.dim() == 2), stream)
+        if err != 0:
+            msg = self._lib.fused_gat_error_string(err).decode()
+            raise RuntimeError(f"fused_gat launch failed (B={b}, N={n}, "
+                               f"D={d}): {msg}")
+        self.launches += 1
+        return out
+
+
+fused_gat = FusedGat()
