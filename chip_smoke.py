@@ -14,8 +14,11 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    card, on seeded inputs at the serving and training shapes and at ragged
    shapes: the dot-graph forward, then its backward (dh, dx, the
    batch-summed dmask); the LSTM recurrence forward (ys, the c trajectory,
-   c_fin), then its backward (dxg, dw_hh, with both outputs' cotangents
-   nonzero), at LOGO's, HAGCN's and ragged (T, B, H); the graph attention
+   c_fin), then its backward's gate pass (the activated gates) and the
+   whole backward (dxg, dw_hh, with both outputs' cotangents nonzero), at
+   LOGO's, HAGCN's, LOGO_bearing's, ragged and H = 1024 (T, B, H), and on
+   each side of every point where the kernels' plan changes, in H at two
+   B and in B at two H (each cluster size included); the graph attention
    at STAGNN's and STFA's (B, N, D), both adjacency layouts, GAT_LSTM's D
    and GDAGDL's N, and ragged shapes;
 4. serve: FC_STGNN/FD001, LOGO/FD001, STAGNN/FD001 and STFA/FD001, at full
@@ -33,7 +36,9 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    checkpoint.pt are read back, and the checkpoint serves on the card as on
    the CPU;
 7. times: CUDA-event medians of each kernel, its plain version and, for
-   the LSTM recurrence, cuDNN's ``torch.nn.LSTM``; the serving latency and
+   the LSTM recurrence, cuDNN's ``torch.nn.LSTM``, with the backward's time
+   launch by launch (torch.profiler) and HAGCN's H = 120 at the B of each
+   cluster size; the serving latency and
    samples/s, the training step and epoch of each model, and
    torch.profiler breakdowns of one request and one training step.
 
@@ -80,10 +85,19 @@ PARITY_STEPS = 5
 # stride 1 -> 15,731 training windows; one test window per engine.
 FD001_ENGINES, FD001_ROWS, WINDOW, MAX_RUL = 100, 20631, 50, 125
 SMI = ""  # nvidia-smi's name and power limit, beside every time printed
+LSTM_BWD_KERNELS = ("lstm_gates_kernel", "lstm_sweep_kernel",
+                    "lstm_dw_partial_kernel", "lstm_dw_reduce_kernel")
 OUR_KERNELS = ("fused_dot_graph_spmm_kernel", "bwd_rows_kernel",
-               "bwd_cols_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel",
-               "lstm_dw_partial_kernel", "lstm_dw_reduce_kernel",
+               "bwd_cols_kernel", "lstm_fwd_kernel", *LSTM_BWD_KERNELS,
                "fused_gat_kernel")
+# B at which the LSTM plans' thresholds in H are found (HAGCN's B = 5 plans
+# as 3 does, widening every cluster to 8; at LOGO's 70 none widens), and H
+# at which those in B are (HAGCN's 120, LOGO FD003's 192), B up to
+# MAX_HIDDEN.
+THRESHOLD_BS, THRESHOLD_HS = (3, 70), (120, 192)
+# B at which the plan takes a cluster of 8, 4 and 2 CTAs at H = 120 on an
+# H100's 132 SMs (fused_lstm.cuh, pick_plan), timed per step.
+CLUSTER_BS = (5, 9, 17)
 METHODS = ("FC_STGNN", "LOGO", "STAGNN", "STFA")
 
 
@@ -154,11 +168,15 @@ def _build() -> None:
     fused_gnn.fused_dot_graph_spmm.load()
     fused_lstm.lstm_recurrence.load()
     fused_gat.fused_gat.load()
-    for h in sorted({h for _, _, h in LSTM_CASES}):
-        fwd, bwd = fused_lstm.lstm_recurrence.w_hh_in_shared_memory(h)
-        print(f"  lstm H={h}: W_hh in "
-              f"{'shared' if fwd else 'global'} memory (forward), "
-              f"{'shared' if bwd else 'global'} memory (backward)")
+    for _, b, h in sorted(set(LSTM_CASES + _lstm_threshold_cases()),
+                          key=lambda c: (c[2], c[1])):
+        for name, backward in (("forward", False), ("backward sweep", True)):
+            p = fused_lstm.lstm_recurrence.plan(h, b, backward)
+            print(f"  lstm H={h} B={b} {name}: {p['lanes']} lanes a unit, "
+                  f"cluster "
+                  f"of {p['cluster']}, {p['threads']} threads a CTA, W_hh in "
+                  f"{fused_lstm.W_MODES[p['w_mode']]}, {p['smem']} B of "
+                  f"shared memory")
 
 
 def _fused_inputs(b: int, n: int, d: int, f: int, seed: int):
@@ -256,10 +274,37 @@ def _bwd_vs_plain() -> float:
 # (T, B, H) of the LSTM recurrence: LOGO training (T = the batch of 100,
 # B = 70 node-patches, H = 24 and 48), the epoch's remainder batch, the
 # symbolic serving batch of 1000, HAGCN (T = 1400 at B = 5, H = 60, 120),
-# W_hh beyond shared memory (H = 192), ragged shapes.
+# W_hh beyond one CTA's shared memory (H = 192), the LOGO_bearing/XJTU trunk
+# layer (T = 100, B = 544, H = 30), ragged shapes, the H limit (1024).
 LSTM_CASES = [(100, 70, 24), (100, 70, 48), (31, 70, 24), (1000, 70, 48),
-              (1400, 5, 60), (1400, 5, 120), (100, 70, 192), (7, 13, 30),
-              (1, 1, 8)]
+              (1400, 5, 60), (1400, 5, 120), (100, 70, 192), (100, 544, 30),
+              (7, 13, 30), (1, 1, 8), (5, 3, 1024)]
+
+
+@functools.cache
+def _lstm_threshold_cases():
+    """(6, B, H) on each side of every point at which the forward's or the
+    backward sweep's plan (lanes per unit, cluster size, where W_hh sits,
+    rows per lane) changes on this card: one H on each side at each B of
+    THRESHOLD_BS, one B on each side at each H of THRESHOLD_HS."""
+    kernel = fused_lstm.lstm_recurrence
+
+    def key(h, b):
+        plans = (kernel.plan(h, b, backward) for backward in (False, True))
+        return tuple((p["lanes"], p["cluster"], p["w_mode"],
+                      p["iters"] if p["w_mode"] == 2 else 0) for p in plans)
+
+    top = fused_lstm.MAX_HIDDEN
+    cases = set()
+    for b in THRESHOLD_BS:
+        keys = [key(h, b) for h in range(1, top + 1)]
+        cases.update((6, b, h + d) for h in range(2, top + 1)
+                     if keys[h - 1] != keys[h - 2] for d in (-1, 0))
+    for h in THRESHOLD_HS:
+        keys = [key(h, b) for b in range(1, top + 1)]
+        cases.update((6, b + d, h) for b in range(2, top + 1)
+                     if keys[b - 1] != keys[b - 2] for d in (-1, 0))
+    return sorted(cases, key=lambda c: (c[2], c[1]))
 
 
 def _lstm_inputs(t: int, b: int, h: int, seed: int):
@@ -274,38 +319,56 @@ def _lstm_inputs(t: int, b: int, h: int, seed: int):
                  for a in arrays)
 
 
-def _lstm_vs_plain():
-    """The recurrence kernels against their plain versions at LSTM_CASES:
-    the forward's ys, c trajectory and c_fin; the backward's dxg and dw_hh
-    on the kernel's saved trajectories, with nonzero cotangents of both
-    outputs. Returns the largest (forward, backward) errors."""
+def _lstm_case_vs_plain(t: int, b: int, h: int, seed: int):
+    """The recurrence kernels against their plain versions at one (T, B, H):
+    the forward's ys, c trajectory and c_fin; the gate pass's activated
+    gates and the backward's dxg and dw_hh, on the kernel's saved
+    trajectories, with nonzero cotangents of both outputs. Returns the
+    largest (forward, backward) errors."""
     kernel = fused_lstm.lstm_recurrence
+    xg, w, dys, dcf = _lstm_inputs(t, b, h, seed)
+    ys, cs, c_fin = kernel.forward(xg, w)
+    p_ys, p_cs = fused_lstm.lstm_trajectory_plain(xg, w)
+    torch.cuda.synchronize()
+    fwd64 = functools.cache(lambda: fused_lstm.lstm_trajectory_plain(
+        xg.double(), w.double()))
+    plan = kernel.plan(h, b)
+    shape = f"T={t} B={b} H={h}" + (f" (cluster of {plan['cluster']})"
+                                    if plan["cluster"] > 1 else "")
     worst_fwd = worst_bwd = 0.0
-    for i, (t, b, h) in enumerate(LSTM_CASES):
-        xg, w, dys, dcf = _lstm_inputs(t, b, h, seed=200 + i)
-        ys, cs, c_fin = kernel.forward(xg, w)
-        p_ys, p_cs = fused_lstm.lstm_trajectory_plain(xg, w)
-        torch.cuda.synchronize()
-        fwd64 = functools.cache(lambda: fused_lstm.lstm_trajectory_plain(
-            xg.double(), w.double()))
-        shape = f"T={t} B={b} H={h}"
-        for name, got, want, exact in (
-                ("ys", ys, p_ys, lambda: fwd64()[0]),
-                ("cs", cs, p_cs, lambda: fwd64()[1]),
-                ("c_fin", c_fin, p_cs[-1], lambda: fwd64()[1][-1])):
-            worst_fwd = max(worst_fwd, _hold(
-                f"lstm forward vs plain {shape} {name}", got, want, exact))
+    for name, got, want, exact in (
+            ("ys", ys, p_ys, lambda: fwd64()[0]),
+            ("cs", cs, p_cs, lambda: fwd64()[1]),
+            ("c_fin", c_fin, p_cs[-1], lambda: fwd64()[1][-1])):
+        worst_fwd = max(worst_fwd, _hold(
+            f"lstm forward vs plain {shape} {name}", got, want, exact))
 
-        dxg, dw = kernel.backward(xg, w, ys, cs, dys, dcf)
-        want = fused_lstm.lstm_recurrence_bwd_plain(xg, w, ys, cs, dys, dcf)
-        torch.cuda.synchronize()
-        bwd64 = functools.cache(lambda: fused_lstm.lstm_recurrence_bwd_plain(
-            *(a.double() for a in (xg, w, ys, cs, dys, dcf))))
-        for k, (name, got) in enumerate((("dxg", dxg), ("dw", dw))):
-            worst_bwd = max(worst_bwd, _hold(
-                f"lstm backward vs plain {shape} {name}", got, want[k],
-                lambda k=k: bwd64()[k]))
+    gates = kernel.gates(xg, w, ys)
+    want_gates = fused_lstm.lstm_gates_plain(xg, w, ys)
+    dxg, dw = kernel.backward(xg, w, ys, cs, dys, dcf)
+    want = fused_lstm.lstm_recurrence_bwd_plain(xg, w, ys, cs, dys, dcf)
+    torch.cuda.synchronize()
+    worst_bwd = max(worst_bwd, _hold(
+        f"lstm backward gate pass vs plain {shape} gates", gates, want_gates,
+        lambda: fused_lstm.lstm_gates_plain(xg.double(), w.double(),
+                                            ys.double())))
+    bwd64 = functools.cache(lambda: fused_lstm.lstm_recurrence_bwd_plain(
+        *(a.double() for a in (xg, w, ys, cs, dys, dcf))))
+    for k, (name, got) in enumerate((("dxg", dxg), ("dw", dw))):
+        worst_bwd = max(worst_bwd, _hold(
+            f"lstm backward vs plain {shape} {name}", got, want[k],
+            lambda k=k: bwd64()[k]))
     return worst_fwd, worst_bwd
+
+
+def _lstm_vs_plain():
+    """:func:`_lstm_case_vs_plain` at LSTM_CASES and at the plans' threshold
+    cases. Returns the largest (forward, backward) errors."""
+    worst = [0.0, 0.0]
+    for i, (t, b, h) in enumerate(LSTM_CASES + _lstm_threshold_cases()):
+        errs = _lstm_case_vs_plain(t, b, h, 200 + i)
+        worst = [max(a, e) for a, e in zip(worst, errs)]
+    return tuple(worst)
 
 
 # (B, N, D, per-graph adj, bias, slope) of the graph attention: STAGNN's
@@ -870,7 +933,62 @@ def _lstm_times(shapes):
                   f"{row[0]:.6f} ms ({row[0] / t * 1e3:.3f} us per step), "
                   f"plain {row[1]:.6f} ms, bound {row[2]:.6f} ms ({row[3]}), "
                   f"cuDNN nn.LSTM {row[4]:.6f} ms")
+        split, per_call = _lstm_bwd_split(xg, w, ys, cs, dys, dcf)
+        print(f"times [{SMI}]: lstm_recurrence_bwd T={t} B={b} H={h} by "
+              f"launch (torch.profiler, us per launch over the launches "
+              f"it recorded of 11; {per_call:g} launches per call by the "
+              f"wrapper's count): " + ", ".join(
+                  f"{name} {us:.3f} us ({n} of 11 recorded)"
+                  for name, (us, n) in split.items()))
     return out
+
+
+def _lstm_bwd_split(xg, w, ys, cs, dys, dcf, reps: int = 10):
+    """({kernel name: (device us per launch, launches the profiler
+    recorded)}, the wrapper's launches per call) of the backward's four
+    kernels: torch.profiler over one warm-up call and ``reps`` calls, each
+    kernel's time over the launches the trace recorded. The trace can miss
+    launches (on an H100 it recorded 9 of 11 of one kernel), so the
+    launches per call come from the wrapper's count."""
+    kernel = fused_lstm.lstm_recurrence
+    kernel.backward(xg, w, ys, cs, dys, dcf)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        kernel.backward(xg, w, ys, cs, dys, dcf)
+        torch.cuda.synchronize()
+        before = kernel.bwd_launches
+        for _ in range(reps):
+            kernel.backward(xg, w, ys, cs, dys, dcf)
+        torch.cuda.synchronize()
+        per_call = (kernel.bwd_launches - before) / reps
+    split = {}
+    for name in LSTM_BWD_KERNELS:
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and name in e.key]
+        count = sum(e.count for e in events)
+        split[name] = (sum(e.device_time_total for e in events) / count
+                       if count else float("nan"), count)
+    return split, per_call
+
+
+def _lstm_cluster_times(t: int = 200, h: int = 120) -> None:
+    """The kernels' time per step at H = ``h`` at each B of CLUSTER_BS,
+    where the plan takes another cluster size; every grid fits one wave, so
+    each CTA's step is the same work at each B."""
+    kernel = fused_lstm.lstm_recurrence
+    for b in CLUSTER_BS:
+        xg, w, dys, dcf = _lstm_inputs(t, b, h, seed=0)
+        ys, cs, _ = kernel.forward(xg, w)
+        for part, call in (
+                ("forward", lambda: kernel.forward(xg, w)),
+                ("backward", lambda: kernel.backward(xg, w, ys, cs, dys,
+                                                     dcf))):
+            c = kernel.plan(h, b, part == "backward")["cluster"]
+            ms = _graph_ms(call)
+            print(f"times [{SMI}]: lstm T={t} B={b} H={h} {part}, cluster "
+                  f"of {c}: {ms:.6f} ms ({ms / t * 1e3:.3f} us per step)")
 
 
 def _serve_times(method: str, fixed, symbolic, x100, x1000) -> None:
@@ -936,7 +1054,9 @@ def main() -> None:
                             backward=True)
         with _Clocks():
             lstm = _lstm_times([(100, 70, 24), (100, 70, 48),
-                                (1400, 5, 120)])
+                                (1000, 70, 48), (1400, 5, 120),
+                                (100, 544, 30)])
+            _lstm_cluster_times()
             # The serving and training shapes of both models, and the two
             # check shapes of few large graphs.
             gat = _gat_times([GAT_CASES[k] for k in (0, 1, 2, 3, 4, 7)])

@@ -15,10 +15,12 @@ w_hh, ys and the whole c trajectory, as the JAX ``_fwd`` does, and whose
 backward returns dxg and dw_hh; the cotangent of an output the caller
 never used (LOGO never reads c_fin) is zeros. On a CUDA tensor the forward
 launches the kernel in ``gnn_rul_tpu_torch/csrc/fused_lstm.cu`` and the
-backward the three kernels in ``csrc/fused_lstm_bwd.cu`` (the reverse
-sweep, the dW_hh partial sums, their fixed-order reduction), or they raise;
-on a CPU tensor they run :func:`lstm_recurrence_plain` and
-:func:`lstm_recurrence_bwd_plain`.
+backward the four kernels in ``csrc/fused_lstm_bwd.cu`` (the gate pass,
+which recomputes the activated gates of every step in parallel, the
+reverse sweep, the dW_hh partial sums, their fixed-order reduction), or
+they raise; on a CPU tensor they run :func:`lstm_recurrence_plain` and
+:func:`lstm_recurrence_bwd_plain`, which is :func:`lstm_gates_plain`
+followed by :func:`lstm_sweep_plain`.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use
 (``ops/kernels/build.py``) and called through ``ctypes`` on PyTorch's
@@ -34,8 +36,12 @@ import torch
 
 from .build import build_libraries
 
-MAX_HIDDEN = 1024  # kMaxHidden in the sources: one thread per hidden unit
-BWD_LAUNCHES_PER_CALL = 3  # the reverse sweep, dW partials, dW reduction
+MAX_HIDDEN = 1024  # kMaxHidden in the sources
+# the gate pass, the reverse sweep, dW partials, dW reduction
+BWD_LAUNCHES_PER_CALL = 4
+PLAN_FIELDS = ("lanes", "cluster", "units", "threads", "iters", "w_mode",
+               "smem")
+W_MODES = ("global memory", "shared memory", "registers")  # w_mode 0, 1, 2
 
 
 def _gates(gates: torch.Tensor):
@@ -67,22 +73,35 @@ def lstm_recurrence_plain(xg: torch.Tensor, w_hh: torch.Tensor
     return ys, cs[-1]
 
 
-def lstm_recurrence_bwd_plain(
-        xg: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor,
+def _h_prev(ys: torch.Tensor) -> torch.Tensor:
+    """``ys`` one step later: step t's h_prev, zero at t = 0."""
+    return torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
+
+
+def lstm_gates_plain(xg: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain PyTorch version of the backward's gate pass: the activated
+    gates ``act(xg[t] + ys[t-1] @ w_hh)`` of every step, (T, 2, B, 4H), with
+    zero in place of ``ys[-1]``; they depend on the saved trajectory alone,
+    not on the backward's carry."""
+    i, f, g, o = _gates(xg + torch.matmul(_h_prev(ys), w_hh))
+    return torch.cat([i, f, g, o], dim=-1)
+
+
+def lstm_sweep_plain(
+        gates: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor,
         cs: torch.Tensor, dys: torch.Tensor, dc_fin: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the backward, step by step as the JAX
-    ``_bwd_kernel`` writes it: the reverse sweep recomputes the gates from
-    the saved h and c, seeds dc from ``dc_fin`` and returns ``(dxg, dw_hh)``
-    in the forward's layouts."""
+    """Plain PyTorch version of the backward's reverse sweep and dW pass, on
+    the activated gates of :func:`lstm_gates_plain`: the carry's recurrence
+    as the JAX ``_bwd_kernel`` writes it, dc seeded from ``dc_fin``, then
+    dW_hh as one product over the T*B rows. Returns ``(dxg, dw_hh)``."""
     zeros = torch.zeros_like(ys[0])
     dh, dc = zeros, dc_fin
-    dxg = torch.empty_like(xg)
-    dw = torch.zeros_like(w_hh)
-    for t in reversed(range(xg.shape[0])):
-        h_prev = ys[t - 1] if t else zeros
+    dxg = torch.empty_like(gates)
+    for t in reversed(range(gates.shape[0])):
+        i, f, g, o = gates[t].chunk(4, dim=-1)
         c_prev = cs[t - 1] if t else zeros
-        i, f, g, o = _gates(xg[t] + torch.bmm(h_prev, w_hh))
         dh = dh + dys[t]
         tc = torch.tanh(cs[t])
         dc = dh * o * (1.0 - tc * tc) + dc
@@ -93,8 +112,19 @@ def lstm_recurrence_bwd_plain(
         dxg[t] = dgates
         dh = torch.bmm(dgates, w_hh.transpose(1, 2))
         dc = dc * f
-        dw += torch.bmm(h_prev.transpose(1, 2), dgates)
+    dw = torch.einsum("tdbh,tdbg->dhg", _h_prev(ys), dxg)
     return dxg, dw
+
+
+def lstm_recurrence_bwd_plain(
+        xg: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor,
+        cs: torch.Tensor, dys: torch.Tensor, dc_fin: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward, in the kernels' two phases:
+    the gate pass recomputes the gates from the saved h, then the reverse
+    sweep; returns ``(dxg, dw_hh)`` in the forward's layouts."""
+    return lstm_sweep_plain(lstm_gates_plain(xg, w_hh, ys), w_hh, ys, cs,
+                            dys, dc_fin)
 
 
 def _check(xg: torch.Tensor, w_hh: torch.Tensor, **extra: torch.Tensor
@@ -158,8 +188,9 @@ class _Recurrence(torch.autograd.Function):
 
 class FusedLstmRecurrence:
     """The wrapper. ``launches`` counts launches of the forward kernel and
-    ``bwd_launches`` those of the backward's three kernels; nothing else
-    adds to them."""
+    ``bwd_launches`` those of the backward's four kernels; nothing else
+    adds to them. The kernels choose how a recurrence is cut (:meth:`plan`)
+    from H, B and the device."""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -177,12 +208,13 @@ class FusedLstmRecurrence:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         signatures = [
             (fwd.fused_lstm_fwd, [ptr] * 5 + [i32] * 3 + [ptr]),
-            (bwd.fused_lstm_bwd_recurrence, [ptr] * 8 + [i32] * 3 + [ptr]),
+            (bwd.fused_lstm_bwd_gates, [ptr] * 4 + [i32] * 3 + [ptr]),
+            (bwd.fused_lstm_bwd_sweep, [ptr] * 5 + [i32] * 3 + [ptr]),
             (bwd.fused_lstm_bwd_dw_partial, [ptr] * 3 + [i32] * 3 + [ptr]),
             (bwd.fused_lstm_bwd_dw_reduce, [ptr] * 2 + [i32] * 3 + [ptr]),
             (bwd.fused_lstm_bwd_dw_chunks, [i32] * 3),
-            (fwd.fused_lstm_fwd_w_shared, [i32]),
-            (bwd.fused_lstm_bwd_w_shared, [i32]),
+            (fwd.fused_lstm_fwd_plan, [i32] * 2 + [ptr]),
+            (bwd.fused_lstm_bwd_plan, [i32] * 2 + [ptr]),
             (fwd.fused_lstm_max_hidden, []),
             (bwd.fused_lstm_bwd_max_hidden, []),
         ]
@@ -199,18 +231,32 @@ class FusedLstmRecurrence:
                                    "MAX_HIDDEN")
         self._fwd, self._bwd = fwd, bwd
 
-    def w_hh_in_shared_memory(self, hidden: int) -> Tuple[bool, bool]:
-        """Whether the forward and the backward recurrence keep W_hh in
-        shared memory at this H on the current device (else they read it
-        from global memory)."""
+    def plan(self, hidden: int, batch: int, backward: bool = False
+             ) -> Optional[dict]:
+        """How the forward (or the backward's sweep) cuts hidden size
+        ``hidden`` at ``batch`` columns on the current device:
+        ``PLAN_FIELDS`` -> int (lanes per unit, CTAs per cluster, units per
+        CTA, threads, rows per lane, where W_hh sits as an index of
+        ``W_MODES``, shared memory bytes); None where no plan fits."""
         self.load()
-        return (bool(self._fwd.fused_lstm_fwd_w_shared(hidden)),
-                bool(self._bwd.fused_lstm_bwd_w_shared(hidden)))
+        out = (ctypes.c_int * len(PLAN_FIELDS))()
+        fn = (self._bwd.fused_lstm_bwd_plan if backward
+              else self._fwd.fused_lstm_fwd_plan)
+        if fn(hidden, batch, ctypes.addressof(out)) != 0:
+            return None
+        return dict(zip(PLAN_FIELDS, out))
 
     def __call__(self, xg: torch.Tensor, w_hh: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         _check(xg, w_hh)
         return _Recurrence.apply(self, xg, w_hh)
+
+    def _raise(self, lib, err: int, what: str, xg: torch.Tensor) -> None:
+        t, _, b, g = xg.shape
+        msg = (lib.fused_lstm_error_string(err) if lib is self._fwd
+               else lib.fused_lstm_bwd_error_string(err)).decode()
+        raise RuntimeError(f"lstm_recurrence {what} launch failed (T={t}, "
+                           f"B={b}, H={g // 4}): {msg}")
 
     def forward(self, xg: torch.Tensor, w_hh: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -231,51 +277,63 @@ class FusedLstmRecurrence:
                 xg.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), cs.data_ptr(),
                 c_fin.data_ptr(), t, b, hid, stream)
         if err != 0:
-            msg = self._fwd.fused_lstm_error_string(err).decode()
-            raise RuntimeError(f"lstm_recurrence launch failed (T={t}, B={b}, "
-                               f"H={hid}): {msg}")
+            self._raise(self._fwd, err, "forward", xg)
         self.launches += 1
         return ys, cs, c_fin
+
+    def gates(self, xg: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor
+              ) -> torch.Tensor:
+        """The backward's gate pass alone: the gate kernel on CUDA,
+        :func:`lstm_gates_plain` on the CPU."""
+        _check(xg, w_hh, ys=ys)
+        if xg.device.type == "cpu":
+            return lstm_gates_plain(xg, w_hh, ys)
+        self.load()
+        t, _, b, g = xg.shape
+        out = torch.empty_like(xg)
+        with torch.cuda.device(xg.device):
+            stream = torch.cuda.current_stream(xg.device).cuda_stream
+            err = self._bwd.fused_lstm_bwd_gates(
+                xg.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), out.data_ptr(),
+                t, b, g // 4, stream)
+        if err != 0:
+            self._raise(self._bwd, err, "backward gate", xg)
+        self.bwd_launches += 1
+        return out
 
     def backward(self, xg: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor,
                  cs: torch.Tensor, dys: torch.Tensor, dc_fin: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(dxg, dw_hh)``: the three kernels on CUDA, plain on the CPU."""
+        """``(dxg, dw_hh)``: the four kernels on CUDA, plain on the CPU."""
         _check(xg, w_hh, ys=ys, cs=cs, dys=dys, dc_fin=dc_fin)
         if xg.device.type == "cpu":
             return lstm_recurrence_bwd_plain(xg, w_hh, ys, cs, dys, dc_fin)
-        self.load()
+        # The gate pass writes the activated gates into dxg's buffer; the
+        # sweep overwrites them with the dgates.
+        dxg = self.gates(xg, w_hh, ys)
         t, _, b, g = xg.shape
         hid = g // 4
         lib = self._bwd
-        # W_hh^T is read only where W_hh does not fit in shared memory.
-        w_t = (w_hh if lib.fused_lstm_bwd_w_shared(hid)
-               else w_hh.transpose(1, 2).contiguous())
-        dxg = torch.empty_like(xg)
         dw = torch.empty_like(w_hh)
         chunks = lib.fused_lstm_bwd_dw_chunks(t, b, hid)
         partial = torch.empty((2, chunks, hid, g), dtype=torch.float64,
                               device=xg.device)  # the dW sums run in fp64
         with torch.cuda.device(xg.device):
             stream = torch.cuda.current_stream(xg.device).cuda_stream
-            err = lib.fused_lstm_bwd_recurrence(
-                xg.data_ptr(), w_hh.data_ptr(), w_t.data_ptr(), ys.data_ptr(),
-                cs.data_ptr(), dys.data_ptr(), dc_fin.data_ptr(),
-                dxg.data_ptr(), t, b, hid, stream)
-            if err == 0:
-                self.bwd_launches += 1
-                err = lib.fused_lstm_bwd_dw_partial(
+            launches = (
+                lambda: lib.fused_lstm_bwd_sweep(
+                    w_hh.data_ptr(), cs.data_ptr(), dys.data_ptr(),
+                    dc_fin.data_ptr(), dxg.data_ptr(), t, b, hid, stream),
+                lambda: lib.fused_lstm_bwd_dw_partial(
                     ys.data_ptr(), dxg.data_ptr(), partial.data_ptr(), t, b,
-                    hid, stream)
-            if err == 0:
+                    hid, stream),
+                lambda: lib.fused_lstm_bwd_dw_reduce(
+                    partial.data_ptr(), dw.data_ptr(), t, b, hid, stream))
+            for launch in launches:
+                err = launch()
+                if err != 0:
+                    self._raise(lib, err, "backward", xg)
                 self.bwd_launches += 1
-                err = lib.fused_lstm_bwd_dw_reduce(
-                    partial.data_ptr(), dw.data_ptr(), t, b, hid, stream)
-        if err != 0:
-            msg = lib.fused_lstm_bwd_error_string(err).decode()
-            raise RuntimeError(f"lstm_recurrence backward launch failed "
-                               f"(T={t}, B={b}, H={hid}): {msg}")
-        self.bwd_launches += 1
         return dxg, dw
 
 

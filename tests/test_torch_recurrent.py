@@ -18,14 +18,14 @@ from gnn_rul_tpu.ops.pallas.fused_lstm import (lstm_recurrence_pallas,
 from gnn_rul_tpu_torch.nn.recurrent import LSTMParams, bilstm_fused
 from gnn_rul_tpu_torch.ops.kernels import fused_lstm
 from gnn_rul_tpu_torch.ops.kernels.fused_lstm import (
-    lstm_recurrence, lstm_recurrence_bwd_plain, lstm_recurrence_plain,
-    lstm_trajectory_plain)
+    lstm_gates_plain, lstm_recurrence, lstm_recurrence_bwd_plain,
+    lstm_recurrence_plain, lstm_sweep_plain, lstm_trajectory_plain)
 
 torch.set_num_threads(1)
 
-# (T, B, H): the cases of tests/test_pallas_lstm.py, and H = 192, whose
-# W_hh (589,824 B) exceeds a Hopper block's shared memory.
-CASES = [(12, 24, 30), (10, 13, 60), (7, 8, 8), (3, 4, 192)]
+# (T, B, H): the cases of tests/test_pallas_lstm.py, H = 192, whose W_hh
+# (589,824 B) exceeds a Hopper block's shared memory, and a single step.
+CASES = [(12, 24, 30), (10, 13, 60), (7, 8, 8), (3, 4, 192), (1, 5, 16)]
 
 
 def _np(a):
@@ -94,6 +94,56 @@ def test_bwd_plain_equals_autograd_of_plain(t, b, h):
                                         -torch.sin(cs[-1]))
     for g, r in zip((dxg, dw), want):
         np.testing.assert_allclose(_np(g), _np(r), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("t,b,h", CASES)
+def test_gates_plain_matches_a_recompute_from_the_jax_trajectory(t, b, h):
+    """The gate pass: act(xg[t] + ys[t-1] @ w_hh) of every step, from the
+    trajectory of lstm_recurrence_reference, recomputed step by step."""
+    xg, w = _inputs(t, b, h, seed=8)
+    ys, _ = lstm_recurrence_reference(jnp.asarray(xg), jnp.asarray(w))
+    ys = np.array(ys)
+    want, h_prev = [], jnp.zeros((2, b, h), jnp.float32)
+    for step in range(t):
+        pre = jnp.asarray(xg[step]) + jnp.einsum("dbh,dhg->dbg", h_prev,
+                                                  jnp.asarray(w))
+        i, f, g, o = jnp.split(pre, 4, axis=-1)
+        want.append(jnp.concatenate([jax.nn.sigmoid(i), jax.nn.sigmoid(f),
+                                     jnp.tanh(g), jax.nn.sigmoid(o)], -1))
+        h_prev = ys[step]
+    got = lstm_gates_plain(torch.from_numpy(xg), torch.from_numpy(w),
+                           torch.from_numpy(ys))
+    assert got.shape == (t, 2, b, 4 * h)
+    np.testing.assert_allclose(_np(got), _np(jnp.stack(want)), atol=1e-6,
+                               rtol=1e-6)
+    np.testing.assert_array_equal(_np(lstm_recurrence.gates(
+        torch.from_numpy(xg), torch.from_numpy(w), torch.from_numpy(ys))),
+        _np(got))
+
+
+@pytest.mark.parametrize("t,b,h", CASES)
+@pytest.mark.parametrize("jax_fn", ["reference", "pallas"])
+def test_two_phase_backward_matches_jax_grad(t, b, h, jax_fn):
+    """The gate pass then the sweep, called directly on the forward's saved
+    trajectory, against jax.grad."""
+    xg, w = _inputs(t, b, h, seed=9)
+    fn = _jax_fn(jax_fn)
+
+    def loss(a, b_):
+        ys, cf = fn(a, b_)
+        return jnp.sum(jnp.sin(ys)) + jnp.sum(jnp.cos(cf))
+
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(xg), jnp.asarray(w))
+    txg, tw = torch.from_numpy(xg), torch.from_numpy(w)
+    ys, cs = lstm_trajectory_plain(txg, tw)
+    dys, dcf = torch.cos(ys), -torch.sin(cs[-1])
+    got = lstm_sweep_plain(lstm_gates_plain(txg, tw, ys), tw, ys, cs, dys,
+                           dcf)
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(r), atol=1e-5, rtol=1e-5)
+    for g, r in zip(lstm_recurrence_bwd_plain(txg, tw, ys, cs, dys, dcf),
+                    got):
+        np.testing.assert_array_equal(_np(g), _np(r))
 
 
 def test_unused_final_state_counts_as_a_zero_cotangent():
