@@ -9,18 +9,22 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
 
 1. device: CUDA must be present; the card's name and power limit;
 2. build: every kernel, from the sources in the checkout, one nvcc each,
-   all at once;
+   all at once; the plans the libraries choose (the LSTM's, the dot-graph
+   backward's one-launch threshold in N, the attention's), held against
+   the wrappers' own;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, on seeded inputs at the serving and training shapes and at ragged
    shapes: the dot-graph forward, then its backward (dh, dx, the
-   batch-summed dmask); the LSTM recurrence forward (ys, the c trajectory,
+   batch-summed dmask; also on each side of its one-launch threshold); the
+   LSTM recurrence forward (ys, the c trajectory,
    c_fin), then its backward's gate pass (the activated gates) and the
    whole backward (dxg, dw_hh, with both outputs' cotangents nonzero), at
    LOGO's, HAGCN's, LOGO_bearing's, ragged and H = 1024 (T, B, H), and on
    each side of every point where the kernels' plan changes, in H at two
    B and in B at two H (each cluster size included); the graph attention
    at STAGNN's and STFA's (B, N, D), both adjacency layouts, GAT_LSTM's D
-   and GDAGDL's N, and ragged shapes;
+   and GDAGDL's N, ragged shapes, and on each side of every point where
+   its plan changes;
 4. serve: FC_STGNN/FD001, LOGO/FD001, STAGNN/FD001 and STFA/FD001, at full
    width with seeded weights through ``serving_model``; every answer
    against the same weights on the CPU at the same batch, and each path's
@@ -44,6 +48,10 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (five
 entries); the last line is ``{"ok": true, "device": {...}}``.
+
+``python3 -c "import chip_smoke as c; c._turns('build/parent')"`` times
+the dot-graph backward and the attention of an earlier commit unpacked at
+``build/parent`` and of this tree in turns on one card.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from typing import NamedTuple
@@ -87,9 +96,9 @@ FD001_ENGINES, FD001_ROWS, WINDOW, MAX_RUL = 100, 20631, 50, 125
 SMI = ""  # nvidia-smi's name and power limit, beside every time printed
 LSTM_BWD_KERNELS = ("lstm_gates_kernel", "lstm_sweep_kernel",
                     "lstm_dw_partial_kernel", "lstm_dw_reduce_kernel")
-OUR_KERNELS = ("fused_dot_graph_spmm_kernel", "bwd_rows_kernel",
-               "bwd_cols_kernel", "lstm_fwd_kernel", *LSTM_BWD_KERNELS,
-               "fused_gat_kernel")
+OUR_KERNELS = ("fused_dot_graph_spmm_kernel", "bwd_graph_kernel",
+               "bwd_rows_kernel", "bwd_cols_kernel", "lstm_fwd_kernel",
+               *LSTM_BWD_KERNELS, "fused_gat_kernel")
 # B at which the LSTM plans' thresholds in H are found (HAGCN's B = 5 plans
 # as 3 does, widening every cluster to 8; at LOGO's 70 none widens), and H
 # at which those in B are (HAGCN's 120, LOGO FD003's 192), B up to
@@ -112,15 +121,23 @@ class Path(NamedTuple):
     train_per_forward: int
 
 
+_FC_HP = model_hparams("CMAPSS", "FD001", "FC_STGNN")
+# The dot-graph chain's (N, D, F) at both of FC_STGNN's scales: the nodes of
+# a time window of 2 (the model's default moving_window), D = F = twice the
+# hidden width.
+FC_STGNN_NDF = (2 * _FC_HP["num_node"], 2 * _FC_HP["hidden_dim"],
+                2 * _FC_HP["hidden_dim"])
 _STAGNN_HP = model_hparams("CMAPSS", "FD001", "STAGNN")
 _STFA_HP = model_hparams("CMAPSS", "FD001", "STFA")
 # The dot-graph chain runs once per scale, the LSTM recurrence once per
 # Bi-LSTM layer, the graph attention once per head: STAGNN's two GAT layers
 # of 3 heads, STFA's 10 heads. STFA's attention dropout (0.2) sends its
-# training forwards down the plain path, so they launch none.
+# training forwards down the plain path, so they launch none. The backward's
+# launches per call come from the wrapper's mirror of its plan
+# (fused_gnn.bwd_plan); the launches counted are those the C entry reports.
 KERNEL_OF = {
     "FC_STGNN": Path(fused_gnn.fused_dot_graph_spmm, 2,
-                     fused_gnn.BWD_LAUNCHES_PER_CALL, 2),
+                     fused_gnn.bwd_launches_per_call(*FC_STGNN_NDF), 2),
     "LOGO": Path(fused_lstm.lstm_recurrence, 3,
                  fused_lstm.BWD_LAUNCHES_PER_CALL, 3),
     "STAGNN": Path(fused_gat.fused_gat, 2 * _STAGNN_HP["num_heads"], 0,
@@ -134,6 +151,8 @@ def _reset(kernel) -> None:
     kernel.launches = 0
     if hasattr(kernel, "bwd_launches"):
         kernel.bwd_launches = 0
+    if hasattr(kernel, "bwd_calls"):
+        kernel.bwd_calls = 0
 
 
 def _counts(kernel):
@@ -168,6 +187,7 @@ def _build() -> None:
     fused_gnn.fused_dot_graph_spmm.load()
     fused_lstm.lstm_recurrence.load()
     fused_gat.fused_gat.load()
+    _print_graph_plans()
     for _, b, h in sorted(set(LSTM_CASES + _lstm_threshold_cases()),
                           key=lambda c: (c[2], c[1])):
         for name, backward in (("forward", False), ("backward sweep", True)):
@@ -177,6 +197,89 @@ def _build() -> None:
                   f"of {p['cluster']}, {p['threads']} threads a CTA, W_hh in "
                   f"{fused_lstm.W_MODES[p['w_mode']]}, {p['smem']} B of "
                   f"shared memory")
+
+
+def _bwd_threshold(d: int, f: int) -> int:
+    """The largest N at which the dot-graph backward runs in one launch at
+    (D, F), by the wrapper's :func:`fused_gnn.bwd_plan`."""
+    n = 1
+    while fused_gnn.bwd_launches_per_call(n + 1, d, f) == 1:
+        n += 1
+    return n
+
+
+# (D, F) at which the backward's threshold in N is found and checked:
+# FC_STGNN's width and the kernels' limit on D and F.
+BWD_THRESHOLD_DF = ((16, 16), (fused_gnn.MAX_FEAT, fused_gnn.MAX_FEAT))
+
+
+@functools.cache
+def _bwd_threshold_cases():
+    """(2, N, D, F) on each side of the point at which the backward goes
+    from one launch to two, at each (D, F) of BWD_THRESHOLD_DF."""
+    return [(2, _bwd_threshold(d, f) + k, d, f) for d, f in BWD_THRESHOLD_DF
+            for k in (0, 1)]
+
+
+def _gat_key(b: int, n: int, d: int):
+    p = fused_gat.gat_plan(b, n, d)
+    return p["graphs"], p["row_tiles"], p["cols"] == d
+
+
+@functools.cache
+def _gat_threshold_cases():
+    """(B, N, D, per-graph adj, bias, slope) on each side of every point at
+    which the attention kernel's plan (graphs a block, blocks a graph, wh
+    in chunks or whole) changes: in B at STFA's (N, D) = (14, 5) up to
+    B = 1,400 (10 graphs a block from B = 1,320) and at STAGNN's (14, 64) up
+    to B = 700 (2 graphs a block from B = 264), in N at B = 140 and D = 16 up to N = 160 (past where a whole graph stops
+    fitting the block), in D at B = 1 and N = 41 up to D = 400 (past where
+    wh goes in chunks)."""
+    cases = set()
+    for shape_of, top, batched in (
+            (lambda v: (v, 14, 5), 1400, False),
+            (lambda v: (v, 14, 64), 700, True),
+            (lambda v: (140, v, 16), 160, True),
+            (lambda v: (1, 41, v), 400, False)):
+        keys = [_gat_key(*shape_of(v)) for v in range(1, top + 1)]
+        for v in range(2, top + 1):
+            if keys[v - 1] != keys[v - 2]:
+                cases.update((*shape_of(u), batched, 0.3, 0.1)
+                             for u in (v - 1, v))
+    return sorted(cases)
+
+
+def _print_graph_plans() -> None:
+    """Prints the dot-graph backward's and the attention's plans as the
+    built libraries choose them, and fails where the wrappers' plans
+    (which size the scratch and count the launches) disagree."""
+    kernel = fused_gnn.fused_dot_graph_spmm
+    for d, f in BWD_THRESHOLD_DF:
+        top = _bwd_threshold(d, f)
+        for n in range(1, top + 2):
+            if kernel.kernel_plan(n, d, f) != fused_gnn.bwd_plan(n, d, f):
+                raise AssertionError(f"backward plan at N={n} D={d} F={f}: "
+                                     f"{kernel.kernel_plan(n, d, f)} built, "
+                                     f"{fused_gnn.bwd_plan(n, d, f)} wrapper")
+        print(f"  dot-graph backward D={d} F={f}: one launch (a block of 256 "
+              f"threads per graph) up to N={top} "
+              f"({kernel.kernel_plan(top, d, f)['smem']} B of shared memory "
+              f"there), the row and column pass (two launches) from "
+              f"N={top + 1}")
+    n, d, f = FC_STGNN_NDF
+    print(f"  dot-graph backward at FC_STGNN's N={n} D={d} F={f}: "
+          f"{kernel.kernel_plan(n, d, f)}")
+    attn = fused_gat.fused_gat
+    for b, n, d, *_ in GAT_CASES + _gat_threshold_cases():
+        got = attn.kernel_plan(b, n, d)
+        if got != fused_gat.gat_plan(b, n, d):
+            raise AssertionError(f"attention plan at B={b} N={n} D={d}: "
+                                 f"{got} built, {fused_gat.gat_plan(b, n, d)}"
+                                 f" wrapper")
+    for b, n, d, *_ in GAT_CASES:
+        print(f"  attention B={b} N={n} D={d}: {attn.kernel_plan(b, n, d)}")
+    print(f"  attention: {len(_gat_threshold_cases())} threshold cases, "
+          f"plans as the wrapper's")
 
 
 def _fused_inputs(b: int, n: int, d: int, f: int, seed: int):
@@ -243,17 +346,24 @@ def _hold(what: str, got, want, exact) -> float:
 
 
 def _bwd_vs_plain() -> float:
-    """The backward kernels against the plain backward at every case, dmask
-    included, by :func:`_hold`: where dS = P (dP - inner) cancels, the fp32
-    plain version's own rounding can exceed the tolerance."""
+    """The backward kernels against the plain backward at every case and on
+    each side of the one-launch threshold, dmask included, by
+    :func:`_hold`: where dS = P (dP - inner) cancels, the fp32 plain
+    version's own rounding can exceed the tolerance."""
     kernel = fused_gnn.fused_dot_graph_spmm
     plain = fused_gnn.fused_dot_graph_spmm_bwd_plain
     worst = 0.0
-    for i, (b, n, d, f) in enumerate(KERNEL_CASES):
+    for i, (b, n, d, f) in enumerate(KERNEL_CASES + _bwd_threshold_cases()):
         h, x, mask = _fused_inputs(b, n, d, f, seed=i)
         g = torch.randn(x.shape, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(100 + i))
+        before = kernel.bwd_launches
         dh, dx, dmask = kernel.backward(h, x, mask, g, need_dmask=True)
+        launches = kernel.bwd_launches - before
+        if launches != fused_gnn.bwd_launches_per_call(n, d, f):
+            raise AssertionError(f"the backward at N={n} D={d} F={f} "
+                                 f"launched {launches} kernels, its plan "
+                                 f"{fused_gnn.bwd_plan(n, d, f)}")
         got = (dh, dx, dmask.sum(dim=0))
         pdh, pdx, pdmask = plain(h, x, mask, g)
         want = (pdh, pdx, pdmask.sum(dim=0))
@@ -266,7 +376,8 @@ def _bwd_vs_plain() -> float:
 
         for k, name in enumerate(("dh", "dx", "dmask")):
             worst = max(worst, _hold(
-                f"backward vs plain B={b} N={n} D={d} F={f} {name}", got[k],
+                f"backward vs plain B={b} N={n} D={d} F={f} ({launches} "
+                f"launch{'es' if launches > 1 else ''}) {name}", got[k],
                 want[k], lambda k=k: exact()[k]))
     return worst
 
@@ -374,13 +485,14 @@ def _lstm_vs_plain():
 # (B, N, D, per-graph adj, bias, slope) of the graph attention: STAGNN's
 # serving shapes (per-graph covariance graphs), STFA's (B x 25 patch graphs
 # on the shared prior graph: 2500 at batch 100, 25,000 for a request of
-# 1000), GDAGDL's N = 17 at GAT_LSTM's D = 300, ragged shapes, and a
-# negative bias at slope 0.01.
+# 1000), GDAGDL's N = 17 at GAT_LSTM's D = 300, ragged shapes, a negative
+# bias at slope 0.01, and a negative slope (the kernel takes each row's max
+# over its logits, not through f2's).
 GAT_CASES = [(100, 14, 64, True, 0.3, 0.1), (1000, 14, 64, True, 0.3, 0.1),
              (2500, 14, 5, False, 0.3, 0.1), (25000, 14, 5, False, 0.3, 0.1),
              (3, 17, 300, True, 0.3, 0.1), (1, 1, 1, True, 0.3, 0.1),
              (5, 33, 7, False, 0.3, 0.1), (2, 130, 16, True, 0.3, 0.1),
-             (7, 33, 40, True, -0.4, 0.01)]
+             (7, 33, 40, True, -0.4, 0.01), (300, 14, 64, True, 0.2, -0.3)]
 
 
 def _gat_inputs(b: int, n: int, d: int, batched: bool, bias: float,
@@ -405,11 +517,12 @@ def _gat_inputs(b: int, n: int, d: int, batched: bool, bias: float,
 
 
 def _gat_vs_plain() -> float:
-    """The attention kernel against its plain version at GAT_CASES, by
-    :func:`_hold`."""
+    """The attention kernel against its plain version at GAT_CASES and on
+    each side of its plan thresholds, by :func:`_hold`."""
     kernel = fused_gat.fused_gat
     worst = 0.0
-    for i, (b, n, d, batched, bias, slope) in enumerate(GAT_CASES):
+    for i, (b, n, d, batched, bias, slope) in enumerate(
+            GAT_CASES + _gat_threshold_cases()):
         args = _gat_inputs(b, n, d, batched, bias, seed=300 + i)
         got = kernel(*args, slope)
         want = fused_gat.fused_gat_plain(*args, slope)
@@ -601,7 +714,8 @@ def _write_fd001(root: str, seed: int = 3):
 
 def _train_entry_point(method: str, fd001):
     """The main path: ``cli.main`` trains one epoch of ``method`` on the
-    card. Returns the kernel's (forward, backward) launches over that run."""
+    card. Returns the kernel's (forward, backward) launches and its backward
+    calls over that run."""
     (train_x, _), test_x, data_root = fd001
     save_dir = os.path.join(os.path.dirname(data_root), "logs")
     path = KERNEL_OF[method]
@@ -614,6 +728,7 @@ def _train_entry_point(method: str, fd001):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd_launches, bwd_launches = _counts(path.kernel)
+    bwd_calls = getattr(path.kernel, "bwd_calls", 0)
 
     run_dir = os.path.join(save_dir, "GNN_RUL", "run_1", f"{method}_run_0")
     with open(os.path.join(run_dir, "logs_run_0.log")) as f:
@@ -625,7 +740,7 @@ def _train_entry_point(method: str, fd001):
           f"windows on the card in {wall:.2f} s (build, upload and "
           f"evaluation included); epoch loss {losses}; best (Score_v1, "
           f"Score_v2, MAE, RMSE) {best}; launches forward {fwd_launches}, "
-          f"backward {bwd_launches}")
+          f"backward {bwd_launches} in {bwd_calls} calls")
     if len(losses) != 1 or not np.isfinite(losses[0]):
         raise AssertionError(f"epoch losses {losses}")
     if rows[0] != ["Score_v1", "Score_v2", "MAE", "RMSE"] or len(rows) != 2 \
@@ -655,7 +770,7 @@ def _train_entry_point(method: str, fd001):
     print(f"train entry point {method}: checkpoint.pt serves {len(test_x)} "
           f"test windows on the card as on the CPU (atol={SERVE_ATOL}, "
           f"rtol={SERVE_RTOL})")
-    return fwd_launches, bwd_launches
+    return fwd_launches, bwd_launches, bwd_calls
 
 
 def _graph_ms(fn, inner: int = 50, reps: int = 21) -> float:
@@ -1072,6 +1187,11 @@ def main() -> None:
                 "bound_by": bound_by,
                 "library_ms": library[0] if library else None}
 
+    def at(times, prefix):
+        ms, plain_ms, bound_ms, _ = times[:4]
+        return {f"{prefix}_ms": ms, f"{prefix}_plain_ms": plain_ms,
+                f"{prefix}_bound_ms": bound_ms}
+
     lstm_shape = (100, 70, 48)
     print(json.dumps({"kernels": [
         entry("fused_dot_graph_spmm", fwd[KERNEL_CASES[0]], max_err,
@@ -1080,12 +1200,16 @@ def main() -> None:
               replaces="gnn_rul_tpu/ops/pallas/fused_gnn.py:45 (_kernel), "
                        "gnn_rul_tpu/ops/pallas/fused_gnn.py:116 "
                        "(_packed_kernel)",
-              launches_serve=served["FC_STGNN"][4]),
+              launches_serve=served["FC_STGNN"][4],
+              **at(fwd[KERNEL_CASES[1]], "b1000")),
         entry("fused_dot_graph_spmm_bwd", bwd[KERNEL_CASES[0]], bwd_max_err,
               trained["FC_STGNN"][1],
               source="gnn_rul_tpu_torch/csrc/fused_gnn_bwd.cu",
               replaces="gnn_rul_tpu/ops/pallas/fused_gnn.py:235 "
-                       "(_bwd_kernel)"),
+                       "(_bwd_kernel)",
+              launches_per_call=trained["FC_STGNN"][1]
+              / trained["FC_STGNN"][2],
+              **at(bwd[KERNEL_CASES[1]], "b1000")),
         entry("fused_lstm", lstm[lstm_shape]["fwd"], lstm_err,
               trained["LOGO"][0], source="gnn_rul_tpu_torch/csrc/fused_lstm.cu",
               replaces="gnn_rul_tpu/ops/pallas/fused_lstm.py:77 (_fwd_kernel)",
@@ -1107,11 +1231,34 @@ def main() -> None:
               launches_stfa_epoch=trained["STFA"][0],
               stfa_ms=gat[GAT_CASES[2]][0],
               stfa_plain_ms=gat[GAT_CASES[2]][1],
-              stfa_bound_ms=gat[GAT_CASES[2]][2]),
+              stfa_bound_ms=gat[GAT_CASES[2]][2],
+              **at(gat[GAT_CASES[3]], "stfa_b25000")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+
+
+# One turn of :func:`_turns`, in the tree it runs from: the dot-graph
+# backward at B = 100 and 1000 and the attention at its six timed shapes,
+# through functions that every tree since the attention kernel's has.
+_TURN = ("import chip_smoke as c; c._device(); c._build(); "
+         "k = c.fused_gnn.fused_dot_graph_spmm; "
+         "c._kernel_times('fused_dot_graph_spmm_bwd', c.KERNEL_CASES[:2], "
+         "k.backward, c.fused_gnn.fused_dot_graph_spmm_bwd_plain, "
+         "backward=True); "
+         "c._gat_times([c.GAT_CASES[i] for i in (0, 1, 2, 3, 4, 7)])")
+
+
+def _turns(parent: str) -> None:
+    """Times the kernels of the tree at ``parent`` (an earlier commit,
+    unpacked) and of this one in turns, parent, this, this, parent, on one
+    card; each turn is a process of its own that builds its tree's
+    kernels."""
+    for label, cwd in (("parent", parent), ("change", "."), ("change", "."),
+                       ("parent", parent)):
+        print(f"turn {label}: {os.path.abspath(cwd)}", flush=True)
+        subprocess.run([sys.executable, "-c", _TURN], cwd=cwd, check=True)
 
 
 if __name__ == "__main__":

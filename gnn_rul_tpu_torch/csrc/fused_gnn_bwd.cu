@@ -15,36 +15,47 @@
 //   contiguous.
 //
 // Replaces gnn_rul_tpu/ops/pallas/fused_gnn.py::_bwd_kernel, which recomputes
-// S/P/A for one graph in VMEM and runs the whole chain there. A block here
-// cannot hold an (N, N) tile for every N the forward takes (at N=384,
-// D=F=128 one fp32 tile plus h, x and g exceed 227 KB), so the backward is
-// the forward's design run twice, with nothing (N, N) kept and no atomics
-// (every output element has one writer, so gradients are deterministic):
-//
-//   row pass, a warp per row i, 32-column tiles of h and x in shared memory.
-//     Sweep 1 keeps the online softmax max m_i, normaliser l_i and the
-//     rescaled sum_j e_ij dP_ij, which gives inner_i = rowsum(dP * P)_i;
-//     (m_i, l_i, inner_i) go to a (B, N, 3) scratch. Sweep 2 rebuilds P_ij,
-//     forms dS_ij, accumulates the row term sum_j dS_ij h_j into dh_i and
-//     writes the dmask row when asked for.
-//   column pass, a warp per column j, 32-row tiles of h and g. It rebuilds
-//     P_ij from the stored statistics and A_ij = (P_ij + d_ij) mask_ij, then
-//     accumulates dx_j = sum_i A_ij g_i and the column term sum_i dS_ij h_i,
-//     which it adds to the row term already in dh_j.
-//
-// S_ij and dA_ij are computed with the same fmaf order in both passes and in
-// the forward, so both passes see the same P.
+// S/P/A for one graph in VMEM and runs the whole chain there.
 //
 // Bound on an H100 SXM at the FC_STGNN/FD001 training shape (B=100, N=28,
 // D=F=16, per scale, no dmask): h, x and g read and dh and dx written,
 // 5*100*28*16*4 B, plus a 3,136 B mask: 899,136 B, 0.27 us at 3.35 TB/s;
-// 2*B*N^2*(3D + 2F) = 12.5 MFLOP, 0.19 us at 67 TFLOP/s fp32. Like the
-// forward it is launch and latency bound; the design keeps two launches per
-// backward and every (N, N) intermediate on chip. Tensor cores and packing
-// several graphs per block are left for the work that makes it fast.
+// 2*B*N^2*(3D + 2F) = 12.5 MFLOP, 0.19 us at 67 TFLOP/s fp32. At B=1000,
+// 8,963,136 B, 2.7 us. So it is bound by a launch's latency and by the
+// chain of dependent steps inside one graph, not by bytes or FMAs.
+//
+// Plan, chosen in fused_dot_graph_spmm_bwd from (N, D, F) alone:
+//
+// * one launch (bwd_graph_kernel) wherever a graph fits in a block's shared
+//   memory: 4*(N*qs(D) + 2N*qs(F) + N^2 + 2N(N|1)) B <= 232,448 B, qs(w) =
+//   w rounded up to 4 floats and then to an odd number of 4-float groups
+//   (N <= 129 at D=F=16, N <= 87 at D=F=128; 16,352 B at FC_STGNN, so 14
+//   blocks fit an SM's shared memory and 4 its registers). A block of 256
+//   threads owns one graph and reads it once: h, x, g and the mask are
+//   issued together by cp.async (stage.cuh), h, x and g at stride qs, so
+//   that 16-byte reads of 8 rows hit 32 banks. Two (N, N) tiles at stride
+//   N|1 hold S (then e_ij carrying the sign of S_ij, then A) and dA (then
+//   dS). A warp takes 4 rows at a time, lane j: S_ij and dA_ij are formed
+//   once (S in the forward's fmaf order, so the backward's P is the
+//   forward's), h_j and x_j read once for the 4 rows, 16 bytes at a time;
+//   then the rows' max, normaliser and rowsum(dP * P) by shuffles, and A,
+//   dS and the dmask rows. One barrier later each thread takes 4 columns of
+//   one row of dx = A^T g or of dh = (dS + dS^T) h, N(F + D) / 4 such units
+//   (224 at FC_STGNN), reading g and h 16 bytes at a time.
+// * above that, the two-launch plan kept from the first port: a row pass
+//   (a warp per row, 32-column tiles of h and x; online softmax statistics
+//   and rowsum(dP * P) into a (B, N, 3) scratch, then dS and the row term of
+//   dh and the dmask row) and a column pass (a warp per column; dx and the
+//   column term of dh). It covers N = 384, D = F = 128.
+//
+// Fixed-order sums and no atomics: every output element has one writer, so
+// gradients are deterministic. fp32 FMAs, accurate expf and division.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "stage.cuh"
 
 namespace {
 
@@ -52,6 +63,12 @@ constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;                    // one warp per row/column
 constexpr int kMaxFeat = 128;                       // limit on D and on F
 constexpr int kFeatPerLane = kMaxFeat / kWarp;      // columns owned per lane
+constexpr int kGraphThreads = 256;                  // one-launch plan's block
+constexpr int kGraphWarps = kGraphThreads / kWarp;
+constexpr int kRowGroup = 4;                        // rows a warp at a time
+constexpr size_t kMaxSmem = 232448;                 // a block's limit, H100
+constexpr size_t kDefaultSmem = 48 * 1024;          // above: opt in
+constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -89,6 +106,180 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     const int r = idx / width, c = idx % width;
     dst[r * stride + c] =
         r0 + r < n ? src[static_cast<size_t>(r0 + r) * width + c] : 0.f;
+  }
+}
+
+// Row stride, in floats, of an (n, width) matrix staged for 16-byte reads:
+// width rounded up to 4, then an odd number of 4-float groups, so that 8
+// lanes reading 16 bytes of 8 different rows hit 32 different banks.
+__host__ __device__ __forceinline__ int quad_stride(int width) {
+  const int quads = (width + 3) / 4;
+  return 4 * (quads | 1);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// s = fmaf(a[c], b[c], s) for c = 0, 1, 2, 3 in order.
+__device__ __forceinline__ float fma4(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+__device__ __forceinline__ void fma4(float a, float4 b, float4& acc) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+
+// Zeroes columns [width, stride) of `rows` staged rows.
+__device__ __forceinline__ void zero_pad(float* dst, int rows, int width,
+                                         int stride) {
+  const int pad = stride - width;
+  for (int e = threadIdx.x; e < rows * pad; e += blockDim.x)
+    dst[(e / pad) * stride + width + e % pad] = 0.f;
+}
+
+__global__ void __launch_bounds__(kGraphThreads)
+bwd_graph_kernel(const float* __restrict__ h, const float* __restrict__ x,
+                 const float* __restrict__ mask, const float* __restrict__ g,
+                 float* __restrict__ dh, float* __restrict__ dx,
+                 float* __restrict__ dmask, int n, int d, int f) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int hst = quad_stride(d), xst = quad_stride(f), ts = n | 1;
+  float* hs = smem;                    // [n][hst], zero past d
+  float* xs = hs + n * hst;            // [n][xst], zero past f
+  float* gs = xs + n * xst;            // [n][xst], zero past f
+  float* ms = gs + n * xst;            // [n][n]: the mask
+  float* et = ms + n * n;              // [n][ts]: S, then +-e, then A
+  float* dt = et + n * ts;             // [n][ts]: dA, then dS
+
+  const size_t b = blockIdx.x;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  stage::rows(hs, hst, h + b * n * d, d, n, d);
+  stage::rows(xs, xst, x + b * n * f, f, n, f);
+  stage::rows(gs, xst, g + b * n * f, f, n, f);
+  stage::rows(ms, n, mask, n, n, n);
+  zero_pad(hs, n, d, hst);
+  zero_pad(xs, n, f, xst);
+  zero_pad(gs, n, f, xst);
+  stage::wait_all();
+  __syncthreads();
+
+  // A warp takes kRowGroup rows i at a time, lane j: S_ij and dA_ij once
+  // (h_j and x_j read once for the group's rows), the rows' statistics by
+  // shuffles, then A_ij, dS_ij and the dmask rows.
+  for (int i0 = warp; i0 < n; i0 += kGraphWarps * kRowGroup) {
+    int rows[kRowGroup];
+    bool valid[kRowGroup];
+    float m[kRowGroup];
+#pragma unroll
+    for (int r = 0; r < kRowGroup; ++r) {
+      const int i = i0 + r * kGraphWarps;
+      valid[r] = i < n;
+      rows[r] = valid[r] ? i : i0;  // a row past n repeats i0, stores nothing
+      m[r] = -INFINITY;
+    }
+    for (int j = lane; j < n; j += kWarp) {
+      float sv[kRowGroup] = {}, av[kRowGroup] = {};
+      const float* hj = hs + j * hst;
+      const float* xj = xs + j * xst;
+      for (int c = 0; c < d; c += 4) {
+        const float4 b4 = ld4(hj + c);
+#pragma unroll
+        for (int r = 0; r < kRowGroup; ++r)
+          sv[r] = fma4(ld4(hs + rows[r] * hst + c), b4, sv[r]);
+      }
+      for (int c = 0; c < f; c += 4) {
+        const float4 b4 = ld4(xj + c);
+#pragma unroll
+        for (int r = 0; r < kRowGroup; ++r)
+          av[r] = fma4(ld4(gs + rows[r] * xst + c), b4, av[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < kRowGroup; ++r) {
+        if (j == rows[r]) sv[r] -= 1e8f;
+        m[r] = fmaxf(m[r], leaky(sv[r]));
+        if (!valid[r]) continue;
+        et[rows[r] * ts + j] = sv[r];
+        dt[rows[r] * ts + j] = av[r];
+      }
+    }
+    float l[kRowGroup], t[kRowGroup];
+#pragma unroll
+    for (int r = 0; r < kRowGroup; ++r) {
+      m[r] = warp_max(m[r]);
+      l[r] = t[r] = 0.f;
+    }
+    for (int j = lane; j < n; j += kWarp) {
+#pragma unroll
+      for (int r = 0; r < kRowGroup; ++r) {
+        float* ev = et + rows[r] * ts + j;
+        const float sv = *ev;
+        const float e = expf(leaky(sv) - m[r]);
+        l[r] += e;
+        t[r] += e * (dt[rows[r] * ts + j] * ms[rows[r] * n + j]);
+        if (valid[r]) *ev = sv >= 0.f ? e : -e;  // the sign of S: leaky'(S)
+      }
+    }
+    float inner[kRowGroup];
+#pragma unroll
+    for (int r = 0; r < kRowGroup; ++r) {
+      l[r] = warp_sum(l[r]);
+      inner[r] = warp_sum(t[r]) / l[r];
+    }
+#pragma unroll
+    for (int r = 0; r < kRowGroup; ++r) {
+      const int i = rows[r];
+      if (!valid[r]) continue;
+      const float* mrow = ms + i * n;
+      float* erow = et + i * ts;
+      float* drow = dt + i * ts;
+      for (int j = lane; j < n; j += kWarp) {
+        const float v = erow[j];
+        const float p = fabsf(v) / l[r];
+        const float da = drow[j], mk = mrow[j];
+        const float pe = p + (j == i ? 1.f : 0.f);
+        drow[j] = p * (da * mk - inner[r]) * (signbit(v) ? 0.01f : 1.f);
+        erow[j] = pe * mk;
+        if (dmask != nullptr) dmask[(b * n + i) * n + j] = pe * da;
+      }
+    }
+  }
+  __syncthreads();
+
+  // Every thread 4 consecutive columns of one row of dx = A^T g, then of
+  // dh = (dS + dS^T) h, read 16 bytes at a time.
+  const int fq = (f + 3) / 4, dq = (d + 3) / 4;
+  for (int o = threadIdx.x; o < n * (fq + dq); o += kGraphThreads) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    float* dst;
+    int width, c;
+    if (o < n * fq) {
+      const int j = o / fq;
+      c = 4 * (o - j * fq);
+      for (int i = 0; i < n; ++i)
+        fma4(et[i * ts + j], ld4(gs + i * xst + c), acc);
+      dst = dx + (b * n + j) * f;
+      width = f;
+    } else {
+      const int i = (o - n * fq) / dq;
+      c = 4 * (o - n * fq - i * dq);
+      for (int j = 0; j < n; ++j)
+        fma4(dt[i * ts + j] + dt[j * ts + i], ld4(hs + j * hst + c), acc);
+      dst = dh + (b * n + i) * d;
+      width = d;
+    }
+    const float vals[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (c + k < width) dst[c + k] = vals[k];
   }
 }
 
@@ -285,9 +476,40 @@ bool bad_shape(int b, int n, int d, int f) {
          f > kMaxFeat || (n + kRowsPerBlock - 1) / kRowsPerBlock > 65535;
 }
 
-size_t smem_bytes(int d, int f) {
+// Shared memory of the one-launch plan: h, x and g at quad_stride and the
+// two (N, N) tiles.
+size_t graph_smem_bytes(int n, int d, int f) {
+  const size_t rows = static_cast<size_t>(n);
+  return sizeof(float) * (rows * quad_stride(d) + 2 * rows * quad_stride(f) +
+                          rows * n + 2 * rows * (n | 1));
+}
+
+// Shared memory of each pass of the two-launch plan.
+size_t pass_smem_bytes(int d, int f) {
   return sizeof(float) *
          (kRowsPerBlock * (d + f) + kWarp * ((d | 1) + (f | 1) + 3));
+}
+
+bool one_launch(int n, int d, int f) {
+  return graph_smem_bytes(n, d, f) <= kMaxSmem;
+}
+
+// Raises bwd_graph_kernel's dynamic shared memory limit to kMaxSmem once per
+// device, so that a launch inside a CUDA graph capture makes no attribute
+// call.
+int allow_graph_smem() {
+  static bool raised[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (raised[dev]) return 0;
+  err = cudaFuncSetAttribute(bwd_graph_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kMaxSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  raised[dev] = true;
+  return 0;
 }
 
 }  // namespace
@@ -296,34 +518,55 @@ extern "C" {
 
 int fused_dot_graph_spmm_bwd_max_feat() { return kMaxFeat; }
 
-// Both launch on `stream` and return cudaGetLastError(): nonzero when the
-// launch was refused. Neither synchronises nor allocates. The row pass
-// writes the row term into dh, the (B, N, 3) statistics into `stats` and,
-// when `dmask` is not null, the per-sample dmask; the column pass, launched
-// after it on the same stream, reads the statistics, writes dx and adds the
-// column term into dh.
-int fused_dot_graph_spmm_bwd_rows(const float* h, const float* x,
-                                  const float* mask, const float* g,
-                                  float* dh, float* dmask, float* stats,
-                                  int b, int n, int d, int f, void* stream) {
-  if (bad_shape(b, n, d, f)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(b, (n + kRowsPerBlock - 1) / kRowsPerBlock);
-  bwd_rows_kernel<<<grid, kWarp * kRowsPerBlock, smem_bytes(d, f),
-                    static_cast<cudaStream_t>(stream)>>>(
-      h, x, mask, g, dh, dmask, stats, n, d, f);
-  return static_cast<int>(cudaGetLastError());
+// The plan for (N, D, F): its launches per call (1 or 2) and, in *smem, the
+// shared memory of its block in bytes.
+int fused_dot_graph_spmm_bwd_plan(int n, int d, int f, long long* smem) {
+  const bool one = one_launch(n, d, f);
+  *smem = static_cast<long long>(one ? graph_smem_bytes(n, d, f)
+                                     : pass_smem_bytes(d, f));
+  return one ? 1 : 2;
 }
 
-int fused_dot_graph_spmm_bwd_cols(const float* h, const float* x,
-                                  const float* mask, const float* g,
-                                  const float* stats, float* dh, float* dx,
-                                  int b, int n, int d, int f, void* stream) {
+// Launches the plan for (N, D, F) on `stream` and returns cudaGetLastError():
+// nonzero when a launch was refused. *launched is set to the number of
+// kernels this call launched (1 or 2 when it returns 0). Neither synchronises
+// nor allocates. `dmask` may be null (no mask gradient). `stats` is the
+// two-launch plan's (B, N, 3) scratch, written by the row pass and read by the
+// column pass; it may be null on the one-launch plan.
+int fused_dot_graph_spmm_bwd(const float* h, const float* x,
+                             const float* mask, const float* g, float* dh,
+                             float* dx, float* dmask, float* stats, int b,
+                             int n, int d, int f, void* stream,
+                             int* launched) {
+  *launched = 0;
   if (bad_shape(b, n, d, f)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (one_launch(n, d, f)) {
+    const size_t smem = graph_smem_bytes(n, d, f);
+    if (smem > kDefaultSmem) {
+      const int code = allow_graph_smem();
+      if (code != 0) return code;
+    }
+    bwd_graph_kernel<<<b, kGraphThreads, smem, s>>>(h, x, mask, g, dh, dx,
+                                                    dmask, n, d, f);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) *launched = 1;
+    return static_cast<int>(err);
+  }
+  if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(b, (n + kRowsPerBlock - 1) / kRowsPerBlock);
-  bwd_cols_kernel<<<grid, kWarp * kRowsPerBlock, smem_bytes(d, f),
-                    static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = pass_smem_bytes(d, f);
+  bwd_rows_kernel<<<grid, kWarp * kRowsPerBlock, smem, s>>>(
+      h, x, mask, g, dh, dmask, stats, n, d, f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *launched = 1;
+  bwd_cols_kernel<<<grid, kWarp * kRowsPerBlock, smem, s>>>(
       h, x, mask, g, stats, dh, dx, n, d, f);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *launched = 2;
+  return static_cast<int>(err);
 }
 
 const char* fused_dot_graph_spmm_bwd_error_string(int code) {

@@ -39,6 +39,7 @@ from torch import nn
 from .configs.data_configs import get_dataset_config
 from .configs.hparams import model_hparams
 from .models import MODELS
+from .nn.tcn import TemporalConvNet
 
 
 def resolve_device(device: str = "cuda") -> torch.device:
@@ -62,13 +63,22 @@ def build_model(method: str, dataset: str,
     return MODELS[method](**model_hparams(dataset, dataset_id, method))
 
 
-def _model_keys(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+def _model_keys(state_dict: Mapping[str, Any],
+                model: nn.Module) -> Dict[str, Any]:
     # A reference checkpoint's model_dict may be the algorithm's state_dict,
     # whose model keys carry a "model." prefix.
     if any(k.startswith("model.") for k in state_dict):
-        return {k[len("model."):]: v for k, v in state_dict.items()
+        keys = {k[len("model."):]: v for k, v in state_dict.items()
                 if k.startswith("model.")}
-    return dict(state_dict)
+    else:
+        keys = dict(state_dict)
+    # The reference's TemporalConvNet builds weight-normed net0/net1
+    # submodules that its forward never calls; their keys are dropped, and
+    # only theirs, so that any other unexpected key still fails the strict
+    # load (as the JAX importer reads only the keys it names).
+    dead = tuple(f"{name}.{sub}." for name, m in model.named_modules()
+                 if isinstance(m, TemporalConvNet) for sub in ("net0", "net1"))
+    return {k: v for k, v in keys.items() if not k.startswith(dead)}
 
 
 class ServingModel:
@@ -117,7 +127,7 @@ def serving_model(method: str, dataset: str, dataset_id: Optional[str],
     dev = resolve_device(device)
     cfg = get_dataset_config(dataset)
     model = build_model(method, dataset, dataset_id)
-    model.load_state_dict(_model_keys(state_dict), strict=True)
+    model.load_state_dict(_model_keys(state_dict, model), strict=True)
     model.eval().to(dev)
     meta = {
         "format": "gnn_rul_tpu_torch.serving.v1",

@@ -15,8 +15,9 @@ backward recomputes through :func:`fused_gat_plain`, as the JAX ``_bwd``
 recomputes through ``fused_gat_reference``: the TPU kernel has no backward,
 and neither has this one. bias is a tensor so that it gets its gradient. On
 a CUDA tensor the forward launches the kernel in
-``gnn_rul_tpu_torch/csrc/fused_gat.cu`` or raises; on a CPU tensor it runs
-:func:`fused_gat_plain`.
+``gnn_rul_tpu_torch/csrc/fused_gat.cu`` (its plan for (B, N, D):
+:func:`gat_plan`; N up to :data:`MAX_N`) or raises; on a CPU tensor it runs
+:func:`fused_gat_plain`, at any N.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``ops/kernels/build.py``) and called through ``ctypes`` on PyTorch's
@@ -32,6 +33,49 @@ import torch
 import torch.nn.functional as F
 
 from .build import build_libraries
+
+_TARGET_BLOCKS = 132  # kTargetBlocks in the source: an H100's SMs
+_WORK_PER_BLOCK = 2048  # kWorkPerBlock: pairs or outputs a block
+_BUDGET = 48 * 1024 // 4  # kBudget: shared floats a block
+MAX_N = 3069  # the largest N whose one row and one wh column fit _BUDGET
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _floats(n: int, g: int, r: int, c: int) -> int:
+    # floats() in the source: f2, f1, the weight tile at quad_stride(N),
+    # the adj rows and the (round4(N), c) wh chunk
+    return g * (n + r + r * (4 * ((n + 3) // 4 | 1) + n) + _round4(n) * c)
+
+
+def gat_plan(b: int, n: int, d: int) -> dict:
+    """The kernel's plan for (B, N, D), as ``csrc/fused_gat.cu`` chooses
+    it: whole graphs a block (``graphs``) from B = 132 on, else a tile of
+    ``rows`` of one graph a block, spread over ``row_tiles`` blocks a
+    graph; wh in chunks of ``cols`` columns; ``blocks`` and ``smem`` (bytes
+    a block)."""
+    if min(b, n, d) <= 0 or n > MAX_N:
+        raise ValueError(f"fused_gat: no plan for B={b}, N={n}, D={d}")
+    work = n * max(n, d)
+    whole = _floats(n, 1, n, d)
+    if b >= _TARGET_BLOCKS and whole <= _BUDGET:
+        g = max(1, min(_WORK_PER_BLOCK // work, _BUDGET // whole,
+                       b // _TARGET_BLOCKS))
+        return {"graphs": g, "rows": n, "cols": d, "row_tiles": 1,
+                "blocks": -(-b // g), "smem": 4 * _floats(n, g, n, d)}
+    tiles = min(n, -(-_TARGET_BLOCKS // b))
+    rows, cols = -(-n // tiles), d
+    while rows > 1 and _floats(n, 1, rows, cols) > _BUDGET:
+        rows = (rows + 1) // 2
+    if _floats(n, 1, rows, cols) > _BUDGET:
+        cols = (_BUDGET - _floats(n, 1, rows, 0)) // _round4(n)
+        if cols >= 4:
+            cols -= cols % 4
+    row_tiles = -(-n // rows)
+    return {"graphs": 1, "rows": rows, "cols": cols, "row_tiles": row_tiles,
+            "blocks": b * row_tiles, "smem": 4 * _floats(n, 1, rows, cols)}
 
 
 def fused_gat_plain(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
@@ -124,8 +168,22 @@ class FusedGat:
         lib.fused_gat_fwd.restype = ctypes.c_int
         lib.fused_gat_error_string.argtypes = [ctypes.c_int]
         lib.fused_gat_error_string.restype = ctypes.c_char_p
+        lib.fused_gat_plan.argtypes = (
+            [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)])
+        lib.fused_gat_plan.restype = ctypes.c_int
         self._lib = lib
         return "".join(log for _, log in built.values())
+
+    def kernel_plan(self, b: int, n: int, d: int) -> dict:
+        """The plan as the built library chooses it (the keys of
+        :func:`gat_plan`)."""
+        self.load()
+        out = (ctypes.c_longlong * 6)()
+        err = self._lib.fused_gat_plan(b, n, d, out)
+        if err != 0:
+            raise ValueError(f"fused_gat: no plan for B={b}, N={n}, D={d}")
+        return dict(zip(("graphs", "rows", "cols", "row_tiles", "blocks",
+                         "smem"), out))
 
     def __call__(self, wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
                  adj: torch.Tensor, bias: torch.Tensor,
@@ -140,8 +198,10 @@ class FusedGat:
         CPU."""
         if wh.device.type == "cpu":
             return fused_gat_plain(wh, f1, f2, adj, bias, slope)
-        self.load()
         b, n, d = wh.shape
+        if n > MAX_N:
+            raise ValueError(f"fused_gat: N={n}; the kernel takes N <= {MAX_N}")
+        self.load()
         out = torch.empty_like(wh)
         if b == 0:
             return out

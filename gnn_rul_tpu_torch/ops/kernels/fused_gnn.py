@@ -10,8 +10,10 @@ is differentiable through a ``torch.autograd.Function`` that saves h, x and
 mask and recomputes the chain in the backward, as the TPU kernel does, so
 nothing ``(N, N)`` is kept between the passes. On a CUDA tensor the forward
 launches the kernel in ``gnn_rul_tpu_torch/csrc/fused_gnn.cu`` and the
-backward the two kernels in ``csrc/fused_gnn_bwd.cu``, or they raise; on a
-CPU tensor they run :func:`fused_dot_graph_spmm_plain` and
+backward the plan of ``csrc/fused_gnn_bwd.cu`` for (N, D, F) (one launch
+where a graph fits a block's shared memory, else two; the C entry chooses
+and reports its launches, :func:`bwd_plan` mirrors the choice), or they
+raise; on a CPU tensor they run :func:`fused_dot_graph_spmm_plain` and
 :func:`fused_dot_graph_spmm_bwd_plain`.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use
@@ -31,7 +33,31 @@ from .build import build_libraries
 
 MAX_FEAT = 128  # kMaxFeat in the sources: the limit on D and on F
 _ROWS_PER_BLOCK = 8  # kRowsPerBlock in the sources
-BWD_LAUNCHES_PER_CALL = 2  # the backward's row pass and column pass
+SMEM_LIMIT = 232448  # shared memory a block may use on an H100
+
+
+def _quad_stride(width: int) -> int:
+    # quad_stride in the source: a staged row's stride for 16-byte reads
+    return 4 * ((width + 3) // 4 | 1)
+
+
+def bwd_plan(n: int, d: int, f: int) -> dict:
+    """The backward's plan for (N, D, F) as ``csrc/fused_gnn_bwd.cu``
+    chooses it, computed here without the library: ``{"launches",
+    "smem"}``. One launch (a block per graph) wherever the graph's h, x, g,
+    the mask and two (N, N) tiles fit a block's shared memory; else the row
+    pass and the column pass, two launches."""
+    graph = 4 * (n * _quad_stride(d) + 2 * n * _quad_stride(f) + n * n
+                 + 2 * n * (n | 1))
+    if graph <= SMEM_LIMIT:
+        return {"launches": 1, "smem": graph}
+    return {"launches": 2, "smem": 4 * (_ROWS_PER_BLOCK * (d + f)
+                                        + 32 * ((d | 1) + (f | 1) + 3))}
+
+
+def bwd_launches_per_call(n: int, d: int, f: int) -> int:
+    """Kernel launches of one backward call at (N, D, F)."""
+    return bwd_plan(n, d, f)["launches"]
 
 
 def fused_dot_graph_spmm_plain(h: torch.Tensor, x: torch.Tensor,
@@ -132,12 +158,15 @@ class _Chain(torch.autograd.Function):
 
 class FusedDotGraphSpmm:
     """The wrapper. ``launches`` counts launches of the forward kernel and
-    ``bwd_launches`` those of the backward's two kernels; nothing else adds
-    to them."""
+    ``bwd_launches`` those of the backward's kernels, as the C entry reports
+    them; nothing else adds to them. ``bwd_calls`` counts the backward calls
+    that launched."""
 
     def __init__(self) -> None:
         self.launches = 0
         self.bwd_launches = 0
+        self.bwd_calls = 0
+        self._plans: dict = {}
         self._fwd: Optional[ctypes.CDLL] = None
         self._bwd: Optional[ctypes.CDLL] = None
 
@@ -154,12 +183,13 @@ class FusedDotGraphSpmm:
         fwd.fused_dot_graph_spmm_error_string.argtypes = [ctypes.c_int]
         fwd.fused_dot_graph_spmm_error_string.restype = ctypes.c_char_p
         bwd = ctypes.CDLL(str(built["fused_gnn_bwd"][0]))
-        bwd.fused_dot_graph_spmm_bwd_rows.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        bwd.fused_dot_graph_spmm_bwd_cols.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        bwd.fused_dot_graph_spmm_bwd_rows.restype = ctypes.c_int
-        bwd.fused_dot_graph_spmm_bwd_cols.restype = ctypes.c_int
+        bwd.fused_dot_graph_spmm_bwd.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        bwd.fused_dot_graph_spmm_bwd.restype = ctypes.c_int
+        bwd.fused_dot_graph_spmm_bwd_plan.argtypes = (
+            [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)])
+        bwd.fused_dot_graph_spmm_bwd_plan.restype = ctypes.c_int
         bwd.fused_dot_graph_spmm_bwd_error_string.argtypes = [ctypes.c_int]
         bwd.fused_dot_graph_spmm_bwd_error_string.restype = ctypes.c_char_p
         for lib, fn in ((fwd, "fused_dot_graph_spmm_max_feat"),
@@ -200,10 +230,21 @@ class FusedDotGraphSpmm:
         self.launches += 1
         return out
 
+    def kernel_plan(self, n: int, d: int, f: int) -> dict:
+        """The backward's plan as the built library chooses it (the same
+        keys as :func:`bwd_plan`)."""
+        if (n, d, f) not in self._plans:
+            self.load()
+            smem = ctypes.c_longlong()
+            launches = self._bwd.fused_dot_graph_spmm_bwd_plan(
+                n, d, f, ctypes.byref(smem))
+            self._plans[n, d, f] = {"launches": launches, "smem": smem.value}
+        return dict(self._plans[n, d, f])
+
     def backward(self, h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                  g: torch.Tensor, need_dmask: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-        """``(dh, dx, dmask_per_sample)`` for the cotangent ``g``: the two
+        """``(dh, dx, dmask_per_sample)`` for the cotangent ``g``: the
         kernels on CUDA, plain on the CPU. ``dmask_per_sample`` is
         ``(B, N, N)`` when ``need_dmask``, else None."""
         _check(h, x, mask, g)
@@ -219,25 +260,23 @@ class FusedDotGraphSpmm:
                  if need_dmask else None)
         if b == 0:
             return dh, dx, dmask
-        stats = torch.empty((b, n, 3), dtype=h.dtype, device=h.device)
-        lib = self._bwd
+        stats = (torch.empty((b, n, 3), dtype=h.dtype, device=h.device)
+                 if self.kernel_plan(n, d, f)["launches"] == 2 else None)
+        launched = ctypes.c_int()
         with torch.cuda.device(h.device):
             stream = torch.cuda.current_stream(h.device).cuda_stream
-            err = lib.fused_dot_graph_spmm_bwd_rows(
+            err = self._bwd.fused_dot_graph_spmm_bwd(
                 h.data_ptr(), x.data_ptr(), mask.data_ptr(), g.data_ptr(),
-                dh.data_ptr(), dmask.data_ptr() if need_dmask else None,
-                stats.data_ptr(), b, n, d, f, stream)
-            if err == 0:
-                self.bwd_launches += 1
-                err = lib.fused_dot_graph_spmm_bwd_cols(
-                    h.data_ptr(), x.data_ptr(), mask.data_ptr(), g.data_ptr(),
-                    stats.data_ptr(), dh.data_ptr(), dx.data_ptr(),
-                    b, n, d, f, stream)
+                dh.data_ptr(), dx.data_ptr(),
+                dmask.data_ptr() if need_dmask else None,
+                stats.data_ptr() if stats is not None else None,
+                b, n, d, f, stream, ctypes.byref(launched))
+        self.bwd_launches += launched.value
         if err != 0:
-            msg = lib.fused_dot_graph_spmm_bwd_error_string(err).decode()
+            msg = self._bwd.fused_dot_graph_spmm_bwd_error_string(err).decode()
             raise RuntimeError(f"fused_dot_graph_spmm backward launch failed "
                                f"(B={b}, N={n}, D={d}, F={f}): {msg}")
-        self.bwd_launches += 1
+        self.bwd_calls += 1
         return dh, dx, dmask
 
 

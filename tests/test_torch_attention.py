@@ -24,6 +24,7 @@ from gnn_rul_tpu_torch.nn.attention import GAT, GraphAttentionLayer
 from gnn_rul_tpu_torch.nn.gnn_blocks import GCNLayer
 from gnn_rul_tpu_torch.nn.tcn import TemporalConvNet
 from gnn_rul_tpu_torch.ops.graphs import covariance_threshold_graph
+from gnn_rul_tpu_torch.ops.kernels import fused_gat as fused_gat_module
 from gnn_rul_tpu_torch.ops.kernels.fused_gat import fused_gat, fused_gat_plain
 
 torch.set_num_threads(1)
@@ -294,3 +295,105 @@ def test_covariance_threshold_graph_matches_jax():
     assert got.dtype == np.float32 and got.shape == (6, 14, 14)
     np.testing.assert_array_equal(got, want)
     assert np.all(np.diagonal(got, axis1=-2, axis2=-1) == 1.0)
+
+
+# (B, N, D) -> plan keys of the attention kernel: STAGNN at batch 100 (rows
+# tiled over 2 blocks a graph) and 1000 (2 graphs a block), STFA at batch
+# 100 and 1000 (10 graphs a block), the two few-large-graph shapes (a row
+# or two a block), and N at the kernel's limit.
+GAT_PLAN_CASES = [
+    ((100, 14, 64), {"graphs": 1, "rows": 7, "row_tiles": 2, "blocks": 200}),
+    ((1000, 14, 64), {"graphs": 2, "rows": 14, "row_tiles": 1,
+                      "blocks": 500}),
+    ((2500, 14, 5), {"graphs": 10, "rows": 14, "row_tiles": 1,
+                     "blocks": 250}),
+    ((25000, 14, 5), {"graphs": 10, "rows": 14, "row_tiles": 1,
+                      "blocks": 2500}),
+    ((3, 17, 300), {"graphs": 1, "rows": 1, "row_tiles": 17, "blocks": 51}),
+    ((2, 130, 16), {"graphs": 1, "rows": 2, "row_tiles": 65, "blocks": 130}),
+    ((1, fused_gat_module.MAX_N, 1), {"graphs": 1, "rows": 1, "cols": 1}),
+]
+
+
+@pytest.mark.parametrize("shape,want", GAT_PLAN_CASES,
+                         ids=[f"B{b}-N{n}-D{d}" for (b, n, d), _ in
+                              GAT_PLAN_CASES])
+def test_attention_plan(shape, want):
+    plan = fused_gat_module.gat_plan(*shape)
+    assert {k: plan[k] for k in want} == want
+    b, n, d = shape
+    # whole graphs a block, or one graph's rows tiled over blocks; every
+    # row in a block, every column in a chunk
+    assert (plan["row_tiles"] == 1 and plan["rows"] == n
+            or plan["graphs"] == 1)
+    assert plan["rows"] * plan["row_tiles"] >= n
+    assert plan["blocks"] * plan["graphs"] >= b
+    assert 1 <= plan["cols"] <= d
+
+
+@pytest.mark.parametrize("axis", ["B", "N", "D"])
+def test_attention_plan_footprint_fits_at_every_threshold(axis):
+    """Along B at STFA's (N, D), along N at B = 140 and along D at N = 41,
+    the shared memory of every plan stays within 48 KB (no opt-in needed),
+    far below an H100 block's 232,448 B."""
+    for v in range(1, 401):
+        shape = {"B": (v, 14, 5), "N": (140, v, 16), "D": (1, 41, v)}[axis]
+        assert fused_gat_module.gat_plan(*shape)["smem"] <= 48 * 1024 < \
+            232448
+
+
+def test_attention_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError):
+        fused_gat_module.gat_plan(2, fused_gat_module.MAX_N + 1, 1)
+    with pytest.raises(ValueError):
+        fused_gat_module.gat_plan(0, 14, 5)
+
+
+def test_wrapper_on_cpu_takes_n_beyond_the_kernels_limit():
+    """The kernel's limit on N binds only on the card: on the CPU the
+    wrapper runs the plain version at any N, as the JAX reference does."""
+    n = fused_gat_module.MAX_N + 1
+    arrays = _gat_inputs(1, n, 1, False, seed=12)
+    before = fused_gat.launches
+    got = fused_gat(*_t(*arrays), torch.tensor(0.2), 0.1)
+    assert fused_gat.launches == before
+    assert got.shape == (1, n, 1)
+    want = np.asarray(fused_gat_reference(*map(jnp.asarray, arrays), 0.2,
+                                          0.1))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("case", GAT_CASES[:2], ids=GAT_IDS[:2])
+def test_wrapper_on_cpu_runs_plain_and_counts_no_launch(case):
+    b, n, d, batched, bias, slope = case
+    arrays = _t(*_gat_inputs(b, n, d, batched, seed=11))
+    before = fused_gat.launches
+    got = fused_gat(*arrays, torch.tensor(bias), slope)
+    assert fused_gat.launches == before
+    np.testing.assert_array_equal(
+        got.numpy(), fused_gat_plain(*arrays, torch.tensor(bias),
+                                     slope).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(131, 14, 64), (132, 14, 64),
+                                   (659, 14, 5), (660, 14, 5),
+                                   (140, 73, 16), (140, 74, 16)])
+def test_cuda_attention_each_side_of_a_plan_threshold(shape):
+    """On the card the kernel agrees with the plain version on each side
+    of the points where its plan changes (tiled rows to whole graphs at
+    B = 132, graphs a block at STFA's shape, whole graphs to tiles at N =
+    74); here it skips."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA: the kernel runs only on an NVIDIA GPU")
+    b, n, d = shape
+    arrays = [t.cuda() for t in _t(*_gat_inputs(b, n, d, d == 64, 4))]
+    tbias = torch.tensor(0.2, device="cuda")
+    before = fused_gat.launches
+    got = fused_gat(*arrays, tbias, 0.1)
+    torch.cuda.synchronize()
+    assert fused_gat.launches == before + 1
+    assert fused_gat.kernel_plan(b, n, d) == fused_gat_module.gat_plan(b, n, d)
+    want = fused_gat_plain(*arrays, tbias, 0.1)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-5, rtol=1e-4)

@@ -181,3 +181,75 @@ def test_wrapper_skips_the_mask_gradient_of_a_buffer():
     x.requires_grad_()
     fused_dot_graph_spmm(h, x, mask).sum().backward()
     assert mask.grad is None and h.grad is not None and x.grad is not None
+
+
+# (N, D, F, launches) of the dot-graph backward's plan: FC_STGNN's shape in
+# one launch, the kernels' largest in two.
+BWD_PLAN_CASES = [(28, 16, 16, 1), (384, 128, 128, 2), (1, 3, 7, 1)]
+
+
+@pytest.mark.parametrize("n,d,f,launches", BWD_PLAN_CASES)
+def test_backward_launches_per_call(n, d, f, launches):
+    assert fused_gnn.bwd_launches_per_call(n, d, f) == launches
+    assert fused_gnn.bwd_plan(n, d, f)["launches"] == launches
+
+
+def _bwd_threshold(d, f):
+    n = 1
+    while fused_gnn.bwd_launches_per_call(n + 1, d, f) == 1:
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("d,f", [(16, 16), (128, 128), (3, 7)])
+def test_backward_plan_footprint_fits_a_block_at_its_threshold(d, f):
+    """The one-launch plan's shared memory stays within an H100 block's
+    232,448 B up to its threshold in N, the two-launch plan's beyond it,
+    and the launches per call change there and only there."""
+    top = _bwd_threshold(d, f)
+    for n in range(1, top + 3):
+        plan = fused_gnn.bwd_plan(n, d, f)
+        assert plan["smem"] <= fused_gnn.SMEM_LIMIT == 232448
+        assert plan["launches"] == (1 if n <= top else 2)
+
+
+@pytest.mark.parametrize("b,n,d,f", [(3, 28, 16, 16), (2, 5, 3, 7)])
+def test_wrapper_backward_on_cpu_runs_plain_and_counts_no_launch(b, n, d, f):
+    h, x, mask = map(torch.from_numpy, _fused_inputs(b, n, d, f, seed=8))
+    g = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(b, n, f)).astype(np.float32))
+    before = fused_dot_graph_spmm.bwd_launches
+    got = fused_dot_graph_spmm.backward(h, x, mask, g, need_dmask=True)
+    assert fused_dot_graph_spmm.bwd_launches == before == 0
+    assert fused_dot_graph_spmm.bwd_calls == 0
+    for a, w in zip(got, fused_dot_graph_spmm_bwd_plain(h, x, mask, g)):
+        np.testing.assert_array_equal(_np(a), _np(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f", [(16, 16), (128, 128)])
+@pytest.mark.parametrize("side", [0, 1])
+def test_cuda_backward_each_side_of_its_threshold(d, f, side):
+    """On the card the backward launches its plan (one kernel up to the
+    threshold in N, two beyond) and agrees with the plain version, dmask
+    included; here it skips."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA: the kernels run only on an NVIDIA GPU")
+    n = _bwd_threshold(d, f) + side
+    h, x, mask = (torch.from_numpy(a).cuda()
+                  for a in _fused_inputs(2, n, d, f, seed=n))
+    h = h * d ** -0.25
+    g = torch.randn(x.shape, device="cuda")
+    before = fused_dot_graph_spmm.bwd_launches
+    calls = fused_dot_graph_spmm.bwd_calls
+    got = fused_dot_graph_spmm.backward(h, x, mask, g, need_dmask=True)
+    torch.cuda.synchronize()
+    # the launches the C entry reports, against the wrapper's mirror
+    assert fused_dot_graph_spmm.bwd_launches == before + 1 + side
+    assert fused_dot_graph_spmm.bwd_calls == calls + 1
+    assert fused_dot_graph_spmm.kernel_plan(n, d, f) == fused_gnn.bwd_plan(
+        n, d, f)
+    want = fused_dot_graph_spmm_bwd_plain(h, x, mask, g)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(),
+                                   atol=1e-5, rtol=1e-4)

@@ -243,6 +243,50 @@ def test_serving_matches_jax_artifact(variables, batch_size, rows):
     np.testing.assert_allclose(got, want_model(x), atol=2e-4, rtol=1e-4)
 
 
+def _with_dead_tcn_keys(sd, prefix=""):
+    """``sd`` plus tensors under the reference TemporalConvNet's unused
+    weight-normed ``net0``/``net1`` submodules, as a reference checkpoint's
+    model_dict carries them."""
+    rng = np.random.default_rng(9)
+    dead = {f"{prefix}{tcn}.{sub}.0.{leaf}": torch.from_numpy(
+                rng.normal(size=shape).astype(np.float32))
+            for tcn in ("tcn1", "tcn2") for sub in ("net0", "net1")
+            for leaf, shape in (("weight_g", (64, 1, 1)),
+                                ("weight_v", (64, 64, 2)), ("bias", (64,)))}
+    return {**{f"{prefix}{k}": v for k, v in sd.items()}, **dead}
+
+
+@pytest.mark.parametrize("prefix", ["", "model."])
+def test_serving_loads_dead_tcn_keys_and_matches_jax(variables, prefix):
+    """A state_dict with the dead tcn*.net0/net1 keys (bare, or under the
+    algorithm's "model." prefix) serves as the JAX model does; the JAX
+    importer reads the same dict."""
+    sd = _with_dead_tcn_keys(from_jax_variables("STAGNN", variables), prefix)
+    got = serving_model("STAGNN", "CMAPSS", "FD001", sd, device="cpu")
+    x = _x(5, seed=31)
+    want = np.asarray(JaxSTAGNN(**HP).apply(variables, jnp.asarray(x),
+                                            train=False)).reshape(-1)
+    np.testing.assert_allclose(got(x), want, atol=2e-4, rtol=1e-4)
+    jvars = import_torch_state_dict("STAGNN", sd, HP)
+    np.testing.assert_allclose(
+        np.asarray(JaxSTAGNN(**HP).apply(jvars, jnp.asarray(x),
+                                         train=False)).reshape(-1),
+        want, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad", ["tcn1.net2.weight", "gcn1.bogus",
+                                 "net0.weight", "missing"])
+def test_serving_still_refuses_other_unexpected_or_missing_keys(variables,
+                                                                bad):
+    sd = _with_dead_tcn_keys(from_jax_variables("STAGNN", variables))
+    if bad == "missing":
+        del sd["tcn1.downsample0.bias"]
+    else:
+        sd[bad] = torch.zeros(3)
+    with pytest.raises(RuntimeError, match="Missing key|Unexpected key"):
+        serving_model("STAGNN", "CMAPSS", "FD001", sd, device="cpu")
+
+
 def test_cli_trains_stagnn_and_its_checkpoint_serves(tmp_path, monkeypatch):
     root = str(tmp_path)
     data_root = _write_fd001(root, n_train=20, n_test=6)
