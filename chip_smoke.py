@@ -10,11 +10,13 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
 1. device: CUDA must be present; the card's name and power limit;
 2. build: every kernel, from the sources in the checkout, one nvcc each,
    all at once; the plans the libraries choose (the LSTM's, the dot-graph
-   backward's one-launch threshold in N, the attention's), held against
-   the wrappers' own;
+   forward's whole-graph plan and the backward's one-launch threshold in N,
+   the attention's), held against the wrappers' own;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, on seeded inputs at the serving and training shapes and at ragged
-   shapes: the dot-graph forward, then its backward (dh, dx, the
+   shapes: the dot-graph forward (also on each side of every point where
+   its plan changes: the whole-graph threshold in N, graphs a block, row
+   tiles a graph), then its backward (dh, dx, the
    batch-summed dmask; also on each side of its one-launch threshold); the
    LSTM recurrence forward (ys, the c trajectory,
    c_fin), then its backward's gate pass (the activated gates) and the
@@ -50,8 +52,8 @@ The line before the last is one JSON object ``{"kernels": [...]}`` (five
 entries); the last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 -c "import chip_smoke as c; c._turns('build/parent')"`` times
-the dot-graph backward and the attention of an earlier commit unpacked at
-``build/parent`` and of this tree in turns on one card.
+the dot-graph forward and backward and the attention of an earlier commit
+unpacked at ``build/parent`` and of this tree in turns on one card.
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ FD001_ENGINES, FD001_ROWS, WINDOW, MAX_RUL = 100, 20631, 50, 125
 SMI = ""  # nvidia-smi's name and power limit, beside every time printed
 LSTM_BWD_KERNELS = ("lstm_gates_kernel", "lstm_sweep_kernel",
                     "lstm_dw_partial_kernel", "lstm_dw_reduce_kernel")
-OUR_KERNELS = ("fused_dot_graph_spmm_kernel", "bwd_graph_kernel",
+OUR_KERNELS = ("fwd_graph_kernel", "fwd_rows_kernel", "bwd_graph_kernel",
                "bwd_rows_kernel", "bwd_cols_kernel", "lstm_fwd_kernel",
                *LSTM_BWD_KERNELS, "fused_gat_kernel")
 # B at which the LSTM plans' thresholds in H are found (HAGCN's B = 5 plans
@@ -208,16 +210,52 @@ def _bwd_threshold(d: int, f: int) -> int:
     return n
 
 
-# (D, F) at which the backward's threshold in N is found and checked:
-# FC_STGNN's width and the kernels' limit on D and F.
-BWD_THRESHOLD_DF = ((16, 16), (fused_gnn.MAX_FEAT, fused_gnn.MAX_FEAT))
+# (D, F) at which the backward's and the forward's thresholds in N are
+# found and checked: FC_STGNN's width and the kernels' limit on D and F.
+THRESHOLD_DF = ((16, 16), (fused_gnn.MAX_FEAT, fused_gnn.MAX_FEAT))
+
+
+def _fwd_threshold(d: int, f: int) -> int:
+    """The largest N at which the dot-graph forward holds whole graphs in a
+    block at (D, F), by the wrapper's :func:`fused_gnn.fwd_plan` (the
+    threshold does not depend on B)."""
+    n = 1
+    while fused_gnn.fwd_plan(1, n + 1, d, f)["whole"]:
+        n += 1
+    return n
+
+
+def _fwd_key(b: int, n: int, d: int, f: int):
+    p = fused_gnn.fwd_plan(b, n, d, f)
+    return p["whole"], p["graphs"], p["row_tiles"]
+
+
+@functools.cache
+def _fwd_threshold_cases():
+    """(B, N, D, F) on each side of every point at which the forward's plan
+    (whole graphs or the row-tile stream, graphs a block, row tiles a
+    graph) changes: the whole-graph threshold in N at each (D, F) of
+    THRESHOLD_DF, at B = 2 (rows tiled) and B = 132 (a whole graph a
+    block, up to 232,448 B of shared memory); in B at FC_STGNN's (N, D, F)
+    up to 1,400 (2 graphs a block from 264); in N at D = F = 16 at B = 1000
+    (7 graphs a block down to 1) and at B = 3 (1 to 5 row tiles)."""
+    cases = {(b, _fwd_threshold(d, f) + k, d, f) for d, f in THRESHOLD_DF
+             for b in (2, 132) for k in (0, 1)}
+    top = _fwd_threshold(16, 16) + 1
+    for shape_of, hi in ((lambda v: (v, *FC_STGNN_NDF), 1400),
+                         (lambda v: (1000, v, 16, 16), top),
+                         (lambda v: (3, v, 16, 16), top)):
+        keys = [_fwd_key(*shape_of(v)) for v in range(1, hi + 1)]
+        cases.update(shape_of(u) for v in range(2, hi + 1)
+                     if keys[v - 1] != keys[v - 2] for u in (v - 1, v))
+    return sorted(cases)
 
 
 @functools.cache
 def _bwd_threshold_cases():
     """(2, N, D, F) on each side of the point at which the backward goes
-    from one launch to two, at each (D, F) of BWD_THRESHOLD_DF."""
-    return [(2, _bwd_threshold(d, f) + k, d, f) for d, f in BWD_THRESHOLD_DF
+    from one launch to two, at each (D, F) of THRESHOLD_DF."""
+    return [(2, _bwd_threshold(d, f) + k, d, f) for d, f in THRESHOLD_DF
             for k in (0, 1)]
 
 
@@ -250,11 +288,32 @@ def _gat_threshold_cases():
 
 
 def _print_graph_plans() -> None:
-    """Prints the dot-graph backward's and the attention's plans as the
-    built libraries choose them, and fails where the wrappers' plans
-    (which size the scratch and count the launches) disagree."""
+    """Prints the dot-graph forward's and backward's and the attention's
+    plans as the built libraries choose them, and fails where the wrappers'
+    plans (which size the scratch and count the launches) disagree."""
     kernel = fused_gnn.fused_dot_graph_spmm
-    for d, f in BWD_THRESHOLD_DF:
+    fwd_cases = KERNEL_CASES + _fwd_threshold_cases()
+    for d, f in THRESHOLD_DF:
+        top = _fwd_threshold(d, f)
+        fwd_cases += [(b, n, d, f) for b in (1, 132, 1000)
+                      for n in range(1, top + 2)]
+    for case in fwd_cases:
+        if kernel.kernel_fwd_plan(*case) != fused_gnn.fwd_plan(*case):
+            raise AssertionError(f"forward plan at (B, N, D, F)={case}: "
+                                 f"{kernel.kernel_fwd_plan(*case)} built, "
+                                 f"{fused_gnn.fwd_plan(*case)} wrapper")
+    for case in KERNEL_CASES:
+        print(f"  dot-graph forward (B, N, D, F)={case}: "
+              f"{kernel.kernel_fwd_plan(*case)}")
+    for d, f in THRESHOLD_DF:
+        top = _fwd_threshold(d, f)
+        print(f"  dot-graph forward D={d} F={f}: whole graphs up to N={top} "
+              f"({kernel.kernel_fwd_plan(132, top, d, f)['smem']} B of "
+              f"shared memory at B=132), the row-tile stream from "
+              f"N={top + 1}")
+    print(f"  dot-graph forward: {len(fwd_cases)} plans as the wrapper's, "
+          f"{len(_fwd_threshold_cases())} threshold cases")
+    for d, f in THRESHOLD_DF:
         top = _bwd_threshold(d, f)
         for n in range(1, top + 2):
             if kernel.kernel_plan(n, d, f) != fused_gnn.bwd_plan(n, d, f):
@@ -304,18 +363,28 @@ KERNEL_CASES = [(100, 28, 16, 16), (1000, 28, 16, 16), (7, 1, 16, 16),
 
 
 def _kernel_vs_plain() -> float:
+    """The forward kernels against the fp32 plain version at every case and
+    on each side of every point where the plan changes; each call must
+    report one launch."""
     kernel = fused_gnn.fused_dot_graph_spmm
     worst = 0.0
-    for i, (b, n, d, f) in enumerate(KERNEL_CASES):
+    for i, (b, n, d, f) in enumerate(KERNEL_CASES + _fwd_threshold_cases()):
         h, x, mask = _fused_inputs(b, n, d, f, seed=i)
+        before = kernel.launches
         got = kernel(h, x, mask)
+        launches = kernel.launches - before
         want = fused_gnn.fused_dot_graph_spmm_plain(h, x, mask)
         torch.cuda.synchronize()
         err = (got - want).abs()
         max_err = err.max().item()
         ok = bool((err <= TOL_ATOL + TOL_RTOL * want.abs()).all())
-        print(f"kernel vs plain B={b} N={n} D={d} F={f}: "
+        plan = "whole graphs" if fused_gnn.fwd_plan(b, n, d, f)["whole"] \
+            else "row-tile stream"
+        print(f"kernel vs plain B={b} N={n} D={d} F={f} ({plan}): "
               f"max_abs_err={max_err:.3e} {'ok' if ok else 'FAIL'}")
+        if launches != 1:
+            raise AssertionError(f"the forward at B={b} N={n} D={d} F={f} "
+                                 f"reported {launches} launches, not 1")
         if not ok or not torch.isfinite(got).all():
             raise AssertionError(f"fused_dot_graph_spmm disagrees with its "
                                  f"plain version at B={b} N={n} D={d} F={f}")
@@ -1201,6 +1270,8 @@ def main() -> None:
                        "gnn_rul_tpu/ops/pallas/fused_gnn.py:116 "
                        "(_packed_kernel)",
               launches_serve=served["FC_STGNN"][4],
+              plan=fused_gnn.fwd_plan(*KERNEL_CASES[0]),
+              plan_b1000=fused_gnn.fwd_plan(*KERNEL_CASES[1]),
               **at(fwd[KERNEL_CASES[1]], "b1000")),
         entry("fused_dot_graph_spmm_bwd", bwd[KERNEL_CASES[0]], bwd_max_err,
               trained["FC_STGNN"][1],
@@ -1240,10 +1311,14 @@ def main() -> None:
 
 
 # One turn of :func:`_turns`, in the tree it runs from: the dot-graph
+# forward at B = 100 and 1000 and at the two few-large-graph cases, the
 # backward at B = 100 and 1000 and the attention at its six timed shapes,
 # through functions that every tree since the attention kernel's has.
 _TURN = ("import chip_smoke as c; c._device(); c._build(); "
          "k = c.fused_gnn.fused_dot_graph_spmm; "
+         "c._kernel_times('fused_dot_graph_spmm', "
+         "[c.KERNEL_CASES[i] for i in (0, 1, 4, 5)], k, "
+         "c.fused_gnn.fused_dot_graph_spmm_plain, backward=False); "
          "c._kernel_times('fused_dot_graph_spmm_bwd', c.KERNEL_CASES[:2], "
          "k.backward, c.fused_gnn.fused_dot_graph_spmm_bwd_plain, "
          "backward=True); "

@@ -9,11 +9,14 @@ backward. :data:`fused_dot_graph_spmm` is the wrapper the model calls. It
 is differentiable through a ``torch.autograd.Function`` that saves h, x and
 mask and recomputes the chain in the backward, as the TPU kernel does, so
 nothing ``(N, N)`` is kept between the passes. On a CUDA tensor the forward
-launches the kernel in ``gnn_rul_tpu_torch/csrc/fused_gnn.cu`` and the
-backward the plan of ``csrc/fused_gnn_bwd.cu`` for (N, D, F) (one launch
-where a graph fits a block's shared memory, else two; the C entry chooses
-and reports its launches, :func:`bwd_plan` mirrors the choice), or they
-raise; on a CPU tensor they run :func:`fused_dot_graph_spmm_plain` and
+launches the plan of ``gnn_rul_tpu_torch/csrc/fused_gnn.cu`` for
+(B, N, D, F) (whole graphs a block wherever a graph fits a block's shared
+memory, else the row-tile stream; one launch either way) and the backward
+the plan of ``csrc/fused_gnn_bwd.cu`` for (N, D, F) (one launch where a
+graph fits a block's shared memory, else two). Each C entry chooses its
+plan and reports the launches it made; :func:`fwd_plan` and
+:func:`bwd_plan` mirror the choices. Or they raise; on a CPU tensor they
+run :func:`fused_dot_graph_spmm_plain` and
 :func:`fused_dot_graph_spmm_bwd_plain`.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use
@@ -34,11 +37,59 @@ from .build import build_libraries
 MAX_FEAT = 128  # kMaxFeat in the sources: the limit on D and on F
 _ROWS_PER_BLOCK = 8  # kRowsPerBlock in the sources
 SMEM_LIMIT = 232448  # shared memory a block may use on an H100
+_TARGET_BLOCKS = 132  # kTargetBlocks in fused_gnn.cu: an H100's SMs
+_WORK_PER_BLOCK = 2048  # kWorkPerBlock: pairs or outputs a block
+_TILE_ROWS = 32  # kTileRows: rows a block's 8 warps take, 4 each, a round
+_MAX_GRID_Y = 65535  # row tiles a graph of the row-tile plans
 
 
 def _quad_stride(width: int) -> int:
     # quad_stride in the source: a staged row's stride for 16-byte reads
     return 4 * ((width + 3) // 4 | 1)
+
+
+def _graph_floats(n: int, d: int, f: int, g: int, r: int) -> int:
+    # graph_floats in fused_gnn.cu: g graphs' h at quad_stride(D), their
+    # (r, quad_stride(N)) tiles of A and x at round4(N) rows, r mask rows
+    return g * (n * _quad_stride(d) + r * _quad_stride(n)
+                + (n + 3) // 4 * 4 * f) + r * n
+
+
+def fwd_plan(b: int, n: int, d: int, f: int) -> dict:
+    """The forward's plan for (B, N, D, F) as ``csrc/fused_gnn.cu`` chooses
+    it, computed here without the library: ``{"whole", "graphs", "rows",
+    "row_tiles", "blocks", "smem"}``. ``whole``: a block holds
+    ``graphs`` whole graphs (from B = 132 on, as many as bring its pairs or
+    outputs to about 2,048 while keeping B / 132 blocks), or below B = 132
+    ``rows`` rows of one staged graph over ``row_tiles`` blocks a graph;
+    wherever one graph's h, x, A tile and the mask fit a block's shared
+    memory. Else the row-tile stream: 8 rows of a graph a block. One launch
+    either way; ``smem`` is a block's shared memory in bytes."""
+    if min(b, n, d, f) <= 0 or max(d, f) > MAX_FEAT:
+        raise ValueError(f"fused_dot_graph_spmm: no plan for B={b}, N={n}, "
+                         f"D={d}, F={f}")
+    one = _graph_floats(n, d, f, 1, n)
+    if 4 * one > SMEM_LIMIT:
+        tiles = -(-n // _ROWS_PER_BLOCK)
+        if tiles > _MAX_GRID_Y:
+            raise ValueError(f"fused_dot_graph_spmm: N={n} exceeds the grid "
+                             f"limit of the row-tile plans")
+        return {"whole": False, "graphs": 1, "rows": _ROWS_PER_BLOCK,
+                "row_tiles": tiles, "blocks": b * tiles,
+                "smem": 4 * (_ROWS_PER_BLOCK * d + 32 * (d | 1) + 32 * f)}
+    if b >= _TARGET_BLOCKS:
+        g = max(1, min(_WORK_PER_BLOCK // (n * max(n, f)),
+                       (SMEM_LIMIT // 4 - n * n) // (one - n * n),
+                       b // _TARGET_BLOCKS))
+        return {"whole": True, "graphs": g, "rows": n, "row_tiles": 1,
+                "blocks": -(-b // g),
+                "smem": 4 * _graph_floats(n, d, f, g, n)}
+    tiles = min(-(-_TARGET_BLOCKS // b), -(-n // _TILE_ROWS))
+    rows = min(n, (-(-n // tiles) + 3) // 4 * 4)
+    row_tiles = -(-n // rows)
+    return {"whole": True, "graphs": 1, "rows": rows, "row_tiles": row_tiles,
+            "blocks": b * row_tiles,
+            "smem": 4 * _graph_floats(n, d, f, 1, rows)}
 
 
 def bwd_plan(n: int, d: int, f: int) -> dict:
@@ -129,8 +180,12 @@ def _check(h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     if d > MAX_FEAT or x.shape[2] > MAX_FEAT:
         raise ValueError(f"fused_dot_graph_spmm: D={d}, F={x.shape[2]}; the "
                          f"kernel takes D, F <= {MAX_FEAT}")
-    if -(-n // _ROWS_PER_BLOCK) > 65535:
-        raise ValueError(f"fused_dot_graph_spmm: N={n} exceeds the grid limit")
+    # A whole graph fits a block only up to N = 168 (fwd_plan, bwd_plan), so
+    # at such N both directions launch their row-tile plans, whose grid is
+    # (B, ceil(N / 8)) blocks.
+    if -(-n // _ROWS_PER_BLOCK) > _MAX_GRID_Y:
+        raise ValueError(f"fused_dot_graph_spmm: N={n} exceeds the grid "
+                         f"limit of the row-tile plans")
     if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_dot_graph_spmm: no kernel for {h.device}")
 
@@ -157,9 +212,9 @@ class _Chain(torch.autograd.Function):
 
 
 class FusedDotGraphSpmm:
-    """The wrapper. ``launches`` counts launches of the forward kernel and
-    ``bwd_launches`` those of the backward's kernels, as the C entry reports
-    them; nothing else adds to them. ``bwd_calls`` counts the backward calls
+    """The wrapper. ``launches`` counts launches of the forward's kernels and
+    ``bwd_launches`` those of the backward's, as each C entry reports them;
+    nothing else adds to them. ``bwd_calls`` counts the backward calls
     that launched."""
 
     def __init__(self) -> None:
@@ -178,8 +233,12 @@ class FusedDotGraphSpmm:
         built = build_libraries()
         fwd = ctypes.CDLL(str(built["fused_gnn"][0]))
         fwd.fused_dot_graph_spmm_fwd.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fwd.fused_dot_graph_spmm_fwd.restype = ctypes.c_int
+        fwd.fused_dot_graph_spmm_fwd_plan.argtypes = (
+            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)])
+        fwd.fused_dot_graph_spmm_fwd_plan.restype = ctypes.c_int
         fwd.fused_dot_graph_spmm_error_string.argtypes = [ctypes.c_int]
         fwd.fused_dot_graph_spmm_error_string.restype = ctypes.c_char_p
         bwd = ctypes.CDLL(str(built["fused_gnn_bwd"][0]))
@@ -218,17 +277,32 @@ class FusedDotGraphSpmm:
         out = torch.empty((b, n, f), dtype=x.dtype, device=x.device)
         if b == 0:
             return out
+        launched = ctypes.c_int()
         with torch.cuda.device(h.device):
             stream = torch.cuda.current_stream(h.device).cuda_stream
             err = self._fwd.fused_dot_graph_spmm_fwd(
                 h.data_ptr(), x.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                b, n, d, f, stream)
+                b, n, d, f, stream, ctypes.byref(launched))
+        self.launches += launched.value
         if err != 0:
             msg = self._fwd.fused_dot_graph_spmm_error_string(err).decode()
             raise RuntimeError(f"fused_dot_graph_spmm launch failed "
                                f"(B={b}, N={n}, D={d}, F={f}): {msg}")
-        self.launches += 1
         return out
+
+    def kernel_fwd_plan(self, b: int, n: int, d: int, f: int) -> dict:
+        """The forward's plan as the built library chooses it (the keys of
+        :func:`fwd_plan`)."""
+        self.load()
+        out = (ctypes.c_longlong * 6)()
+        err = self._fwd.fused_dot_graph_spmm_fwd_plan(b, n, d, f, out)
+        if err != 0:
+            raise ValueError(f"fused_dot_graph_spmm: no plan for B={b}, "
+                             f"N={n}, D={d}, F={f}")
+        plan = dict(zip(("whole", "graphs", "rows", "row_tiles", "blocks",
+                         "smem"), out))
+        plan["whole"] = bool(plan["whole"])
+        return plan
 
     def kernel_plan(self, n: int, d: int, f: int) -> dict:
         """The backward's plan as the built library chooses it (the same

@@ -253,3 +253,110 @@ def test_cuda_backward_each_side_of_its_threshold(d, f, side):
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(),
                                    atol=1e-5, rtol=1e-4)
+
+
+# (B, N, D, F) -> the forward's plan: FC_STGNN's serving and training shape
+# and a request of 1000 (whole graphs, 1 and 2 a block), N = 1, a large graph
+# below 132 graphs (rows tiled over 5 blocks), the kernels' largest N
+# (the row-tile stream).
+FWD_PLAN_CASES = [
+    ((100, 28, 16, 16), {"whole": True, "graphs": 1, "rows": 28,
+                         "row_tiles": 1, "blocks": 100, "smem": 10304}),
+    ((1000, 28, 16, 16), {"whole": True, "graphs": 2, "rows": 28,
+                          "row_tiles": 1, "blocks": 500, "smem": 17472}),
+    ((7, 1, 16, 16), {"whole": True, "graphs": 1, "rows": 1,
+                      "row_tiles": 1, "blocks": 7, "smem": 356}),
+    ((3, 130, 16, 16), {"whole": True, "graphs": 1, "rows": 28,
+                        "row_tiles": 5, "blocks": 15, "smem": 48192}),
+    ((8, 384, 128, 128), {"whole": False, "graphs": 1, "rows": 8,
+                          "row_tiles": 48, "blocks": 384, "smem": 36992}),
+]
+
+
+@pytest.mark.parametrize("shape,plan", FWD_PLAN_CASES)
+def test_forward_plan(shape, plan):
+    assert fused_gnn.fwd_plan(*shape) == plan
+
+
+def _fwd_threshold(d, f):
+    n = 1
+    while fused_gnn.fwd_plan(1, n + 1, d, f)["whole"]:
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("d,f,top", [(16, 16, 160), (128, 128, 116)])
+def test_forward_whole_graph_threshold(d, f, top):
+    assert _fwd_threshold(d, f) == top
+
+
+@pytest.mark.parametrize("b", [2, 132, 1000])
+@pytest.mark.parametrize("d,f", [(16, 16), (128, 128), (3, 7)])
+def test_forward_plan_footprint_fits_a_block_at_its_threshold(b, d, f):
+    """The whole-graph plan's shared memory stays within an H100 block's
+    232,448 B up to its threshold in N, whatever B, and the plan turns into
+    the row-tile stream there and only there."""
+    top = _fwd_threshold(d, f)
+    for n in range(1, top + 3):
+        plan = fused_gnn.fwd_plan(b, n, d, f)
+        assert plan["smem"] <= fused_gnn.SMEM_LIMIT == 232448
+        assert plan["whole"] == (n <= top)
+
+
+@pytest.mark.parametrize("b,n,d,f", [(1, 33, 16, 16), (3, 160, 16, 16),
+                                     (131, 28, 16, 16), (132, 28, 16, 16),
+                                     (1000, 5, 3, 7), (1000, 28, 16, 16),
+                                     (25000, 1, 4, 4), (500, 116, 128, 128)])
+def test_forward_plan_covers_every_row_once(b, n, d, f):
+    """Whole graphs a block keep B / 132 blocks and about 2,048 pairs or
+    outputs a block from B = 132; below it a graph's rows are tiled over at
+    most ceil(N / 32) blocks (a block's 8 warps take 32 rows a round), in
+    multiples of 4 (what a warp takes at a time); the tiles cover each row
+    once."""
+    p = fused_gnn.fwd_plan(b, n, d, f)
+    assert p["whole"]
+    if b >= 132:
+        assert p["row_tiles"] == 1 and p["rows"] == n
+        assert p["blocks"] == -(-b // p["graphs"]) >= 132
+        assert p["graphs"] == 1 or p["graphs"] * n * max(n, f) <= 2048
+    else:
+        assert p["graphs"] == 1 and p["blocks"] == b * p["row_tiles"]
+        assert p["rows"] == n or p["rows"] % 4 == 0
+        assert p["row_tiles"] <= -(-n // 32)
+        assert (p["row_tiles"] - 1) * p["rows"] < n <= p["row_tiles"] * p["rows"]
+
+
+def test_forward_plan_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="no plan"):
+        fused_gnn.fwd_plan(2, 5, fused_gnn.MAX_FEAT + 1, 7)
+    with pytest.raises(ValueError, match="no plan"):
+        fused_gnn.fwd_plan(0, 5, 3, 7)
+    with pytest.raises(ValueError, match="exceeds the grid limit"):
+        fused_gnn.fwd_plan(1, 8 * 65535 + 1, 1, 1)
+    assert not fused_gnn.fwd_plan(1, 8 * 65535, 1, 1)["whole"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f", [(16, 16), (128, 128)])
+@pytest.mark.parametrize("b", [2, 132])
+@pytest.mark.parametrize("side", [0, 1])
+def test_cuda_forward_each_side_of_its_threshold(d, f, b, side):
+    """On the card the forward launches its plan (whole graphs up to the
+    threshold in N, the row-tile stream beyond), reports one launch, and
+    agrees with the plain version; here it skips."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA: the kernels run only on an NVIDIA GPU")
+    n = _fwd_threshold(d, f) + side
+    h, x, mask = (torch.from_numpy(a).cuda()
+                  for a in _fused_inputs(b, n, d, f, seed=n))
+    h = h * d ** -0.25
+    before = fused_dot_graph_spmm.launches
+    got = fused_dot_graph_spmm(h, x, mask)
+    torch.cuda.synchronize()
+    assert fused_dot_graph_spmm.launches == before + 1
+    assert fused_dot_graph_spmm.kernel_fwd_plan(b, n, d, f) == \
+        fused_gnn.fwd_plan(b, n, d, f)
+    assert fused_gnn.fwd_plan(b, n, d, f)["whole"] == (side == 0)
+    want = fused_dot_graph_spmm_plain(h, x, mask)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-5, rtol=1e-4)
