@@ -33,27 +33,40 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    kernel launches counted over that path's run alone; for STAGNN, whose
    graph is ``cov > 0``, the smallest |cov| and the adjacency entries that
    differ between card and CPU;
-5. train, parity: for each model, 5 steps at batch 100 on the card and on
+5. artifacts: for each model, ``export_serving`` for the card at a
+   symbolic batch and at batch 100 (traced on the CPU and moved to the
+   card at export), and for the CPU at a symbolic batch; each saved with
+   ``save_artifact`` and loaded on the card with ``load_artifact`` (the
+   CPU's moved there at load); the registered operator's
+   nodes counted in each exported graph; phase 4's requests served through
+   each (the 1000-row one through the symbolic ones), every answer held
+   against the live model on the card at the same batch, and each
+   artifact's kernel launches counted over its own requests;
+6. train, parity: for each model, 5 steps at batch 100 on the card and on
    the CPU from the same weights on the same batches, dropout off; losses
    and parameters compared, the forward and backward launches counted;
-6. train, entry point: for each model, ``cli.main`` trains one epoch of a
+7. train, entry point: for each model, ``cli.main`` trains one epoch of a
    synthetic processed FD001 at the real size on the card, with the
    kernels' launches counted over that run alone; its results.csv and
-   checkpoint.pt are read back, and the checkpoint serves on the card as on
-   the CPU;
-7. times: CUDA-event medians of each kernel, its plain version and, for
+   checkpoint.pt are read back, the checkpoint serves on the card as on
+   the CPU, and ``python -m gnn_rul_tpu_torch.export``'s ``main`` exports
+   it to an artifact that serves as the live model does;
+8. times: CUDA-event medians of each kernel, its plain version and, for
    the LSTM recurrence, cuDNN's ``torch.nn.LSTM``, with the backward's time
    launch by launch (torch.profiler) and HAGCN's H = 120 at the B of each
    cluster size; the serving latency and
-   samples/s, the training step and epoch of each model, and
-   torch.profiler breakdowns of one request and one training step.
+   samples/s, the same requests through the symbolic-batch artifact and
+   the live model in turns, the training step and epoch of each model,
+   and torch.profiler breakdowns of one request and one training step.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (five
 entries); the last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 -c "import chip_smoke as c; c._turns('build/parent')"`` times
 the dot-graph forward and backward and the attention of an earlier commit
-unpacked at ``build/parent`` and of this tree in turns on one card.
+unpacked at ``build/parent`` and of this tree in turns on one card;
+``c._turns('build/parent', c._HOST_TURN)`` the training steps and requests
+of 100.
 """
 
 from __future__ import annotations
@@ -75,6 +88,7 @@ import torch
 from gnn_rul_tpu_torch import cli
 from gnn_rul_tpu_torch.configs.hparams import model_hparams, train_params
 from gnn_rul_tpu_torch.data.io import save_processed
+from gnn_rul_tpu_torch import export
 from gnn_rul_tpu_torch.export import build_model, serving_model
 from gnn_rul_tpu_torch.models.stfa import prior_knowledge_graph
 from gnn_rul_tpu_torch.ops.graphs import covariance_threshold_graph
@@ -88,6 +102,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 TOL_ATOL, TOL_RTOL = 1e-5, 1e-4          # kernel vs plain, both fp32
 SERVE_ATOL, SERVE_RTOL = 2e-4, 1e-4      # card vs CPU, whole model
+# artifact vs live model, both on the card: tests/test_export.py:52
+ARTIFACT_ATOL, ARTIFACT_RTOL = 1e-5, 1e-5
 SERVE_BATCH = 100                        # FD001 batch_size (hparams.py)
 # card vs CPU over training steps: tests/test_parity_training.py:82-96
 LOSS_RTOL, LOSS_ATOL, PARAM_MAX_DIFF = 2e-4, 2e-5, 5e-4
@@ -113,11 +129,13 @@ METHODS = ("FC_STGNN", "LOGO", "STAGNN", "STFA")
 
 
 class Path(NamedTuple):
-    """A method's kernel wrapper and its launches: per model forward, per
-    backward call (0 where the backward is the plain recompute, as for the
-    graph attention), and per forward of a training step at the hparam
-    bank's dropout."""
+    """A method's kernel wrapper, the registered operator that calls its
+    forward kernel, and its launches: per model forward, per backward call
+    (0 where the backward is the plain recompute, as for the graph
+    attention), and per forward of a training step at the hparam bank's
+    dropout."""
     kernel: object
+    op: str
     per_forward: int
     bwd_per_call: int
     train_per_forward: int
@@ -138,13 +156,14 @@ _STFA_HP = model_hparams("CMAPSS", "FD001", "STFA")
 # launches per call come from the wrapper's mirror of its plan
 # (fused_gnn.bwd_plan); the launches counted are those the C entry reports.
 KERNEL_OF = {
-    "FC_STGNN": Path(fused_gnn.fused_dot_graph_spmm, 2,
-                     fused_gnn.bwd_launches_per_call(*FC_STGNN_NDF), 2),
-    "LOGO": Path(fused_lstm.lstm_recurrence, 3,
+    "FC_STGNN": Path(fused_gnn.fused_dot_graph_spmm, "fused_dot_graph_spmm",
+                     2, fused_gnn.bwd_launches_per_call(*FC_STGNN_NDF), 2),
+    "LOGO": Path(fused_lstm.lstm_recurrence, "lstm_recurrence", 3,
                  fused_lstm.BWD_LAUNCHES_PER_CALL, 3),
-    "STAGNN": Path(fused_gat.fused_gat, 2 * _STAGNN_HP["num_heads"], 0,
+    "STAGNN": Path(fused_gat.fused_gat, "fused_gat",
+                   2 * _STAGNN_HP["num_heads"], 0,
                    2 * _STAGNN_HP["num_heads"]),
-    "STFA": Path(fused_gat.fused_gat, _STFA_HP["num_heads"], 0,
+    "STFA": Path(fused_gat.fused_gat, "fused_gat", _STFA_HP["num_heads"], 0,
                  0 if _STFA_HP["dropout"] > 0 else _STFA_HP["num_heads"]),
 }
 
@@ -683,7 +702,78 @@ def _serve(method: str):
         raise AssertionError(f"expected {path.per_forward} launches per "
                              f"forward, got {launches} for {forwards}")
     return (models[SERVE_BATCH]["cuda"], models[None]["cuda"],
-            requests[0][1], requests[-1][1], launches)
+            requests[0][1], requests[-1][1], launches, requests, sd)
+
+
+def _op_nodes(program, op: str) -> int:
+    """Calls of the registered operator ``gnn_rul_tpu_torch::<op>`` in an
+    exported program's graph."""
+    target = getattr(torch.ops.gnn_rul_tpu_torch, op).default
+    return sum(n.op == "call_function" and n.target is target
+               for n in program.graph.nodes)
+
+
+def _artifacts(method: str, served, tmp: str):
+    """The main path of serving artifacts: ``method`` exported for the card
+    at a symbolic batch and at batch 100 and for the CPU at a symbolic
+    batch, each saved and loaded on the card; ``_serve``'s requests served
+    through each (the 1000-row one through the symbolic ones), every answer
+    held against the live model on the card at the same batch, and each
+    artifact's launches counted over its own requests. Returns the
+    symbolic artifact exported for the card and the launches of all
+    three."""
+    fixed, symbolic, _, _, _, requests, sd = served
+    path = KERNEL_OF[method]
+    total = 0
+    arts = {}
+    for label, bs, dev in (("for cuda, symbolic batch", None, "cuda"),
+                           (f"for cuda, batch {SERVE_BATCH}", SERVE_BATCH,
+                            "cuda"),
+                           ("for cpu, symbolic batch, moved at load", None,
+                            "cpu")):
+        t0 = time.perf_counter()
+        meta, program = export.export_serving(method, "CMAPSS", "FD001", sd,
+                                              batch_size=bs, device=dev)
+        nodes = _op_nodes(program, path.op)
+        art_path = export.save_artifact(
+            os.path.join(tmp, f"{method}_{len(arts)}.pt2"), meta, program)
+        art = export.load_artifact(art_path, device="cuda")
+        arts[label] = art
+        print(f"artifact {method} ({label}): exported in "
+              f"{time.perf_counter() - t0:.2f} s, "
+              f"{os.path.getsize(art_path)} bytes, {nodes} "
+              f"gnn_rul_tpu_torch::{path.op} nodes in the graph")
+        if nodes != path.per_forward:
+            raise AssertionError(f"expected {path.per_forward} operator "
+                                 f"nodes, found {nodes}")
+        live = symbolic if bs is None else fixed
+        # The fixed-batch artifact takes the requests of phase 4's fixed
+        # batch; the symbolic ones take the 1000-row request too.
+        xs = [x for rbs, x in requests if bs is None or rbs == bs]
+        forwards = sum(-(-len(x) // (bs or len(x))) for x in xs)
+        _reset(path.kernel)
+        answers = [art(x) for x in xs]
+        torch.cuda.synchronize()
+        launches = path.kernel.launches
+        worst = 0.0
+        for x, got in zip(xs, answers):
+            want = live(x)
+            if got.shape != (len(x),) or not np.isfinite(got).all():
+                raise AssertionError(f"artifact answer of shape {got.shape} "
+                                     f"for {len(x)} rows, or not finite")
+            np.testing.assert_allclose(got, want, atol=ARTIFACT_ATOL,
+                                       rtol=ARTIFACT_RTOL)
+            worst = max(worst, float(np.abs(got - want).max()))
+        print(f"artifact {method} ({label}): {len(xs)} requests "
+              f"({sum(map(len, xs))} rows), {forwards} forwards, "
+              f"{type(path.kernel).__name__} launches={launches}; every "
+              f"answer matches the live model on the card, max |diff| "
+              f"{worst:.3e} (atol={ARTIFACT_ATOL}, rtol={ARTIFACT_RTOL})")
+        if launches != path.per_forward * forwards:
+            raise AssertionError(f"expected {path.per_forward} launches per "
+                                 f"forward, got {launches} for {forwards}")
+        total += launches
+    return arts["for cuda, symbolic batch"], total
 
 
 def _no_dropout(model):
@@ -839,6 +929,19 @@ def _train_entry_point(method: str, fd001):
     print(f"train entry point {method}: checkpoint.pt serves {len(test_x)} "
           f"test windows on the card as on the CPU (atol={SERVE_ATOL}, "
           f"rtol={SERVE_RTOL})")
+    art_path = os.path.join(run_dir, "model.pt2")
+    line = export.main(["--checkpoint", os.path.join(run_dir, "checkpoint.pt"),
+                        "--GNN_method", method, "--dataset", "CMAPSS",
+                        "--dataset_id", "FD001", "--out", art_path,
+                        "--batch_size", str(SERVE_BATCH),
+                        "--max_rul", str(MAX_RUL)])
+    got_art = export.load_artifact(art_path)(test_x)
+    np.testing.assert_allclose(got_art, got, atol=ARTIFACT_ATOL,
+                               rtol=ARTIFACT_RTOL)
+    print(f"train entry point {method}: python -m gnn_rul_tpu_torch.export "
+          f"wrote {line['bytes']} bytes; the artifact serves the test "
+          f"windows as the live model on the card does (atol="
+          f"{ARTIFACT_ATOL}, rtol={ARTIFACT_RTOL})")
     return fwd_launches, bwd_launches, bwd_calls
 
 
@@ -1189,6 +1292,22 @@ def _serve_times(method: str, fixed, symbolic, x100, x1000) -> None:
                  "request")
 
 
+def _artifact_times(method: str, artifact, symbolic, x100, x1000) -> None:
+    """A request of 100 and of 1000 through the symbolic-batch artifact and
+    the live symbolic-batch model, in turns: live, artifact, artifact,
+    live."""
+    for xs in (x100, x1000):
+        live_a, art_a, art_b, live_b = (
+            _request_ms(model, xs)
+            for model in (symbolic, artifact, artifact, symbolic))
+        print(f"serve {method} request of {len(xs)} [{SMI}]: artifact "
+              f"{art_a:.4f} / {art_b:.4f} ms/request, live model "
+              f"{live_a:.4f} / {live_b:.4f} (in turns: live, artifact, "
+              f"artifact, live)")
+        _profile(f"serve artifact {method} request of {len(xs)}",
+                 lambda: artifact(xs), art_a, "request")
+
+
 def _train_times(method: str, fd001) -> None:
     (train_x, train_y), _, _ = fd001
     torch.manual_seed(0)
@@ -1222,6 +1341,8 @@ def main() -> None:
     lstm_err, lstm_bwd_err = _lstm_vs_plain()
     gat_err = _gat_vs_plain()
     served = {m: _serve(m) for m in METHODS}
+    with tempfile.TemporaryDirectory() as tmp:
+        artifacts = {m: _artifacts(m, served[m], tmp) for m in METHODS}
     for method in METHODS:
         _train_parity(method)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1246,6 +1367,8 @@ def main() -> None:
             gat = _gat_times([GAT_CASES[k] for k in (0, 1, 2, 3, 4, 7)])
         for method in METHODS:
             _serve_times(method, *served[method][:4])
+            _artifact_times(method, artifacts[method][0],
+                            *served[method][1:4])
             _train_times(method, fd001)
 
     def entry(name, times, max_abs_err, launches, **extra):
@@ -1270,6 +1393,7 @@ def main() -> None:
                        "gnn_rul_tpu/ops/pallas/fused_gnn.py:116 "
                        "(_packed_kernel)",
               launches_serve=served["FC_STGNN"][4],
+              launches_artifact=artifacts["FC_STGNN"][1],
               plan=fused_gnn.fwd_plan(*KERNEL_CASES[0]),
               plan_b1000=fused_gnn.fwd_plan(*KERNEL_CASES[1]),
               **at(fwd[KERNEL_CASES[1]], "b1000")),
@@ -1285,7 +1409,8 @@ def main() -> None:
               trained["LOGO"][0], source="gnn_rul_tpu_torch/csrc/fused_lstm.cu",
               replaces="gnn_rul_tpu/ops/pallas/fused_lstm.py:77 (_fwd_kernel)",
               shape="T=100 B=70 H=48", library="torch.nn.LSTM forward",
-              launches_serve=served["LOGO"][4]),
+              launches_serve=served["LOGO"][4],
+              launches_artifact=artifacts["LOGO"][1]),
         entry("fused_lstm_bwd", lstm[lstm_shape]["bwd"], lstm_bwd_err,
               trained["LOGO"][1],
               source="gnn_rul_tpu_torch/csrc/fused_lstm_bwd.cu",
@@ -1298,7 +1423,9 @@ def main() -> None:
               replaces="gnn_rul_tpu/ops/pallas/fused_gat.py:46 (_kernel)",
               shape="B=100 N=14 D=64 per-graph adj (STAGNN)",
               launches_serve=served["STAGNN"][4],
+              launches_artifact=artifacts["STAGNN"][1],
               launches_stfa_serve=served["STFA"][4],
+              launches_stfa_artifact=artifacts["STFA"][1],
               launches_stfa_epoch=trained["STFA"][0],
               stfa_ms=gat[GAT_CASES[2]][0],
               stfa_plain_ms=gat[GAT_CASES[2]][1],
@@ -1325,15 +1452,39 @@ _TURN = ("import chip_smoke as c; c._device(); c._build(); "
          "c._gat_times([c.GAT_CASES[i] for i in (0, 1, 2, 3, 4, 7)])")
 
 
-def _turns(parent: str) -> None:
-    """Times the kernels of the tree at ``parent`` (an earlier commit,
-    unpacked) and of this one in turns, parent, this, this, parent, on one
-    card; each turn is a process of its own that builds its tree's
-    kernels."""
+# A turn of the host's times: each model's training step at batch 100 and
+# a request of 100 through the live model, through functions that every
+# tree since STFA's port has.
+_HOST_TURN = """
+import numpy as np, torch
+import chip_smoke as c
+c._device(); c._build()
+rng = np.random.default_rng(0)
+x = rng.normal(size=(c.SERVE_BATCH, 14, 50)).astype(np.float32)
+y = rng.uniform(size=(c.SERVE_BATCH, 1)).astype(np.float32)
+for m in c.METHODS:
+    torch.manual_seed(0)
+    engine = c.Engine(c.build_model(m, "CMAPSS", "FD001"),
+                      c.get_algorithm_spec(m),
+                      c.train_params("CMAPSS", "FD001", m))
+    step = c._step_ms(engine, torch.from_numpy(x).cuda(),
+                      torch.from_numpy(y).cuda())
+    model = c.serving_model(m, "CMAPSS", "FD001", c._seeded_state_dict(m),
+                            batch_size=c.SERVE_BATCH)
+    print(f"host turn {m} [{c.SMI}]: training step {step:.4f} ms, request "
+          f"of {c.SERVE_BATCH} {c._request_ms(model, x):.4f} ms", flush=True)
+"""
+
+
+def _turns(parent: str, turn: str = _TURN) -> None:
+    """Runs ``turn`` (the kernels' times, or ``_HOST_TURN``) in the tree at
+    ``parent`` (an earlier commit, unpacked) and in this one in turns,
+    parent, this, this, parent, on one card; each turn is a process of its
+    own that builds its tree's kernels."""
     for label, cwd in (("parent", parent), ("change", "."), ("change", "."),
                        ("parent", parent)):
         print(f"turn {label}: {os.path.abspath(cwd)}", flush=True)
-        subprocess.run([sys.executable, "-c", _TURN], cwd=cwd, check=True)
+        subprocess.run([sys.executable, "-c", turn], cwd=cwd, check=True)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Serving entry point (counterpart of ``gnn_rul_tpu/export.py``).
+"""Serving: the live model and the exported artifact (counterpart of
+``gnn_rul_tpu/export.py``).
 
 :func:`serving_model` builds a model from the hparam bank, loads a
 ``state_dict`` under the original torch reference's keys (the port's own,
@@ -6,15 +7,37 @@ one converted from the JAX package by
 :func:`gnn_rul_tpu_torch.compat.from_jax_variables`, or the ``model_dict``
 of a reference ``checkpoint.pt``) and returns a :class:`ServingModel`.
 
-Call contract, as in the JAX package: input ``(batch, C, L)`` float32,
-output ``(batch,)`` float32 normalized-RUL predictions. With a fixed
-``batch_size`` the last partial batch is padded with its row 0 and the
-result trimmed, so callers always get one prediction per input row.
+:func:`export_serving` traces the same model with ``torch.export`` into an
+``ExportedProgram``, weights included, that runs without the model code or
+the hparam bank; :func:`save_artifact` writes it with its ``meta`` and
+:func:`load_artifact` reads it back as an :class:`ArtifactServingModel`.
+The program calls the port's kernels as the registered operators
+``gnn_rul_tpu_torch::fused_dot_graph_spmm`` (FC_STGNN),
+``::lstm_recurrence`` (LOGO) and ``::fused_gat`` (STAGNN, STFA), whose
+implementation PyTorch's dispatcher picks when the program runs: the
+hand-written kernel on the card, the plain version on the CPU. So an
+artifact exported on the CPU and loaded with ``device="cuda"`` launches
+the kernels; loading imports the kernel modules, which register the
+operators, and builds nothing before the first launch.
 
-    from gnn_rul_tpu_torch.export import serving_model
+Call contract, as in the JAX package: input ``(batch, C, L)`` float32,
+output ``(batch,)`` float32 normalized-RUL predictions (times
+``meta["max_rul"]`` for absolute RUL). The batch is symbolic by default,
+so one program serves any batch; with a fixed ``batch_size`` the last
+partial batch is padded with its row 0 and the result trimmed, so callers
+always get one prediction per input row.
+
+    from gnn_rul_tpu_torch.export import serving_model, load_artifact
     model = serving_model("FC_STGNN", "CMAPSS", "FD001", state_dict,
                           batch_size=100)
     rul = model(x)          # x: (n, 14, 50) -> (n,)
+    rul = load_artifact("fc_stgnn_fd001.pt2")(x)
+
+CLI, from a ``checkpoint.pt`` of the port or of the reference:
+
+    python -m gnn_rul_tpu_torch.export --checkpoint run_dir/checkpoint.pt \\
+        --GNN_method FC_STGNN --dataset CMAPSS --dataset_id FD001 \\
+        --out fc_stgnn_fd001.pt2 [--batch_size 0] [--device cuda]
 
 The ported methods are ``models.MODELS``: FC_STGNN, LOGO, STAGNN and STFA.
 LOGO's recurrence runs along the batch axis, so its answer for a row
@@ -23,23 +46,34 @@ adjacency is ``cov > 0`` per window, a step function: a covariance within
 rounding of 0 can give another graph, and so another answer, on the card
 than on the CPU.
 
-The model runs in ``eval()`` under ``torch.inference_mode()``, on the card
-by default. The serialized artifact (``torch.export``) is not ported yet
-(ROADMAP.md).
+Both run in ``eval()`` under ``torch.inference_mode()``, on the card by
+default.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+import argparse
+import json
+import os
+import zipfile
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.export.passes import move_to_device_pass
 
+from .configs import hparams as hparams_bank
 from .configs.data_configs import get_dataset_config
-from .configs.hparams import model_hparams
+# Importing the models imports the kernel modules, which register the
+# operators that a loaded program calls (and build nothing before the
+# first launch).
 from .models import MODELS
 from .nn.tcn import TemporalConvNet
+
+ARTIFACT_FORMAT = "gnn_rul_tpu_torch.artifact.v1"
+_META_FILE = "meta.json"  # the artifact's extra file that holds ``meta``
+_OUTPUT = "normalized RUL, shape (batch,) float32"
 
 
 def resolve_device(device: str = "cuda") -> torch.device:
@@ -53,14 +87,17 @@ def resolve_device(device: str = "cuda") -> torch.device:
     return dev
 
 
-def build_model(method: str, dataset: str,
-                dataset_id: Optional[str]) -> nn.Module:
-    """The ``method`` model at the hparam bank's widths, on the CPU."""
+def build_model(method: str, dataset: str, dataset_id: Optional[str],
+                model_hparams: Optional[Mapping[str, Any]] = None
+                ) -> nn.Module:
+    """The ``method`` model on the CPU, at ``model_hparams`` or else the
+    hparam bank's widths."""
     if method not in MODELS:
         raise NotImplementedError(
             f"{method} is not ported yet; the port's order of work is in "
             "ROADMAP.md")
-    return MODELS[method](**model_hparams(dataset, dataset_id, method))
+    return MODELS[method](**(model_hparams or hparams_bank.model_hparams(
+        dataset, dataset_id, method)))
 
 
 def _model_keys(state_dict: Mapping[str, Any],
@@ -81,8 +118,23 @@ def _model_keys(state_dict: Mapping[str, Any],
     return {k: v for k, v in keys.items() if not k.startswith(dead)}
 
 
+def _loaded_model(method: str, dataset: str, dataset_id: Optional[str],
+                  state_dict: Mapping[str, Any], dev: torch.device,
+                  model_hparams: Optional[Mapping[str, Any]] = None
+                  ) -> nn.Module:
+    model = build_model(method, dataset, dataset_id, model_hparams)
+    model.load_state_dict(_model_keys(state_dict, model), strict=True)
+    return model.eval().to(dev)
+
+
+def _check_batch_size(batch_size: Optional[int]) -> None:
+    if batch_size is not None and batch_size < 1:
+        raise ValueError(f"batch_size must be positive, got {batch_size}")
+
+
 class ServingModel:
-    """``meta`` + ``__call__(x) -> (batch,)`` over a model in eval mode."""
+    """``meta`` + ``__call__(x) -> (batch,)`` over a model in eval mode:
+    host ``(n, C, L)`` float32 in, host ``(n,)`` float32 out."""
 
     def __init__(self, model: nn.Module, meta: Dict[str, Any],
                  device: torch.device):
@@ -112,6 +164,43 @@ class ServingModel:
         return torch.cat(outs).cpu().numpy()
 
 
+def _flatten_lstm_weights(module: nn.Module) -> None:
+    """Put the weights of each ``aten.lstm`` call of an unlifted program in
+    one cuDNN buffer, as ``nn.LSTM.flatten_parameters`` does for the live
+    model. The program holds them as separate tensors, and cuDNN would copy
+    them into a buffer at every call (and warn each time). A no-op for
+    weights that cuDNN does not take (on the CPU)."""
+    for node in module.graph.nodes:
+        if node.target is not torch.ops.aten.lstm.input:
+            continue
+        (_, _, params, has_biases, num_layers, _, _, bidirectional,
+         batch_first) = node.args
+        weights = [module.get_parameter(p.target) for p in params]
+        if not all(w.is_cuda and torch.backends.cudnn.is_acceptable(w)
+                   for w in weights):
+            continue
+        import torch.backends.cudnn.rnn as cudnn_rnn  # CUDA builds only
+
+        with torch.no_grad():  # rebinds the weights to views of the buffer
+            torch._cudnn_rnn_flatten_weight(
+                weights, 4 if has_biases else 2, weights[0].shape[1],
+                cudnn_rnn.get_cudnn_mode("LSTM"),
+                weights[1].shape[1], 0, num_layers, batch_first,
+                bidirectional)
+
+
+class ArtifactServingModel(ServingModel):
+    """A loaded artifact: the :class:`ServingModel` contract over the
+    exported program (``program``) in place of the model."""
+
+    def __init__(self, program: torch.export.ExportedProgram,
+                 meta: Dict[str, Any], device: torch.device):
+        module = program.module()
+        _flatten_lstm_weights(module)
+        super().__init__(module, meta, device)
+        self.program = program
+
+
 def serving_model(method: str, dataset: str, dataset_id: Optional[str],
                   state_dict: Mapping[str, Any], *,
                   batch_size: Optional[int] = None,
@@ -122,13 +211,10 @@ def serving_model(method: str, dataset: str, dataset_id: Optional[str],
     ``batch_size=None`` serves any batch in one forward; a fixed
     ``batch_size`` runs every forward at that batch.
     """
-    if batch_size is not None and batch_size < 1:
-        raise ValueError(f"batch_size must be positive, got {batch_size}")
+    _check_batch_size(batch_size)
     dev = resolve_device(device)
     cfg = get_dataset_config(dataset)
-    model = build_model(method, dataset, dataset_id)
-    model.load_state_dict(_model_keys(state_dict, model), strict=True)
-    model.eval().to(dev)
+    model = _loaded_model(method, dataset, dataset_id, state_dict, dev)
     meta = {
         "format": "gnn_rul_tpu_torch.serving.v1",
         "method": method,
@@ -136,7 +222,195 @@ def serving_model(method: str, dataset: str, dataset_id: Optional[str],
         "dataset_id": dataset_id,
         "input_shape": [None if batch_size is None else int(batch_size),
                         cfg.input_channels, cfg.sequence_len],
-        "output": "normalized RUL, shape (batch,) float32",
+        "output": _OUTPUT,
         "device": str(dev),
     }
     return ServingModel(model, meta, dev)
+
+
+class _Predict(nn.Module):
+    """The program's body: the model's eval forward as ``(batch,)``."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(x).reshape(-1)
+
+
+def export_serving(method: str, dataset: str, dataset_id: Optional[str],
+                   state_dict: Mapping[str, Any], *,
+                   batch_size: Optional[int] = None,
+                   seq_len: Optional[int] = None,
+                   precision: str = "fp32",
+                   device: str = "cuda",
+                   model_hparams: Optional[Mapping[str, Any]] = None,
+                   max_rul: Optional[float] = None,
+                   ) -> Tuple[Dict[str, Any], torch.export.ExportedProgram]:
+    """Trace ``method``'s eval forward, weights from ``state_dict`` (loaded
+    strictly, as :func:`serving_model` loads them), into an
+    ``ExportedProgram`` placed on ``device``. Returns ``(meta, program)``.
+
+    ``batch_size=None`` exports a symbolic batch (``Dim("batch", min=1)``:
+    one program, any batch); a fixed ``batch_size`` a program of that
+    batch. ``seq_len`` overrides the dataset config's window length.
+    ``model_hparams`` overrides the hparam bank's (a checkpoint's own).
+    ``max_rul`` is recorded in ``meta`` for denormalizing predictions.
+
+    The trace always runs on the CPU, and a program for another device is
+    then moved there (``move_to_device_pass``), as :func:`load_artifact`
+    moves one. Traced on CUDA, an eval ``BatchNorm``'s choice of cuDNN,
+    which PyTorch makes per call from ``input.size(0) <= 65535``, turns
+    into a bound on the symbolic batch (FC_STGNN's encoder normalizes 28
+    rows a window: batch <= 2,340), which ``torch.export`` refuses. The
+    program keeps ``aten.batch_norm`` itself, so on the card it chooses
+    per call, as the live model does.
+    """
+    if precision == "bf16":
+        raise NotImplementedError(
+            "precision='bf16' is not ported yet: bf16 compute comes with "
+            "train/precision.py (ROADMAP.md, Queue 1 item 11)")
+    if precision != "fp32":
+        raise ValueError(f"precision must be 'fp32' or 'bf16', got "
+                         f"{precision!r}")
+    _check_batch_size(batch_size)
+    dev = resolve_device(device)
+    cfg = get_dataset_config(dataset)
+    length = int(seq_len or cfg.sequence_len)
+    model = _loaded_model(method, dataset, dataset_id, state_dict,
+                          torch.device("cpu"), model_hparams)
+    # A symbolic batch is traced at 2 rows: an example of 1 row would let
+    # the tracer take the batch for the constant 1.
+    example = torch.zeros((batch_size or 2, cfg.input_channels, length))
+    dynamic = (None if batch_size is not None
+               else ({0: torch.export.Dim("batch", min=1)},))
+    try:
+        with torch.no_grad():
+            program = torch.export.export(_Predict(model), (example,),
+                                          dynamic_shapes=dynamic)
+    except Exception as e:
+        if batch_size is None:
+            raise RuntimeError(
+                f"symbolic-batch export failed for {method} ({e!r}); "
+                f"retry with a fixed batch_size=N") from e
+        raise
+    if dev.type != "cpu":
+        program = move_to_device_pass(program, dev)
+    meta = {
+        "format": ARTIFACT_FORMAT,
+        "method": method,
+        "dataset": dataset,
+        "dataset_id": dataset_id,
+        "input_shape": [None if batch_size is None else int(batch_size),
+                        cfg.input_channels, length],
+        "output": _OUTPUT,
+        "precision": precision,
+        "max_rul": max_rul,
+        "device": str(dev),
+        "torch_version": torch.__version__,
+    }
+    return meta, program
+
+
+def save_artifact(path: str, meta: Dict[str, Any],
+                  program: torch.export.ExportedProgram) -> str:
+    """Write ``program`` with ``meta`` to ``path`` (a ``torch.export``
+    archive), through a temporary file renamed into place, so a crash
+    mid-write leaves no partial artifact."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        torch.export.save(program, f, extra_files={_META_FILE: json.dumps(meta)})
+    os.replace(tmp, path)
+    return path
+
+
+def _read_meta(path: str) -> Dict[str, Any]:
+    """The artifact's ``meta``, read before any of its program is;
+    ``ValueError`` for a file that is not the port's artifact."""
+    not_ours = ValueError(f"{path} is not a {ARTIFACT_FORMAT} serving "
+                          "artifact")
+    try:
+        with zipfile.ZipFile(path) as archive:
+            names = [n for n in archive.namelist()
+                     if n.endswith(f"/extra/{_META_FILE}")]
+            if len(names) != 1:
+                raise not_ours
+            meta = json.loads(archive.read(names[0]))
+    except (zipfile.BadZipFile, json.JSONDecodeError) as e:
+        raise not_ours from e
+    if not isinstance(meta, dict) or meta.get("format") != ARTIFACT_FORMAT:
+        raise not_ours
+    return meta
+
+
+def load_artifact(path: str, device: str = "cuda") -> ArtifactServingModel:
+    """Load an artifact of :func:`save_artifact` to serve on ``device``
+    (``"cuda"`` by default, which raises where CUDA is absent). A program
+    exported on another device (``meta["device"]``) is moved to
+    ``device``."""
+    dev = resolve_device(device)
+    meta = _read_meta(path)
+    with open(path, "rb") as f:
+        program = torch.export.load(f)
+    if torch.device(meta["device"]) != dev:
+        program = move_to_device_pass(program, dev)
+    return ArtifactServingModel(program, meta, dev)
+
+
+def _load_checkpoint(path: str) -> Tuple[Dict[str, Any], Optional[Dict]]:
+    """``(state_dict, model_hparams or None)`` from a ``checkpoint.pt``
+    of the port (``train/checkpoint.py``) or of the reference, which share
+    one layout; a bare state_dict is taken as it is."""
+    if path.endswith(".pkl"):
+        raise ValueError(
+            f"{path}: the port does not read the JAX package's "
+            "checkpoint.pkl; convert its variables with "
+            "gnn_rul_tpu_torch.compat.from_jax_variables and pass the "
+            "state_dict to export_serving (ROADMAP.md)")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if "model_dict" not in payload:
+        return payload, None
+    return payload["model_dict"], payload.get("hparams")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="Export a trained model as a serving artifact")
+    ap.add_argument("--checkpoint", required=True,
+                    help="checkpoint.pt (the port's or the reference's)")
+    ap.add_argument("--GNN_method", required=True)
+    ap.add_argument("--dataset", required=True,
+                    choices=["CMAPSS", "NCMAPSS", "PHM2012", "XJTU_SY"])
+    ap.add_argument("--dataset_id", default=None)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--batch_size", type=int, default=0,
+                    help="0 = symbolic batch (one artifact, any batch)")
+    ap.add_argument("--seq_len", type=int, default=0,
+                    help="override the dataset window length")
+    ap.add_argument("--precision", default="fp32", choices=["fp32", "bf16"],
+                    help="bf16: not ported yet")
+    ap.add_argument("--max_rul", type=float, default=None,
+                    help="recorded in meta for denormalizing predictions")
+    ap.add_argument("--device", default="cuda",
+                    help="where to export: cuda (default; raises where CUDA "
+                         "is absent) or cpu")
+    return ap
+
+
+def main(argv=None) -> Dict[str, Any]:
+    args = build_parser().parse_args(argv)
+    state_dict, ckpt_hparams = _load_checkpoint(args.checkpoint)
+    meta, program = export_serving(
+        args.GNN_method, args.dataset, args.dataset_id, state_dict,
+        batch_size=args.batch_size or None, seq_len=args.seq_len or None,
+        precision=args.precision, device=args.device,
+        model_hparams=ckpt_hparams, max_rul=args.max_rul)
+    save_artifact(args.out, meta, program)
+    line = {"artifact": args.out, "bytes": os.path.getsize(args.out), **meta}
+    print(json.dumps(line))
+    return line
+
+
+if __name__ == "__main__":
+    main()

@@ -9,19 +9,22 @@ shared by every graph, bias a one-element tensor, slope a float ->
 ``(B, N, D)``, fp32.
 
 Counterpart of ``gnn_rul_tpu/ops/pallas/fused_gat.py``. :data:`fused_gat`
-is the wrapper ``nn/attention.py`` calls. It is differentiable through a
-``torch.autograd.Function`` that saves wh, f1, f2, adj and bias and whose
-backward recomputes through :func:`fused_gat_plain`, as the JAX ``_bwd``
-recomputes through ``fused_gat_reference``: the TPU kernel has no backward,
-and neither has this one. bias is a tensor so that it gets its gradient. On
-a CUDA tensor the forward launches the kernel in
-``gnn_rul_tpu_torch/csrc/fused_gat.cu`` (its plan for (B, N, D):
-:func:`gat_plan`; N up to :data:`MAX_N`) or raises; on a CPU tensor it runs
-:func:`fused_gat_plain`, at any N.
+is the wrapper ``nn/attention.py`` calls. It calls the registered operator
+``gnn_rul_tpu_torch::fused_gat(wh, f1, f2, adj, bias, slope) -> out``,
+whose implementation PyTorch's dispatcher picks by the device of the
+tensors when the call runs: on the CPU :func:`fused_gat_plain`, at any N;
+on CUDA the kernel in ``gnn_rul_tpu_torch/csrc/fused_gat.cu`` (its plan
+for (B, N, D): :func:`gat_plan`; N up to :data:`MAX_N`) or it raises; on
+any other device it raises. A shape-only fake implementation lets
+``torch.export`` trace the operator into a program at a symbolic batch.
+The operator's autograd formula saves wh, f1, f2, adj and bias and
+recomputes through :func:`fused_gat_plain`, as the JAX ``_bwd`` recomputes
+through ``fused_gat_reference``: the TPU kernel has no backward, and
+neither has this one. bias is a tensor so that it gets its gradient.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use
-(``ops/kernels/build.py``) and called through ``ctypes`` on PyTorch's
-current stream.
+The kernel is compiled with ``nvcc`` for ``sm_90a`` at its first launch
+(``ops/kernels/build.py``), never at import, and called through ``ctypes``
+on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -93,9 +96,6 @@ def _check(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
            adj: torch.Tensor, bias: torch.Tensor) -> None:
     named = (("wh", wh), ("f1", f1), ("f2", f2), ("adj", adj), ("bias", bias))
     for name, t in named:
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"fused_gat: {name} must be a tensor, got "
-                            f"{type(t).__name__}")
         if t.dtype != torch.float32:
             raise TypeError(f"fused_gat: {name} must be float32, got "
                             f"{t.dtype}")
@@ -111,7 +111,10 @@ def _check(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
     if f1.shape != (b, n) or f2.shape != (b, n):
         raise ValueError(f"fused_gat: f1 {tuple(f1.shape)} and f2 "
                          f"{tuple(f2.shape)} must be (B, N) = ({b}, {n})")
-    if adj.shape not in ((n, n), (b, n, n)):
+    # The rank first: comparing a (B, N, N) shape with (N, N) element by
+    # element would compare a symbolic B with N and pin it.
+    if not ((adj.dim() == 2 and adj.shape == (n, n))
+            or (adj.dim() == 3 and adj.shape == (b, n, n))):
         raise ValueError(f"fused_gat: adj must be (N, N) or (B, N, N) with "
                          f"B={b}, N={n}, got {tuple(adj.shape)}")
     if bias.numel() != 1:
@@ -123,28 +126,47 @@ def _check(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
         raise ValueError(f"fused_gat: no kernel for {wh.device}")
 
 
-class _Gat(torch.autograd.Function):
-    """Saves wh, f1, f2, adj and bias; the backward recomputes through the
-    plain version."""
+@torch.library.custom_op("gnn_rul_tpu_torch::fused_gat", mutates_args=(),
+                         device_types="cpu")
+def _op(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+        adj: torch.Tensor, bias: torch.Tensor, slope: float) -> torch.Tensor:
+    _check(wh, f1, f2, adj, bias)
+    return fused_gat_plain(wh, f1, f2, adj, bias, slope)
 
-    @staticmethod
-    def forward(ctx, op, wh, f1, f2, adj, bias, slope):
-        ctx.slope = slope
-        ctx.save_for_backward(wh, f1, f2, adj, bias)
-        return op.forward(wh, f1, f2, adj, bias, slope)
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        needs = ctx.needs_input_grad[1:6]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(need)
-                      for t, need in zip(ctx.saved_tensors, needs)]
-            out = fused_gat_plain(*inputs, ctx.slope)
-            grads = iter(torch.autograd.grad(
-                out, [t for t, need in zip(inputs, needs) if need], g))
-        return (None, *(next(grads) if need else None for need in needs),
-                None)
+@_op.register_kernel("cuda")
+def _op_cuda(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+             adj: torch.Tensor, bias: torch.Tensor,
+             slope: float) -> torch.Tensor:
+    _check(wh, f1, f2, adj, bias)
+    return fused_gat.forward(wh, f1, f2, adj, bias, slope)
+
+
+@_op.register_fake
+def _op_fake(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+             adj: torch.Tensor, bias: torch.Tensor,
+             slope: float) -> torch.Tensor:
+    _check(wh, f1, f2, adj, bias)
+    return torch.empty_like(wh)
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    *tensors, ctx.slope = inputs
+    ctx.save_for_backward(*tensors)
+
+
+def _backward(ctx, g):
+    needs = ctx.needs_input_grad[:5]
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, needs)]
+        out = fused_gat_plain(*inputs, ctx.slope)
+        grads = iter(torch.autograd.grad(
+            out, [t for t, need in zip(inputs, needs) if need], g))
+    return (*(next(grads) if need else None for need in needs), None)
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 class FusedGat:
@@ -188,16 +210,22 @@ class FusedGat:
     def __call__(self, wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
                  adj: torch.Tensor, bias: torch.Tensor,
                  slope: float) -> torch.Tensor:
-        _check(wh, f1, f2, adj, bias)
-        return _Gat.apply(self, wh, f1, f2, adj, bias, float(slope))
+        named = (("wh", wh), ("f1", f1), ("f2", f2), ("adj", adj),
+                 ("bias", bias))
+        for name, t in named:
+            if not isinstance(t, torch.Tensor):
+                raise TypeError(f"fused_gat: {name} must be a tensor, got "
+                                f"{type(t).__name__}")
+        return _op(wh, f1, f2, adj, bias, float(slope))
 
     def forward(self, wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
                 adj: torch.Tensor, bias: torch.Tensor,
                 slope: float) -> torch.Tensor:
-        """The attention without autograd: the kernel on CUDA, plain on the
-        CPU."""
-        if wh.device.type == "cpu":
-            return fused_gat_plain(wh, f1, f2, adj, bias, slope)
+        """The kernel alone, on CUDA tensors that :func:`_check` accepts:
+        one launch, without autograd."""
+        if wh.device.type != "cuda":
+            raise ValueError(f"fused_gat: the kernel runs on CUDA tensors, "
+                             f"got {wh.device}")
         b, n, d = wh.shape
         if n > MAX_N:
             raise ValueError(f"fused_gat: N={n}; the kernel takes N <= {MAX_N}")

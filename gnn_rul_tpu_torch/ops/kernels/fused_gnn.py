@@ -6,22 +6,26 @@ h ``(B, N, D)``, x ``(B, N, F)``, mask ``(N, N)`` -> ``(B, N, F)``, fp32.
 
 Counterpart of ``gnn_rul_tpu/ops/pallas/fused_gnn.py``, forward and
 backward. :data:`fused_dot_graph_spmm` is the wrapper the model calls. It
-is differentiable through a ``torch.autograd.Function`` that saves h, x and
-mask and recomputes the chain in the backward, as the TPU kernel does, so
-nothing ``(N, N)`` is kept between the passes. On a CUDA tensor the forward
-launches the plan of ``gnn_rul_tpu_torch/csrc/fused_gnn.cu`` for
+calls the registered operator ``gnn_rul_tpu_torch::fused_dot_graph_spmm``,
+whose implementation PyTorch's dispatcher picks by the device of the
+tensors when the call runs: on the CPU :func:`fused_dot_graph_spmm_plain`,
+on CUDA the plan of ``gnn_rul_tpu_torch/csrc/fused_gnn.cu`` for
 (B, N, D, F) (whole graphs a block wherever a graph fits a block's shared
-memory, else the row-tile stream; one launch either way) and the backward
-the plan of ``csrc/fused_gnn_bwd.cu`` for (N, D, F) (one launch where a
-graph fits a block's shared memory, else two). Each C entry chooses its
-plan and reports the launches it made; :func:`fwd_plan` and
-:func:`bwd_plan` mirror the choices. Or they raise; on a CPU tensor they
-run :func:`fused_dot_graph_spmm_plain` and
-:func:`fused_dot_graph_spmm_bwd_plain`.
+memory, else the row-tile stream; one launch either way); on any other
+device it raises. A shape-only fake implementation lets ``torch.export``
+trace the operator into a program at a symbolic batch, so an exported
+program calls the kernel, not the plain version. The operator's autograd
+formula saves h, x and mask and recomputes the chain in the backward, as
+the TPU kernel does, so nothing ``(N, N)`` is kept between the passes:
+on CUDA the plan of ``csrc/fused_gnn_bwd.cu`` for (N, D, F) (one launch
+where a graph fits a block's shared memory, else two), on the CPU
+:func:`fused_dot_graph_spmm_bwd_plain`. Each C entry chooses its plan and
+reports the launches it made; :func:`fwd_plan` and :func:`bwd_plan`
+mirror the choices.
 
-The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use
-(``ops/kernels/build.py``) and called through ``ctypes`` on PyTorch's
-current stream.
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at their first
+launch (``ops/kernels/build.py``), never at import, and called through
+``ctypes`` on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -190,25 +194,42 @@ def _check(h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"fused_dot_graph_spmm: no kernel for {h.device}")
 
 
-class _Chain(torch.autograd.Function):
-    """Saves h, x and mask; the backward recomputes the chain."""
+@torch.library.custom_op("gnn_rul_tpu_torch::fused_dot_graph_spmm",
+                         mutates_args=(), device_types="cpu")
+def _op(h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    _check(h, x, mask)
+    return fused_dot_graph_spmm_plain(h, x, mask)
 
-    @staticmethod
-    def forward(ctx, op, h, x, mask):
-        ctx.op = op
-        ctx.save_for_backward(h, x, mask)
-        return op.forward(h, x, mask)
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        h, x, mask = ctx.saved_tensors
-        _, need_h, need_x, need_mask = ctx.needs_input_grad
-        # Autograd does not promise a contiguous cotangent.
-        dh, dx, dmask = ctx.op.backward(h, x, mask, g.contiguous(),
-                                        need_dmask=need_mask)
-        return (None, dh if need_h else None, dx if need_x else None,
-                dmask.sum(dim=0) if need_mask else None)
+@_op.register_kernel("cuda")
+def _op_cuda(h: torch.Tensor, x: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    _check(h, x, mask)
+    return fused_dot_graph_spmm.forward(h, x, mask)
+
+
+@_op.register_fake
+def _op_fake(h: torch.Tensor, x: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    _check(h, x, mask)
+    return h.new_empty((h.shape[0], h.shape[1], x.shape[2]))
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g):
+    h, x, mask = ctx.saved_tensors
+    need_h, need_x, need_mask = ctx.needs_input_grad
+    # Autograd does not promise a contiguous cotangent.
+    dh, dx, dmask = fused_dot_graph_spmm.backward(h, x, mask, g.contiguous(),
+                                                  need_dmask=need_mask)
+    return (dh if need_h else None, dx if need_x else None,
+            dmask.sum(dim=0) if need_mask else None)
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 class FusedDotGraphSpmm:
@@ -262,15 +283,15 @@ class FusedDotGraphSpmm:
 
     def __call__(self, h: torch.Tensor, x: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
-        _check(h, x, mask)
-        return _Chain.apply(self, h, x, mask)
+        return _op(h, x, mask)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
-        """The chain without autograd: the kernel on CUDA, plain on the
-        CPU."""
-        if h.device.type == "cpu":
-            return fused_dot_graph_spmm_plain(h, x, mask)
+        """The kernel alone, on CUDA tensors that :func:`_check` accepts:
+        one launch, without autograd."""
+        if h.device.type != "cuda":
+            raise ValueError(f"fused_dot_graph_spmm: the kernel runs on CUDA "
+                             f"tensors, got {h.device}")
         self.load()
         b, n, d = h.shape
         f = x.shape[2]

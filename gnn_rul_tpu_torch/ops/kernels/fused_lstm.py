@@ -10,21 +10,27 @@ directions, direction 1 already flipped in time; w_hh is in the JAX layout
 
 Counterpart of ``gnn_rul_tpu/ops/pallas/fused_lstm.py``, forward and
 backward. :data:`lstm_recurrence` is the wrapper ``nn/recurrent.py`` calls.
-It is differentiable through a ``torch.autograd.Function`` that saves xg,
-w_hh, ys and the whole c trajectory, as the JAX ``_fwd`` does, and whose
-backward returns dxg and dw_hh; the cotangent of an output the caller
-never used (LOGO never reads c_fin) is zeros. On a CUDA tensor the forward
-launches the kernel in ``gnn_rul_tpu_torch/csrc/fused_lstm.cu`` and the
-backward the four kernels in ``csrc/fused_lstm_bwd.cu`` (the gate pass,
-which recomputes the activated gates of every step in parallel, the
-reverse sweep, the dW_hh partial sums, their fixed-order reduction), or
-they raise; on a CPU tensor they run :func:`lstm_recurrence_plain` and
+It calls the registered operator ``gnn_rul_tpu_torch::lstm_recurrence
+(xg, w_hh) -> (ys, cs, c_fin)``, whose implementation PyTorch's dispatcher
+picks by the device of the tensors when the call runs: on the CPU the time
+loop :func:`lstm_trajectory_plain`, on CUDA the kernel in
+``gnn_rul_tpu_torch/csrc/fused_lstm.cu``; on any other device it raises. A
+shape-only fake implementation lets ``torch.export`` trace the operator
+with T symbolic (LOGO's T is the request's batch), where the plain time
+loop would pin T. The operator's autograd formula saves xg, w_hh, ys and
+the whole c trajectory cs, as the JAX ``_fwd`` does, and returns dxg and
+dw_hh; cs is an output for the backward's sake and carries no gradient,
+and the cotangent of an output the caller never used (LOGO never reads
+c_fin) is zeros. On CUDA the backward launches the four kernels in
+``csrc/fused_lstm_bwd.cu`` (the gate pass, which recomputes the activated
+gates of every step in parallel, the reverse sweep, the dW_hh partial
+sums, their fixed-order reduction), on the CPU it runs
 :func:`lstm_recurrence_bwd_plain`, which is :func:`lstm_gates_plain`
 followed by :func:`lstm_sweep_plain`.
 
-The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use
-(``ops/kernels/build.py``) and called through ``ctypes`` on PyTorch's
-current stream.
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at their first
+launch (``ops/kernels/build.py``), never at import, and called through
+``ctypes`` on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -148,7 +154,9 @@ def _check(xg: torch.Tensor, w_hh: torch.Tensor, **extra: torch.Tensor
     if w_hh.shape != (2, hid, 4 * hid) or g != 4 * hid:
         raise ValueError(f"lstm_recurrence: w_hh {tuple(w_hh.shape)} does not "
                          f"match xg {tuple(xg.shape)}")
-    if min(t, b, hid) == 0:
+    # Each size on its own: min() would compare a symbolic T (an exported
+    # LOGO's batch) with B and H, and pin it.
+    if t == 0 or b == 0 or hid == 0:
         raise ValueError("lstm_recurrence: T, B and H must be nonzero")
     if hid > MAX_HIDDEN:
         raise ValueError(f"lstm_recurrence: H={hid}; the kernels take "
@@ -163,27 +171,48 @@ def _check(xg: torch.Tensor, w_hh: torch.Tensor, **extra: torch.Tensor
         raise ValueError(f"lstm_recurrence: no kernel for {xg.device}")
 
 
-class _Recurrence(torch.autograd.Function):
-    """Saves xg, w_hh, ys and the c trajectory; the backward recomputes the
-    gates from them."""
+@torch.library.custom_op("gnn_rul_tpu_torch::lstm_recurrence",
+                         mutates_args=(), device_types="cpu")
+def _op(xg: torch.Tensor, w_hh: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    _check(xg, w_hh)
+    ys, cs = lstm_trajectory_plain(xg, w_hh)
+    return ys, cs, cs[-1].clone()
 
-    @staticmethod
-    def forward(ctx, op, xg, w_hh):
-        ys, cs, c_fin = op.forward(xg, w_hh)
-        ctx.op = op
-        ctx.save_for_backward(xg, w_hh, ys, cs)
-        return ys, c_fin
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dys, dc_fin):
-        # An output the caller never used (LOGO ignores c_fin) arrives as
-        # zeros: autograd materialises undefined gradients by default.
-        xg, w_hh, ys, cs = ctx.saved_tensors
-        dxg, dw = ctx.op.backward(xg, w_hh, ys, cs, dys.contiguous(),
-                                  dc_fin.contiguous())
-        _, need_xg, need_w = ctx.needs_input_grad
-        return None, dxg if need_xg else None, dw if need_w else None
+@_op.register_kernel("cuda")
+def _op_cuda(xg: torch.Tensor, w_hh: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    _check(xg, w_hh)
+    return lstm_recurrence.forward(xg, w_hh)
+
+
+@_op.register_fake
+def _op_fake(xg: torch.Tensor, w_hh: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    _check(xg, w_hh)
+    t, _, b, _ = xg.shape
+    ys = xg.new_empty((t, 2, b, w_hh.shape[1]))
+    return ys, torch.empty_like(ys), xg.new_empty((2, b, w_hh.shape[1]))
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    ys, cs, _ = output
+    ctx.mark_non_differentiable(cs)
+    ctx.save_for_backward(*inputs, ys, cs)
+
+
+def _backward(ctx, dys, _dcs, dc_fin):
+    # An output the caller never used (LOGO ignores c_fin) arrives as
+    # zeros: autograd materialises undefined gradients by default.
+    xg, w_hh, ys, cs = ctx.saved_tensors
+    dxg, dw = lstm_recurrence.backward(xg, w_hh, ys, cs, dys.contiguous(),
+                                       dc_fin.contiguous())
+    need_xg, need_w = ctx.needs_input_grad
+    return dxg if need_xg else None, dw if need_w else None
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 class FusedLstmRecurrence:
@@ -248,8 +277,9 @@ class FusedLstmRecurrence:
 
     def __call__(self, xg: torch.Tensor, w_hh: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        _check(xg, w_hh)
-        return _Recurrence.apply(self, xg, w_hh)
+        """``(ys, c_fin)``, differentiable in xg and w_hh."""
+        ys, _, c_fin = _op(xg, w_hh)
+        return ys, c_fin
 
     def _raise(self, lib, err: int, what: str, xg: torch.Tensor) -> None:
         t, _, b, g = xg.shape
@@ -260,11 +290,11 @@ class FusedLstmRecurrence:
 
     def forward(self, xg: torch.Tensor, w_hh: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """``(ys, cs, c_fin)`` without autograd: the kernel on CUDA, plain
-        on the CPU."""
-        if xg.device.type == "cpu":
-            ys, cs = lstm_trajectory_plain(xg, w_hh)
-            return ys, cs, cs[-1].clone()
+        """``(ys, cs, c_fin)`` by the kernel alone, on CUDA tensors that
+        :func:`_check` accepts: one launch, without autograd."""
+        if xg.device.type != "cuda":
+            raise ValueError(f"lstm_recurrence: the kernel runs on CUDA "
+                             f"tensors, got {xg.device}")
         self.load()
         t, _, b, g = xg.shape
         hid = g // 4
