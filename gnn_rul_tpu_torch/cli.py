@@ -6,11 +6,13 @@ The reference CLI's flags (main.py:8-39) and the JAX package's:
         --dataset_id FD001 --data_path Processed_dataset --num_runs 5
 
 Trains on the card (``--device cuda``, the default; it raises where CUDA is
-absent) or on the CPU (``--device cpu``). The ported methods are FC_STGNN,
-LOGO, STAGNN and STFA (``models.MODELS``); any other ``--GNN_method``
-raises. Flags
-that select what is not ported yet raise ``NotImplementedError``; the
-port's order of work is in ROADMAP.md.
+absent) or on the CPU (``--device cpu``); with ``--eval_torch_checkpoint
+PT`` it evaluates the weights of a ``checkpoint.pt`` (the port's or the
+reference's) on the test set instead of training. The ported methods are
+FC_STGNN, LOGO, HAGCN, RGCNU, STAGNN, STFA, GRU_CM and STGNN
+(``models.MODELS``); any other ``--GNN_method`` raises. Flags that select
+what is not ported yet raise ``NotImplementedError``; the port's order of
+work is in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import argparse
 
 from .data.loader import load_dataset, resolve_data_path
 from .export import resolve_device
+from .train.checkpoint import load_checkpoint
 from .train.trainer import Trainer
 
 
@@ -56,7 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="profiler trace of an epoch: not ported yet")
     p.add_argument("--eval_torch_checkpoint", default=None, metavar="PT",
-                   help="evaluate a reference checkpoint.pt: not ported yet")
+                   help="evaluate the weights of a checkpoint.pt (the "
+                        "port's or the reference's) on the test set instead "
+                        "of training")
     return p
 
 
@@ -68,7 +73,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         "--resume": args.resume,
         "--checkpoint_every": args.checkpoint_every > 0,
         "--profile": args.profile is not None,
-        "--eval_torch_checkpoint": args.eval_torch_checkpoint is not None,
         "--fused off": args.fused == "off",
     }
     for flag, asked in unported.items():
@@ -96,6 +100,9 @@ def main(argv=None):
         num_epochs_override=args.epochs or None,
         device=args.device,
     )
+    if args.eval_torch_checkpoint:
+        state_dict, _ = load_checkpoint(args.eval_torch_checkpoint)
+        return trainer.evaluate_only(state_dict)
     return trainer.train()
 
 

@@ -2,7 +2,8 @@
 
 The inverse of the JAX package's torch-reference import
 (``gnn_rul_tpu/compat/torch_import.py``: ``_map_fc_stgnn``, ``_map_logo``,
-``_map_stagnn``, ``_map_stfa``) for the ported methods: it takes the flax
+``_map_hagcn``, ``_map_rgcnu``, ``_map_stagnn``, ``_map_stfa``,
+``_map_gru_cm``, ``_map_stgnn``) for the ported methods: it takes the flax
 ``{"params", "batch_stats"}`` tree as numpy arrays and returns a
 ``state_dict`` under the original torch reference's keys, which the port's
 modules carry:
@@ -16,7 +17,11 @@ modules carry:
     ``running_mean/running_var``, with ``num_batches_tracked`` 0
   - LSTM ``w_ih (D, 4H)``, ``w_hh (H, 4H)``, ``b_ih``, ``b_hh`` ->
     ``weight_ih_l0 (4H, D)``, ``weight_hh_l0 (4H, H)``, ``bias_ih_l0``,
-    ``bias_hh_l0`` (``_reverse`` for the backward direction)
+    ``bias_hh_l0`` (``_reverse`` for the backward direction); a GRU's
+    ``(D, 3H)``, ``(H, 3H)`` alike
+  - a raw parameter (GIN's ``eps``, ChebNet's ``filters``) as it is, or
+    transposed (GRU_CM's ``edge_kernel (2f, out)`` -> the edge Linear's
+    ``weight (out, 2f)``), under the row's whole key
 """
 
 from __future__ import annotations
@@ -129,11 +134,64 @@ def _stfa_layout(params: Dict[str, Any]) -> Layout:
                    ("fc", "linear", ("fc", "Dense_0"))]
 
 
+def _hagcn_layout() -> Layout:
+    """``(torch prefix, kind, flax path)`` for every HAGCN layer."""
+    rows = []
+    for i in (1, 2, 3):
+        rows += [(f"TD.bi_lstm{i}", "lstm", ("TD", f"bi_lstm{i}_fwd")),
+                 (f"TD.bi_lstm{i}", "lstm_reverse", ("TD", f"bi_lstm{i}_bwd")),
+                 (f"gin{i}.eps", "param", (f"gin{i}", "eps")),
+                 (f"gin{i}.mlp.0", "linear", (f"gin{i}", "mlp0", "Dense_0")),
+                 (f"gin{i}.mlp.2", "linear", (f"gin{i}", "mlp1", "Dense_0"))]
+        rows += [(f"gnn{i}.{name}", "linear", (f"gnn{i}", name, "Dense_0"))
+                 for name in ("model", "rank")]
+        rows += [(f"gnn{i}.mlp.{2 * k}", "linear",
+                  (f"gnn{i}", f"mlp{k}", "Dense_0")) for k in (0, 1)]
+    return rows + [("fc.0", "linear", ("fc0", "Dense_0")),
+                   ("fc.2", "linear", ("fc1", "Dense_0"))]
+
+
+def _rgcnu_layout() -> Layout:
+    """``(torch prefix, kind, flax path)`` for every RGCNU layer;
+    ``fusion_cnn2`` is a bare flax ``nn.Conv``, with no ``Conv_0`` level."""
+    return [("adj.trainable_theta1", "linear", ("adj_theta1", "Dense_0")),
+            ("adj.trainable_theta2", "linear", ("adj_theta2", "Dense_0")),
+            ("scl.gcn1.linear", "linear", ("gcn1", "linear", "Dense_0")),
+            ("scl.gcn2.linear", "linear", ("gcn2", "linear", "Dense_0")),
+            ("scl.conv1d", "conv", ("scl_conv", "Conv_0")),
+            ("tdl.lstm", "lstm", ("tdl_lstm",)),
+            ("fusion.cnn1", "conv", ("fusion_cnn1", "Conv_0")),
+            ("fusion.cnn2", "conv", ("fusion_cnn2",)),
+            ("fusion.fc1", "linear", ("fusion_fc1", "Dense_0")),
+            ("fusion.fc2", "linear", ("fusion_fc2", "Dense_0"))]
+
+
+def _gru_cm_layout() -> Layout:
+    """``(torch prefix, kind, flax path)`` for every GRU_CM layer."""
+    return [("input_linear", "linear", ("input_linear", "Dense_0")),
+            ("gnn.edge_mlp.0.weight", "param_t", ("gnn", "edge_kernel")),
+            ("gnn.edge_mlp.0.bias", "param", ("gnn", "edge_bias")),
+            ("gnn.node_mlp.0", "linear", ("gnn", "node_mlp", "Dense_0")),
+            ("gru", "gru", ("gru",)),
+            ("output_linear", "linear", ("output_linear", "Dense_0"))]
+
+
+def _stgnn_layout() -> Layout:
+    """``(torch prefix, kind, flax path)`` for every STGNN layer."""
+    return [("chebnet.filters", "param", ("chebnet", "filters")),
+            ("gru", "gru", ("gru",)),
+            ("fc", "linear", ("fc", "Dense_0"))]
+
+
 # method -> its layout, from the flax params (STAGNN's and STFA's head
 # counts are read off the tree).
 _LAYOUTS = {"FC_STGNN": lambda params: _fc_stgnn_layout(),
             "LOGO": lambda params: _logo_layout(),
-            "STAGNN": _stagnn_layout, "STFA": _stfa_layout}
+            "HAGCN": lambda params: _hagcn_layout(),
+            "RGCNU": lambda params: _rgcnu_layout(),
+            "STAGNN": _stagnn_layout, "STFA": _stfa_layout,
+            "GRU_CM": lambda params: _gru_cm_layout(),
+            "STGNN": lambda params: _stgnn_layout()}
 
 
 def _get(tree: Dict[str, Any], path: Tuple[str, ...]) -> Dict[str, Any]:
@@ -160,12 +218,16 @@ def from_jax_variables(method: str,
     sd: Dict[str, torch.Tensor] = {}
     for prefix, kind, path in _LAYOUTS[method](params):
         p = _get(params, path)
-        if kind in ("lstm", "lstm_reverse"):
+        if kind in ("lstm", "lstm_reverse", "gru"):
             sfx = "_reverse" if kind == "lstm_reverse" else ""
             sd[f"{prefix}.weight_ih_l0{sfx}"] = _t(np.asarray(p["w_ih"]).T)
             sd[f"{prefix}.weight_hh_l0{sfx}"] = _t(np.asarray(p["w_hh"]).T)
             sd[f"{prefix}.bias_ih_l0{sfx}"] = _t(p["b_ih"])
             sd[f"{prefix}.bias_hh_l0{sfx}"] = _t(p["b_hh"])
+        elif kind == "param":
+            sd[prefix] = _t(p)
+        elif kind == "param_t":
+            sd[prefix] = _t(np.asarray(p).T)
         elif kind == "linear":
             sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
             sd[f"{prefix}.bias"] = _t(p["bias"])

@@ -13,7 +13,7 @@ the hparam bank; :func:`save_artifact` writes it with its ``meta`` and
 :func:`load_artifact` reads it back as an :class:`ArtifactServingModel`.
 The program calls the port's kernels as the registered operators
 ``gnn_rul_tpu_torch::fused_dot_graph_spmm`` (FC_STGNN),
-``::lstm_recurrence`` (LOGO) and ``::fused_gat`` (STAGNN, STFA), whose
+``::lstm_recurrence`` (LOGO, HAGCN) and ``::fused_gat`` (STAGNN, STFA), whose
 implementation PyTorch's dispatcher picks when the program runs: the
 hand-written kernel on the card, the plain version on the CPU. So an
 artifact exported on the CPU and loaded with ``device="cuda"`` launches
@@ -39,12 +39,15 @@ CLI, from a ``checkpoint.pt`` of the port or of the reference:
         --GNN_method FC_STGNN --dataset CMAPSS --dataset_id FD001 \\
         --out fc_stgnn_fd001.pt2 [--batch_size 0] [--device cuda]
 
-The ported methods are ``models.MODELS``: FC_STGNN, LOGO, STAGNN and STFA.
-LOGO's recurrence runs along the batch axis, so its answer for a row
-depends on the other rows of the forward, padding rows included. STAGNN's
-adjacency is ``cov > 0`` per window, a step function: a covariance within
-rounding of 0 can give another graph, and so another answer, on the card
-than on the CPU.
+The ported methods are ``models.MODELS``: FC_STGNN, LOGO, HAGCN, RGCNU,
+STAGNN, STFA, GRU_CM and STGNN. LOGO's recurrence runs along the batch
+axis and HAGCN's along the batch times the nodes, so the answer of either
+for a row depends on the other rows of the forward, padding rows included.
+STAGNN's adjacency is ``cov > 0`` per window, HAGCN's pooling keeps the
+nodes of top score and STGNN's graph the top similarities of each row:
+step functions, so a covariance within rounding of 0, or a score within
+rounding of the last one kept, can give another graph, and so another
+answer, on the card than on the CPU.
 
 Both run in ``eval()`` under ``torch.inference_mode()``, on the card by
 default.
@@ -69,7 +72,7 @@ from .configs.data_configs import get_dataset_config
 # operators that a loaded program calls (and build nothing before the
 # first launch).
 from .models import MODELS
-from .nn.tcn import TemporalConvNet
+from .train.checkpoint import load_checkpoint, load_model_dict
 
 ARTIFACT_FORMAT = "gnn_rul_tpu_torch.artifact.v1"
 _META_FILE = "meta.json"  # the artifact's extra file that holds ``meta``
@@ -98,33 +101,6 @@ def build_model(method: str, dataset: str, dataset_id: Optional[str],
             "ROADMAP.md")
     return MODELS[method](**(model_hparams or hparams_bank.model_hparams(
         dataset, dataset_id, method)))
-
-
-def _model_keys(state_dict: Mapping[str, Any],
-                model: nn.Module) -> Dict[str, Any]:
-    # A reference checkpoint's model_dict may be the algorithm's state_dict,
-    # whose model keys carry a "model." prefix.
-    if any(k.startswith("model.") for k in state_dict):
-        keys = {k[len("model."):]: v for k, v in state_dict.items()
-                if k.startswith("model.")}
-    else:
-        keys = dict(state_dict)
-    # The reference's TemporalConvNet builds weight-normed net0/net1
-    # submodules that its forward never calls; their keys are dropped, and
-    # only theirs, so that any other unexpected key still fails the strict
-    # load (as the JAX importer reads only the keys it names).
-    dead = tuple(f"{name}.{sub}." for name, m in model.named_modules()
-                 if isinstance(m, TemporalConvNet) for sub in ("net0", "net1"))
-    return {k: v for k, v in keys.items() if not k.startswith(dead)}
-
-
-def _loaded_model(method: str, dataset: str, dataset_id: Optional[str],
-                  state_dict: Mapping[str, Any], dev: torch.device,
-                  model_hparams: Optional[Mapping[str, Any]] = None
-                  ) -> nn.Module:
-    model = build_model(method, dataset, dataset_id, model_hparams)
-    model.load_state_dict(_model_keys(state_dict, model), strict=True)
-    return model.eval().to(dev)
 
 
 def _check_batch_size(batch_size: Optional[int]) -> None:
@@ -164,14 +140,21 @@ class ServingModel:
         return torch.cat(outs).cpu().numpy()
 
 
-def _flatten_lstm_weights(module: nn.Module) -> None:
-    """Put the weights of each ``aten.lstm`` call of an unlifted program in
-    one cuDNN buffer, as ``nn.LSTM.flatten_parameters`` does for the live
-    model. The program holds them as separate tensors, and cuDNN would copy
-    them into a buffer at every call (and warn each time). A no-op for
-    weights that cuDNN does not take (on the CPU)."""
+# The cuDNN RNN calls whose weights an exported program holds apart.
+_CUDNN_RNN_MODES = {torch.ops.aten.lstm.input: "LSTM",
+                    torch.ops.aten.gru.input: "GRU"}
+
+
+def _flatten_rnn_weights(module: nn.Module) -> None:
+    """Put the weights of each ``aten.lstm`` and ``aten.gru`` call of an
+    unlifted program in one cuDNN buffer, as ``flatten_parameters`` does
+    for the live ``nn.LSTM`` or ``nn.GRU``. The program holds them as
+    separate tensors, and cuDNN would copy them into a buffer at every call
+    (and warn each time). A no-op for weights that cuDNN does not take (on
+    the CPU)."""
     for node in module.graph.nodes:
-        if node.target is not torch.ops.aten.lstm.input:
+        mode = _CUDNN_RNN_MODES.get(node.target)
+        if mode is None:
             continue
         (_, _, params, has_biases, num_layers, _, _, bidirectional,
          batch_first) = node.args
@@ -184,7 +167,7 @@ def _flatten_lstm_weights(module: nn.Module) -> None:
         with torch.no_grad():  # rebinds the weights to views of the buffer
             torch._cudnn_rnn_flatten_weight(
                 weights, 4 if has_biases else 2, weights[0].shape[1],
-                cudnn_rnn.get_cudnn_mode("LSTM"),
+                cudnn_rnn.get_cudnn_mode(mode),
                 weights[1].shape[1], 0, num_layers, batch_first,
                 bidirectional)
 
@@ -196,7 +179,7 @@ class ArtifactServingModel(ServingModel):
     def __init__(self, program: torch.export.ExportedProgram,
                  meta: Dict[str, Any], device: torch.device):
         module = program.module()
-        _flatten_lstm_weights(module)
+        _flatten_rnn_weights(module)
         super().__init__(module, meta, device)
         self.program = program
 
@@ -214,7 +197,8 @@ def serving_model(method: str, dataset: str, dataset_id: Optional[str],
     _check_batch_size(batch_size)
     dev = resolve_device(device)
     cfg = get_dataset_config(dataset)
-    model = _loaded_model(method, dataset, dataset_id, state_dict, dev)
+    model = load_model_dict(build_model(method, dataset, dataset_id),
+                            state_dict).eval().to(dev)
     meta = {
         "format": "gnn_rul_tpu_torch.serving.v1",
         "method": method,
@@ -278,8 +262,9 @@ def export_serving(method: str, dataset: str, dataset_id: Optional[str],
     dev = resolve_device(device)
     cfg = get_dataset_config(dataset)
     length = int(seq_len or cfg.sequence_len)
-    model = _loaded_model(method, dataset, dataset_id, state_dict,
-                          torch.device("cpu"), model_hparams)
+    model = load_model_dict(
+        build_model(method, dataset, dataset_id, model_hparams),
+        state_dict).eval()
     # A symbolic batch is traced at 2 rows: an example of 1 row would let
     # the tracer take the batch for the constant 1.
     example = torch.zeros((batch_size or 2, cfg.input_channels, length))
@@ -358,22 +343,6 @@ def load_artifact(path: str, device: str = "cuda") -> ArtifactServingModel:
     return ArtifactServingModel(program, meta, dev)
 
 
-def _load_checkpoint(path: str) -> Tuple[Dict[str, Any], Optional[Dict]]:
-    """``(state_dict, model_hparams or None)`` from a ``checkpoint.pt``
-    of the port (``train/checkpoint.py``) or of the reference, which share
-    one layout; a bare state_dict is taken as it is."""
-    if path.endswith(".pkl"):
-        raise ValueError(
-            f"{path}: the port does not read the JAX package's "
-            "checkpoint.pkl; convert its variables with "
-            "gnn_rul_tpu_torch.compat.from_jax_variables and pass the "
-            "state_dict to export_serving (ROADMAP.md)")
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    if "model_dict" not in payload:
-        return payload, None
-    return payload["model_dict"], payload.get("hparams")
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Export a trained model as a serving artifact")
@@ -400,7 +369,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> Dict[str, Any]:
     args = build_parser().parse_args(argv)
-    state_dict, ckpt_hparams = _load_checkpoint(args.checkpoint)
+    state_dict, ckpt_hparams = load_checkpoint(args.checkpoint)
     meta, program = export_serving(
         args.GNN_method, args.dataset, args.dataset_id, state_dict,
         batch_size=args.batch_size or None, seq_len=args.seq_len or None,

@@ -2,8 +2,14 @@
 class; the serving entry point and the algorithm registry both read it."""
 
 from .fc_stgnn import FCSTGNN
+from .gru_cm import GRUCM
+from .hagcn import HAGCN
 from .logo import LOGO
+from .rgcnu import RGCNU
 from .stagnn import STAGNN
 from .stfa import STFA
+from .stgnn import STGNN
 
-MODELS = {"FC_STGNN": FCSTGNN, "LOGO": LOGO, "STAGNN": STAGNN, "STFA": STFA}
+MODELS = {"FC_STGNN": FCSTGNN, "LOGO": LOGO, "HAGCN": HAGCN,
+          "RGCNU": RGCNU, "STAGNN": STAGNN, "STFA": STFA, "GRU_CM": GRUCM,
+          "STGNN": STGNN}

@@ -1,5 +1,6 @@
 """Graph-NN blocks shared across models (counterpart of
-``gnn_rul_tpu/nn/gnn_blocks.py``; only what LOGO and STAGNN need so far)."""
+``gnn_rul_tpu/nn/gnn_blocks.py``; the ``spmm_fn`` hook of ``MPNNmk`` comes
+with ``parallel/graph_partition.py``, ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ import torch
 from torch import nn
 
 from ..ops.graphs import leaky_relu
-from ..ops.message_passing import khop_aggregate, spmm
+from ..ops.message_passing import chebyshev_terms, khop_aggregate, spmm
 
 
 class MPNNmk(nn.Module):
@@ -29,12 +30,18 @@ class MPNNmk(nn.Module):
 
 class GCNLayer(nn.Module):
     """Symmetric-normalized GCN with self-loops,
-    ``leaky_relu(linear(D^-1/2 (A+I) D^-1/2 X))`` (reference
-    models/STAGNN/Model.py:8-22); the Linear is ``linear``. The JAX layer's
-    ReLU variant (RGCNU) is not ported yet."""
+    ``act(linear(D^-1/2 (A+I) D^-1/2 X))`` (reference models/STAGNN/Model.py:
+    8-22; RGCNU's takes ``activation="none"`` and applies its ReLU after);
+    the Linear is ``linear``. ``activation``: ``"leaky_relu"`` (slope 0.01),
+    ``"relu"`` or ``"none"``."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int,
+                 activation: str = "leaky_relu"):
         super().__init__()
+        if activation not in ("leaky_relu", "relu", "none"):
+            raise ValueError(f"GCNLayer: activation must be 'leaky_relu', "
+                             f"'relu' or 'none', got {activation!r}")
+        self.activation = activation
         self.linear = nn.Linear(in_features, out_features)
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
@@ -42,4 +49,28 @@ class GCNLayer(nn.Module):
         a = adj + torch.eye(n, dtype=adj.dtype, device=adj.device)
         d_inv_sqrt = a.sum(dim=-1) ** -0.5
         a_hat = a * d_inv_sqrt[..., :, None] * d_inv_sqrt[..., None, :]
-        return leaky_relu(self.linear(spmm(a_hat, x)))
+        out = self.linear(spmm(a_hat, x))
+        if self.activation == "leaky_relu":
+            return leaky_relu(out)
+        if self.activation == "relu":
+            return torch.relu(out)
+        return out
+
+
+class ChebNet(nn.Module):
+    """Chebyshev graph convolution ``sum_k T_k(A) X W_k`` (reference
+    models/ASTGCNN/Model.py:198-230, models/STGNN/Model.py:29-61). The
+    weights are ``filters (K, in, out)``, initialised by
+    ``nn.init.xavier_uniform_`` on the 3-D tensor: fan_in = in*out and
+    fan_out = K*out, as the JAX ``_xavier_uniform_3d`` draws them."""
+
+    def __init__(self, in_channels: int, out_channels: int, K: int):
+        super().__init__()
+        self.K = K
+        self.filters = nn.Parameter(torch.empty(K, in_channels, out_channels))
+        nn.init.xavier_uniform_(self.filters)
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        terms = chebyshev_terms(adj, x, self.K)
+        return sum(torch.matmul(t, self.filters[i])
+                   for i, t in enumerate(terms))

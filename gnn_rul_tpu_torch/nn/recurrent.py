@@ -1,8 +1,9 @@
-"""LSTM layers (counterpart of ``gnn_rul_tpu/nn/recurrent.py``; only what
-LOGO and STFA need so far).
+"""Recurrent layers (counterpart of ``gnn_rul_tpu/nn/recurrent.py``).
 
-Gates in torch's order [i, f, g, o]; weights U(-1/sqrt(H), 1/sqrt(H)), as
-``torch.nn.LSTM`` initialises them. Input ``(B, T, D)`` (batch_first).
+Gates in torch's order, [i, f, g, o] for the LSTM and [r, z, n] for the
+GRU, whose ``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))``; weights
+U(-1/sqrt(H), 1/sqrt(H)), as ``torch.nn.LSTM`` and ``torch.nn.GRU``
+initialise them. Input ``(B, T, D)`` (batch_first).
 
 :func:`bilstm_fused` projects the input of both directions with one plain
 product each and runs the whole recurrence of both directions through
@@ -11,10 +12,13 @@ and their plain versions on the CPU. The JAX package's scan, its unroll
 policy and its scan/Pallas dispatch are XLA and TPU scheduling facts and
 have no counterpart here.
 
-:class:`LSTMLayer`, the single-direction layer, is ``torch.nn.LSTM``: its
-JAX counterpart is a ``lax.scan`` that reaches no Pallas kernel, so no
-kernel of the port replaces it. ``LSTM``, ``GRULayer`` and ``GRU`` are not
-ported yet (ROADMAP.md).
+:class:`LSTMLayer` and :class:`GRULayer`, the single-direction layers, are
+``torch.nn.LSTM`` and ``torch.nn.GRU``: their JAX counterparts are
+``lax.scan`` loops that reach no Pallas kernel, so no kernel of the port
+replaces them. The multi-layer :class:`LSTM` runs a bidirectional layer
+through :func:`bilstm_fused` (the kernels), as the JAX ``LSTM`` runs it
+through its fused path, and a unidirectional one through cuDNN;
+:class:`GRU` is ``torch.nn.GRU``.
 """
 
 from __future__ import annotations
@@ -101,3 +105,65 @@ class LSTMLayer(nn.LSTM):
     def forward(self, x: torch.Tensor):
         ys, (h, c) = super().forward(x)
         return ys, (h[0], c[0])
+
+
+class LSTM(nn.LSTM):
+    """``torch.nn.LSTM(batch_first=True)``, multi-layer and optionally
+    bidirectional (each layer's two directions concatenated on the feature
+    axis), under its own parameter names (``weight_ih_l{k}`` ...,
+    ``_reverse`` for the backward direction). Returns ``ys`` and ``(h_n,
+    c_n)``, each ``(layers * directions, B, H)`` in torch's order, from zero
+    initial states: the contract of the JAX ``LSTM``. A bidirectional layer
+    runs through :func:`bilstm_fused`, so through the recurrence kernels on
+    the card; a unidirectional one through ``torch.nn.LSTM``."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
+                 bidirectional: bool = False):
+        super().__init__(input_size, hidden_size, num_layers=num_layers,
+                         batch_first=True, bidirectional=bidirectional)
+
+    def _direction(self, layer: int, reverse: bool) -> Params:
+        sfx = f"_l{layer}" + ("_reverse" if reverse else "")
+        return (getattr(self, "weight_ih" + sfx).t(),
+                getattr(self, "weight_hh" + sfx).t(),
+                getattr(self, "bias_ih" + sfx),
+                getattr(self, "bias_hh" + sfx))
+
+    def forward(self, x: torch.Tensor):
+        if not self.bidirectional:
+            return super().forward(x)
+        h_last, c_last = [], []
+        for layer in range(self.num_layers):
+            fwd, bwd, ((hf, cf), (hb, cb)) = bilstm_fused(
+                x, self._direction(layer, False), self._direction(layer, True))
+            x = torch.cat([fwd, bwd], dim=-1)
+            h_last += [hf, hb]
+            c_last += [cf, cb]
+        return x, (torch.stack(h_last), torch.stack(c_last))
+
+
+class GRULayer(nn.GRU):
+    """Single-direction, single-layer GRU over ``x (B, T, D)``: returns
+    ``ys (B, T, H)`` and ``h_n (B, H)`` from a zero initial state, the
+    contract of the JAX ``GRULayer``. It is ``torch.nn.GRU(batch_first=
+    True)`` under its own parameter names (``weight_ih_l0 (3H, D)`` ...),
+    the reference's keys; torch's gates [r, z, n] with ``b_hn`` inside
+    ``r * (...)`` are the JAX step's."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__(input_size, hidden_size, batch_first=True)
+
+    def forward(self, x: torch.Tensor):
+        ys, h = super().forward(x)
+        return ys, h[0]
+
+
+class GRU(nn.GRU):
+    """``torch.nn.GRU(batch_first=True)``, multi-layer: returns ``ys`` and
+    ``h_n (layers, B, H)`` from a zero initial state, the contract of the
+    JAX ``GRU``."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 num_layers: int = 1):
+        super().__init__(input_size, hidden_size, num_layers=num_layers,
+                         batch_first=True)

@@ -16,8 +16,8 @@ picks by the device of the tensors when the call runs: on the CPU the time
 loop :func:`lstm_trajectory_plain`, on CUDA the kernel in
 ``gnn_rul_tpu_torch/csrc/fused_lstm.cu``; on any other device it raises. A
 shape-only fake implementation lets ``torch.export`` trace the operator
-with T symbolic (LOGO's T is the request's batch), where the plain time
-loop would pin T. The operator's autograd formula saves xg, w_hh, ys and
+with T symbolic (LOGO's T is the request's batch, HAGCN's 14 times it),
+where the plain time loop would pin T. The operator's autograd formula saves xg, w_hh, ys and
 the whole c trajectory cs, as the JAX ``_fwd`` does, and returns dxg and
 dw_hh; cs is an output for the backward's sake and carries no gradient,
 and the cotangent of an output the caller never used (LOGO never reads
@@ -155,7 +155,7 @@ def _check(xg: torch.Tensor, w_hh: torch.Tensor, **extra: torch.Tensor
         raise ValueError(f"lstm_recurrence: w_hh {tuple(w_hh.shape)} does not "
                          f"match xg {tuple(xg.shape)}")
     # Each size on its own: min() would compare a symbolic T (an exported
-    # LOGO's batch) with B and H, and pin it.
+    # LOGO's batch, HAGCN's 14 times it) with B and H, and pin it.
     if t == 0 or b == 0 or hid == 0:
         raise ValueError("lstm_recurrence: T, B and H must be nonzero")
     if hid > MAX_HIDDEN:

@@ -5,17 +5,21 @@ The payload is ``{"hparams", "train_params", "model_dict", "optimizer",
 reference's keys, so ``gnn_rul_tpu_torch.export.serving_model`` loads it and
 so does the JAX package's ``import_torch_checkpoint``. The file is written
 to a temporary name and renamed, so a crash mid-write leaves no partial
-checkpoint. Periodic asynchronous checkpoints and resume are not ported yet
-(ROADMAP.md).
+checkpoint. :func:`load_checkpoint` reads a checkpoint of the port or of
+the reference, and :func:`load_model_dict` loads its ``model_dict`` into
+a model, the keys as either writes them. Periodic asynchronous checkpoints
+and resume are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+
+from ..nn.tcn import TemporalConvNet
 
 
 def _to_cpu(obj):
@@ -45,3 +49,41 @@ def save_checkpoint(path: str, model: nn.Module,
     torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Optional[Dict]]:
+    """``(state_dict, model_hparams or None)`` from a ``checkpoint.pt``
+    of the port (:func:`save_checkpoint`) or of the reference, which share
+    one layout; a bare state_dict is taken as it is."""
+    if path.endswith(".pkl"):
+        raise ValueError(
+            f"{path}: the port does not read the JAX package's "
+            "checkpoint.pkl; convert its variables with "
+            "gnn_rul_tpu_torch.compat.from_jax_variables and pass the "
+            "state_dict to export_serving (ROADMAP.md)")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if "model_dict" not in payload:
+        return payload, None
+    return payload["model_dict"], payload.get("hparams")
+
+
+def load_model_dict(model: nn.Module,
+                    state_dict: Mapping[str, Any]) -> nn.Module:
+    """Loads ``state_dict`` (the reference's keys) into ``model`` strictly
+    and returns the model."""
+    # A reference checkpoint's model_dict may be the algorithm's state_dict,
+    # whose model keys carry a "model." prefix.
+    if any(k.startswith("model.") for k in state_dict):
+        keys = {k[len("model."):]: v for k, v in state_dict.items()
+                if k.startswith("model.")}
+    else:
+        keys = dict(state_dict)
+    # The reference's TemporalConvNet builds weight-normed net0/net1
+    # submodules that its forward never calls; their keys are dropped, and
+    # only theirs, so that any other unexpected key still fails the strict
+    # load (as the JAX importer reads only the keys it names).
+    dead = tuple(f"{name}.{sub}." for name, m in model.named_modules()
+                 if isinstance(m, TemporalConvNet) for sub in ("net0", "net1"))
+    model.load_state_dict({k: v for k, v in keys.items()
+                           if not k.startswith(dead)}, strict=True)
+    return model

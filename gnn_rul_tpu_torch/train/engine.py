@@ -113,9 +113,9 @@ class Engine:
         padding's predictions are dropped, as the JAX engine does. The
         padding leaves the real rows' answers unchanged only in a model
         without a recurrence along the batch axis (running BN statistics,
-        no dropout): LOGO's Bi-LSTM runs over the rows of the batch, so its
-        backward direction carries the padding rows into the real rows'
-        answers."""
+        no dropout): LOGO's and HAGCN's Bi-LSTMs run over the rows of the
+        batch, so their backward direction carries the padding rows into
+        the real rows' answers."""
         n = x_test.shape[0]
         ebs = min(self.eval_batch_size, n)
         n_batches = -(-n // ebs)

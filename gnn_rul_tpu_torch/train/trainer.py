@@ -8,7 +8,9 @@ The reference's GNN_RUL_trainer contract (trainer.py:25-262):
   - per run directory: ``results.csv`` (every best row so far, rewritten
     each epoch), ``results.npz`` (the best predictions), ``logs_run_{id}.log``
     and a final ``checkpoint.pt``; dict test sets (N-CMAPSS per unit,
-    PHM2012 per bearing) give artifacts per key.
+    PHM2012 per bearing) give artifacts per key;
+  - :meth:`Trainer.evaluate_only` evaluates given weights on the test set
+    alone and writes the same artifacts under ``<method>_eval``.
 
 Runs on ``device="cuda"`` unless told ``device="cpu"``, and raises where
 CUDA is absent. Periodic checkpoints, resume, seed-parallel runs, meshes,
@@ -32,7 +34,7 @@ from ..configs.data_configs import get_dataset_config
 from ..data.loader import DataBundle
 from ..export import resolve_device
 from .algorithms import get_algorithm_spec
-from .checkpoint import save_checkpoint
+from .checkpoint import load_model_dict, save_checkpoint
 from .engine import Engine
 from .metrics import calc_metrics
 
@@ -137,6 +139,25 @@ class Trainer:
             tag = f" {key}," if key is not None else ","
             logger.debug(f"Testing{tag} Score_v1: {b[0]}, Score_v2: {b[1]}, "
                          f"MAE: {b[2]}, RMSE: {b[3]}")
+
+    def evaluate_only(self, state_dict: Dict[str, Any]) -> Dict:
+        """Evaluate ``state_dict`` (the reference's keys, as a port or
+        reference ``checkpoint.pt``'s ``model_dict`` holds them, with or
+        without the ``model.`` prefix; loaded strictly) on the test set, at
+        the trainer's hparams and eval batch. Writes ``results.csv``,
+        ``results.npz`` and the log under ``<method>_eval`` and returns
+        ``{key_or_None: (Score_v1, Score_v2, MAE, RMSE)}``, as the JAX
+        ``Trainer.evaluate_only`` does."""
+        run_dir = os.path.join(self.exp_log_dir, f"{self.method}_eval")
+        logger = _make_logger(run_dir, 0)
+        model = load_model_dict(self.spec.model_cls(**self.model_hparams),
+                                state_dict).eval().to(self.device)
+        engine = Engine(model, self.spec, self.train_params, seed=0,
+                        device=str(self.device))
+        keys = list(self.data.test) if self.data.is_dict_test else [None]
+        trackers = {k: BestTracker(run_dir, key=k) for k in keys}
+        self._evaluate_and_track(engine, trackers, logger)
+        return {k: t.best for k, t in trackers.items()}
 
     def train(self) -> Dict[int, Dict]:
         """Run every seed; returns ``{run_id: {key_or_None: best 4-tuple}}``."""

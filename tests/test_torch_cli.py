@@ -10,12 +10,18 @@ import numpy as np
 import pytest
 import torch
 
+from gnn_rul_tpu import cli as jax_cli
 from gnn_rul_tpu.compat import import_torch_checkpoint
 from gnn_rul_tpu.models.fc_stgnn import FCSTGNN as JaxFCSTGNN
 from gnn_rul_tpu_torch import cli
 from gnn_rul_tpu_torch.configs import hparams as bank
 from gnn_rul_tpu_torch.data.io import save_processed
-from gnn_rul_tpu_torch.export import serving_model
+from gnn_rul_tpu_torch.data.loader import load_dataset
+from gnn_rul_tpu_torch.export import build_model, serving_model
+from gnn_rul_tpu_torch.train.algorithms import get_algorithm_spec
+from gnn_rul_tpu_torch.train.checkpoint import save_checkpoint
+from gnn_rul_tpu_torch.train.engine import Engine
+from gnn_rul_tpu_torch.train.metrics import calc_metrics
 
 torch.set_num_threads(1)
 
@@ -84,8 +90,88 @@ def test_cli_raises_without_cuda(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags", [
     ["--mesh", "data=2,model=1"], ["--precision", "bf16"],
     ["--vectorized_runs"], ["--resume"], ["--checkpoint_every", "5"],
-    ["--profile", "trace"], ["--eval_torch_checkpoint", "checkpoint.pt"],
-    ["--fused", "off"]])
+    ["--profile", "trace"], ["--fused", "off"]])
 def test_unported_flags_raise_naming_roadmap(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(["--device", "cpu", "--data_path", str(tmp_path)] + flags)
+
+
+def _seeded_checkpoint(path, method, seed=0):
+    """A port checkpoint.pt of ``method``/FD001 with seeded weights, as the
+    trainer writes it."""
+    torch.manual_seed(seed)
+    model = build_model(method, "CMAPSS", "FD001")
+    save_checkpoint(path, model, torch.optim.Adam(model.parameters()),
+                    epoch=1, run_id=0,
+                    hparams=bank.model_hparams("CMAPSS", "FD001", method),
+                    train_params=bank.train_params("CMAPSS", "FD001", method))
+    return model
+
+
+def _eval_args(data_root, save_dir, method, checkpoint):
+    return ["--GNN_method", method, "--dataset", "CMAPSS", "--dataset_id",
+            "FD001", "--data_path", data_root, "--save_dir", save_dir,
+            "--eval_torch_checkpoint", checkpoint]
+
+
+@pytest.mark.parametrize("layout", ["checkpoint", "model_prefixed",
+                                    "state_dict"])
+def test_cli_eval_torch_checkpoint_evaluates_the_weights(tmp_path, layout):
+    """--eval_torch_checkpoint on a port checkpoint.pt, on a model_dict
+    whose keys carry the algorithm's "model." prefix, and on a bare
+    state_dict: the test set's metrics of those weights, written under
+    <method>_eval, and no training run."""
+    root = str(tmp_path)
+    data_root = _write_fd001(root)
+    path = os.path.join(root, "checkpoint.pt")
+    model = _seeded_checkpoint(path, "STGNN")
+    if layout != "checkpoint":
+        sd = model.state_dict()
+        if layout == "model_prefixed":
+            torch.save({"model_dict": {f"model.{k}": v
+                                       for k, v in sd.items()}}, path)
+        else:
+            torch.save(sd, path)
+    save_dir = os.path.join(root, "logs")
+    results = cli.main(_eval_args(data_root, save_dir, "STGNN", path)
+                       + ["--device", "cpu"])
+
+    data = load_dataset(os.path.join(data_root, "CMAPSS", "FD001"))
+    engine = Engine(model, get_algorithm_spec("STGNN"),
+                    bank.train_params("CMAPSS", "FD001", "STGNN"),
+                    device="cpu")
+    tx, ty = data.test
+    want = calc_metrics(engine.evaluate(tx), ty.reshape(-1), data.max_ruls)
+    np.testing.assert_allclose(results[None], want, rtol=1e-6)
+    run_dir = os.path.join(save_dir, "GNN_RUL", "run_1")
+    assert os.listdir(run_dir) == ["STGNN_eval"]
+    with open(os.path.join(run_dir, "STGNN_eval", "results.csv")) as f:
+        rows = list(csv.reader(f))
+    assert rows[0] == ["Score_v1", "Score_v2", "MAE", "RMSE"]
+    np.testing.assert_allclose([float(v) for v in rows[1]], want, rtol=1e-6)
+    npz = np.load(os.path.join(run_dir, "STGNN_eval", "results.npz"))
+    assert npz["pre"].shape == (10,)
+
+
+@pytest.mark.parametrize("method", ["GRU_CM", "HAGCN"])
+def test_eval_torch_checkpoint_matches_jax_evaluate_only(tmp_path, method):
+    """The port's --eval_torch_checkpoint and the JAX package's (its
+    Trainer.evaluate_only on import_torch_checkpoint) on the same port
+    checkpoint.pt and test set: the predictions in results.npz at the
+    forward's parity tolerance, the metrics at its rtol (Score_v1 is
+    exponential in the error, 1e31 for these untrained weights on random
+    windows)."""
+    root = str(tmp_path)
+    data_root = _write_fd001(root)
+    path = os.path.join(root, "checkpoint.pt")
+    _seeded_checkpoint(path, method, seed=1)
+    got = cli.main(_eval_args(data_root, os.path.join(root, "port"), method,
+                              path) + ["--device", "cpu"])
+    want = jax_cli.main(_eval_args(data_root, os.path.join(root, "jax"),
+                                   method, path))
+    assert set(got) == set(want) == {None}
+    preds = [np.load(os.path.join(root, side, "GNN_RUL", "run_1",
+                                  f"{method}_eval", "results.npz"))["pre"]
+             for side in ("port", "jax")]
+    np.testing.assert_allclose(*preds, atol=2e-4, rtol=1e-4)
+    np.testing.assert_allclose(got[None], want[None], rtol=1e-4)

@@ -360,3 +360,99 @@ def test_cuda_forward_each_side_of_its_threshold(d, f, b, side):
     want = fused_dot_graph_spmm_plain(h, x, mask)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("eps", [1e-8, 1e-12])
+def test_cosine_graph_matches_jax(eps):
+    """Each norm clamped at eps (a zero row gives zeros, not nan)."""
+    x = np.random.default_rng(20).normal(size=(3, 14, 60)).astype(np.float32)
+    x[1, 4] = 0.0
+    got = graphs.cosine_graph(torch.from_numpy(x), eps=eps)
+    want = jgraphs.cosine_graph(jnp.asarray(x), eps=eps)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-6, rtol=1e-5)
+
+
+def test_pairwise_sq_dists_matches_jax_and_clips_at_zero():
+    x = np.random.default_rng(21).normal(size=(4, 14, 50)).astype(np.float32)
+    x[0, 3] = x[0, 5]  # a pair at distance 0: the expansion rounds near 0
+    got = graphs.pairwise_sq_dists(torch.from_numpy(x))
+    want = jgraphs.pairwise_sq_dists(jnp.asarray(x))
+    assert (got >= 0).all()
+    np.testing.assert_allclose(_np(got), _np(want), atol=5e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("k", [1, 10, 14])
+def test_topk_mask_matches_jax(k):
+    s = np.random.default_rng(22).uniform(size=(5, 14, 14)).astype(
+        np.float32)
+    got = graphs.topk_mask(torch.from_numpy(s), k)
+    np.testing.assert_array_equal(_np(got), _np(jgraphs.topk_mask(
+        jnp.asarray(s), k)))
+    assert (_np(got).sum(axis=-1) == k).all()  # distinct scores: k a row
+
+
+def test_topk_mask_keeps_every_entry_tied_with_the_kth():
+    """Ties at the threshold keep every tied entry, in both packages: a
+    row of 0 scores (STGNN's underflowed similarities) keeps all 14."""
+    s = np.zeros((2, 14, 14), np.float32)
+    s[0, :, :3] = 1.0
+    s[0, :, 3:6] = 0.5    # k = 4: three at 1.0, then three tied at 0.5
+    got = _np(graphs.topk_mask(torch.from_numpy(s), 4))
+    np.testing.assert_array_equal(got, _np(jgraphs.topk_mask(
+        jnp.asarray(s), 4)))
+    assert (got[0].sum(axis=-1) == 6).all() and (got[1] == 1).all()
+
+
+def test_top_indices_tie_order_matches_jax_lax_top_k():
+    """On tied scores the port's selection (SAGPool's) returns the lower
+    index first, as jax.lax.top_k does, so both packages keep the same
+    nodes; torch.topk keeps the same values but, on the CPU, other indices
+    among ties (ROADMAP.md, Queue 3)."""
+    rng = np.random.default_rng(23)
+    s = rng.integers(0, 3, size=(50, 14)).astype(np.float32)  # many ties
+    for k in (1, 5, 10, 14):
+        got = graphs.top_indices(torch.from_numpy(s), k)
+        want_v, want_i = jax.lax.top_k(jnp.asarray(s), k)
+        np.testing.assert_array_equal(_np(got), _np(want_i))
+        np.testing.assert_array_equal(
+            _np(torch.topk(torch.from_numpy(s), k, dim=1).values),
+            _np(want_v))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_chebyshev_terms_match_jax(k):
+    rng = np.random.default_rng(24)
+    adj = rng.uniform(size=(3, 14, 14)).astype(np.float32) / 14
+    x = rng.normal(size=(3, 14, 8)).astype(np.float32)
+    got = message_passing.chebyshev_terms(torch.from_numpy(adj),
+                                          torch.from_numpy(x), k)
+    want = jmp.chebyshev_terms(jnp.asarray(adj), jnp.asarray(x), k)
+    assert len(got) == len(want) == k
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), atol=1e-6, rtol=1e-5)
+
+
+def test_chebnet_matches_jax_and_draws_xavier_over_k_in_out():
+    """ChebNet on the same filters, and its init bound: xavier_uniform_ on
+    (K, in, out) takes fan_in = in*out and fan_out = K*out, as the JAX
+    _xavier_uniform_3d does."""
+    from gnn_rul_tpu.nn.gnn_blocks import ChebNet as JaxChebNet
+    from gnn_rul_tpu_torch.nn.gnn_blocks import ChebNet
+
+    rng = np.random.default_rng(25)
+    adj = rng.uniform(size=(2, 14, 14)).astype(np.float32) / 14
+    x = rng.normal(size=(2, 14, 50)).astype(np.float32)
+    jnet = JaxChebNet(64, 3)
+    jvars = jnet.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(adj))
+    net = ChebNet(50, 64, 3)
+    bound = np.sqrt(6.0 / (50 * 64 + 3 * 64))
+    filters = _np(net.filters)
+    assert filters.shape == (3, 50, 64) and np.abs(filters).max() <= bound
+    assert np.abs(filters).max() > 0.95 * bound
+    assert np.abs(np.asarray(jvars["params"]["filters"])).max() <= bound
+    with torch.no_grad():
+        net.filters.copy_(torch.tensor(np.asarray(jvars["params"]["filters"])))
+        got = net(torch.from_numpy(x), torch.from_numpy(adj))
+    want = jnet.apply(jvars, jnp.asarray(x), jnp.asarray(adj))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
