@@ -27,12 +27,15 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    at STAGNN's and STFA's (B, N, D), both adjacency layouts, GAT_LSTM's D
    and GDAGDL's N, ragged shapes, and on each side of every point where
    its plan changes;
-4. serve: FC_STGNN, LOGO, STAGNN, STFA, HAGCN, RGCNU, GRU_CM and STGNN on
-   FD001, at full width with seeded weights through ``serving_model``;
-   every answer against the same weights on the CPU at the same batch, and
-   each path's kernel launches counted over that path's run alone (every
-   other wrapper's count must stay 0: RGCNU, GRU_CM and STGNN launch no
-   port kernel); for STAGNN, whose graph is ``cov > 0``, the smallest |cov|
+4. serve: FC_STGNN, LOGO, STAGNN, STFA, HAGCN, RGCNU, GRU_CM, STGNN,
+   DVGTformer, HierCorrPool, ASTGCNN and ST_Conv on FD001, at full width
+   with seeded weights through ``serving_model``; every answer against the
+   same weights on the CPU at the same batch, and each path's kernel
+   launches counted over that path's run alone (every other wrapper's count
+   must stay 0: the last seven launch no port kernel); then the tier
+   configurations, HierCorrPool at FD004's hparams and DVGTformer at
+   N-CMAPSS's (20 sensors), card against CPU at 100 and 1000 rows, no
+   launch; for STAGNN, whose graph is ``cov > 0``, the smallest |cov|
    and the adjacency entries that differ between card and CPU; for HAGCN
    and STGNN, which select by top-k, the CPU replays the card's selections
    and the smallest gap between the k-th and (k+1)-th score and the
@@ -50,9 +53,11 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    the CPU from the same weights on the same batches, dropout off; losses
    and parameters compared (where either misses, both sides against the
    same steps in fp64 on the CPU, the card to be within the same tolerance
-   of them and the closer), for HAGCN the gradient of each term of its
-   loss at the first step held card against CPU as each kernel is, the
-   forward and backward launches counted;
+   of them and the closer), for HAGCN and HierCorrPool the gradient of each
+   term of the loss held card against CPU as each kernel is, at the
+   weights of the card's first step (HAGCN) or of each of its steps
+   (HierCorrPool, its ReLU masks replayed on the CPU), the forward and
+   backward launches counted;
 7. train, entry point: for each model, ``cli.main`` trains one epoch of a
    synthetic processed FD001 at the real size on the card, with the
    kernels' launches counted over that run alone; its results.csv and
@@ -66,9 +71,10 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    launch by launch (torch.profiler), HAGCN's shapes (T = 1,400 at H = 60
    and 120, T = 14,000 at 120) and its H = 120 at the B of each cluster
    size; the serving latency and
-   samples/s, the same requests through the symbolic-batch artifact and
-   the live model in turns, the training step and epoch of each model,
-   and torch.profiler breakdowns of one request and one training step.
+   samples/s (the two tier configurations too), the same requests through
+   the symbolic-batch artifact and the live model in turns, the training
+   step and epoch of each model, and torch.profiler breakdowns of one
+   request and one training step.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (five
 entries); the last line is ``{"ok": true, "device": {...}}``.
@@ -98,6 +104,7 @@ import numpy as np
 import torch
 
 from gnn_rul_tpu_torch import cli
+from gnn_rul_tpu_torch.configs.data_configs import get_dataset_config
 from gnn_rul_tpu_torch.configs.hparams import model_hparams, train_params
 from gnn_rul_tpu_torch.data.io import save_processed
 from gnn_rul_tpu_torch import export
@@ -140,9 +147,12 @@ THRESHOLD_BS, THRESHOLD_HS = (3, 70), (120, 192)
 # H100's 132 SMs (fused_lstm.cuh, pick_plan), timed per step.
 CLUSTER_BS = (5, 9, 17)
 # The ported methods: the four of the kernels' slices, HAGCN (its Bi-LSTM on
-# the recurrence kernels), then the three that reach no port kernel.
+# the recurrence kernels), then the seven that reach no port kernel.
 METHODS = ("FC_STGNN", "LOGO", "STAGNN", "STFA", "HAGCN", "RGCNU", "GRU_CM",
-           "STGNN")
+           "STGNN", "DVGTformer", "HierCorrPool", "ASTGCNN", "ST_Conv")
+# The benchmark tiers served at their own configurations (BASELINE.md tiers
+# 3 and 4): (method, dataset, dataset_id).
+TIERS = (("HierCorrPool", "CMAPSS", "FD004"), ("DVGTformer", "NCMAPSS", None))
 
 
 class Path(NamedTuple):
@@ -706,10 +716,90 @@ def _plain_recurrence():
 RANKED = {"HAGCN": (hagcn, "top_indices"), "STGNN": (stgnn, "topk_mask")}
 
 
+# The methods whose held gradients (GRADIENT_HELD) are taken with the
+# card's ReLU masks replayed on the CPU (:class:`_Kinks`): HierCorrPool's
+# encoder ReLUs follow train-mode BatchNorms, whose outputs cross 0 within
+# the card's rounding (on an H100 80GB HBM3 at 700 W, one input to its
+# third block's ReLU, 1.1e-7 from 0, took the other side on the card,
+# which moved the conv3 weight gradient by 1.8e-5, above TOL). Over the 5
+# free-running steps the masks are each side's own: the steps part the
+# weights by up to the learning rate (GRADIENT_HELD), and the masks with
+# them (by step 5 an input 4.8e-3 from 0 took another side).
+KINKED = ("HierCorrPool",)
+
+
 def _during(sel, mode: str):
     """``sel.record()`` or ``sel.replay()``; nothing for a method that
-    selects by no top-k (``sel`` None)."""
+    replays no step function (``sel`` None)."""
     return getattr(sel, mode)() if sel else contextlib.nullcontext()
+
+
+class _Kinks:
+    """The masks ``x > 0`` of every ``nn.ReLU`` of a kinked method's
+    forwards: recorded as the card makes them, then replayed in the same
+    order on the CPU (and in fp64) as ``x * mask``, so that both sides
+    differentiate the same function. ReLU's gradient is a step function of
+    its input: where an input lies within rounding of 0, the card and the
+    CPU may pass or stop that element's whole gradient. :meth:`report`
+    counts the entries whose mask differs and fails where such an input
+    lies further than TOL_ATOL from 0 on the CPU."""
+
+    def __init__(self):
+        self.card = []   # the card's masks on the host, per ReLU call
+        self.cpu = []    # (the CPU's input, its own mask)
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        forward = torch.nn.ReLU.forward
+        torch.nn.ReLU.forward = fn
+        try:
+            yield
+        finally:
+            torch.nn.ReLU.forward = forward
+
+    def record(self):
+        def fn(module, x):
+            self.card.append((x > 0).cpu())
+            return torch.relu(x)
+        return self._patched(fn)
+
+    def replay(self):
+        """Replays the card's masks from the first; keeps the CPU's own of
+        the first replay."""
+        it = iter(self.card)
+        first = not self.cpu
+
+        def fn(module, x):
+            mask = next(it)
+            if mask.shape != x.shape:
+                raise AssertionError("the CPU's forwards are not the card's")
+            if first:
+                self.cpu.append((x.detach().cpu(), (x > 0).cpu()))
+            return x * mask.to(x.device, x.dtype)
+        return self._patched(fn)
+
+    def report(self, method: str, what: str) -> int:
+        """Prints the ReLU inputs whose mask differs between card and CPU
+        and the largest |input| among them; returns their count."""
+        if len(self.card) != len(self.cpu):
+            raise AssertionError(f"{len(self.card)} ReLU calls on the card, "
+                                 f"{len(self.cpu)} replayed")
+        entries = differ = 0
+        far = 0.0
+        for (x, own), card in zip(self.cpu, self.card):
+            flipped = own != card
+            entries += own.numel()
+            differ += int(flipped.sum())
+            if flipped.any():
+                far = max(far, x[flipped].abs().max().item())
+        print(f"relu {method} {what}: {entries} inputs, {differ} masks differ "
+              f"between card and CPU"
+              + (f", the largest |input| among them {far:.3e}" if differ
+                 else "") + "; the CPU replays the card's masks")
+        if far > TOL_ATOL:
+            raise AssertionError(f"{method}: a ReLU input {far} from 0 takes "
+                                 f"another side on the card")
+        return differ
 
 
 class _Selections:
@@ -815,12 +905,13 @@ class _Selections:
         return differ
 
 
-def _seeded_state_dict(method: str = "FC_STGNN", seed: int = 0):
-    """``method``/FD001 weights from ``seed``, with any BN running
-    statistics set away from (0, 1) so that eval-mode BN is not the
-    identity."""
+def _seeded_state_dict(method: str = "FC_STGNN", seed: int = 0,
+                       dataset: str = "CMAPSS", dataset_id="FD001"):
+    """``method`` weights at ``(dataset, dataset_id)`` from ``seed``, with
+    any BN running statistics set away from (0, 1) so that eval-mode BN is
+    not the identity."""
     torch.manual_seed(seed)
-    sd = build_model(method, "CMAPSS", "FD001").state_dict()
+    sd = build_model(method, dataset, dataset_id).state_dict()
     gen = torch.Generator().manual_seed(seed)
     for k, v in sd.items():
         if k.endswith("running_mean"):
@@ -878,6 +969,48 @@ def _serve(method: str):
                              f"forward, got {launches} for {forwards}")
     return (models[SERVE_BATCH]["cuda"], models[None]["cuda"],
             requests[0][1], requests[-1][1], launches, requests, sd)
+
+
+def _serve_tiers():
+    """The tier configurations' serving path: each of TIERS at its own
+    hparams with seeded weights, a request of 100 through a fixed batch of
+    100 and one of 1000 through a symbolic batch, every answer on the card
+    against the CPU at the same batch; no wrapper may count a launch.
+    Returns {"<method> <dataset>/<dataset_id>": (fixed, symbolic, x100,
+    x1000)}."""
+    out = {}
+    for method, dataset, dataset_id in TIERS:
+        sd = _seeded_state_dict(method, 0, dataset, dataset_id)
+        channels = get_dataset_config(dataset).input_channels
+        models = {bs: {dev: serving_model(method, dataset, dataset_id, sd,
+                                          batch_size=bs, device=dev)
+                       for dev in ("cuda", "cpu")}
+                  for bs in (SERVE_BATCH, None)}
+        rng = np.random.default_rng(4)
+        requests = [(bs, rng.normal(size=(n, channels, WINDOW))
+                     .astype(np.float32))
+                    for bs, n in ((SERVE_BATCH, SERVE_BATCH), (None, 1000))]
+        _reset()
+        answers = [models[bs]["cuda"](x) for bs, x in requests]
+        torch.cuda.synchronize()
+        _only_its_kernel(method, f"serve {dataset}/{dataset_id}")
+        worst = 0.0
+        for (bs, x), got in zip(requests, answers):
+            want = models[bs]["cpu"](x)
+            if got.shape != (len(x),) or not np.isfinite(got).all():
+                raise AssertionError(f"serving answer of shape {got.shape} "
+                                     f"for {len(x)} rows, or not finite")
+            np.testing.assert_allclose(got, want, atol=SERVE_ATOL,
+                                       rtol=SERVE_RTOL)
+            worst = max(worst, float(np.abs(got - want).max()))
+        print(f"serve {method} {dataset}/{dataset_id}: requests of "
+              f"{SERVE_BATCH} and 1000 of ({channels}, {WINDOW}) windows, "
+              f"no port kernel launched; every answer matches the CPU, max "
+              f"|diff| {worst:.3e} (atol={SERVE_ATOL}, rtol={SERVE_RTOL})")
+        out[f"{method} {dataset}/{dataset_id}"] = (
+            models[SERVE_BATCH]["cuda"], models[None]["cuda"],
+            requests[0][1], requests[1][1])
+    return out
 
 
 def _op_nodes(program) -> dict:
@@ -973,30 +1106,58 @@ def _no_dropout(model):
 # batch 4: 49 of 371,146 values, up to 5.3 times TOL, every one a sum the
 # KL's softmax cancels, scaled by alpha past TOL_ATOL). The gradient of
 # each term of the loss, the prediction's squared error and the KL, meets
-# TOL there, so those are held, card against CPU by _hold's rule, beside
-# the 5-step losses; the parameters are held as any method's unless the
-# CPU's fp32 run misses the tolerance too.
-GRADIENT_HELD = ("HAGCN",)
+# TOL there, and is held at the first step's weights; at the card's
+# second step's weights its squared error's gradient misses the CPU's by
+# 1.6e-3 (the CPU's fp32 5.5e-6 from fp64; a step function not replayed,
+# not isolated). HierCorrPool's three encoder convolutions each feed a
+# train-mode BatchNorm, which leaves the loss blind to each output
+# channel's scale, and Adam's normalised step moves weights whose gradient
+# cancels that way (against the weight decay) by a share of the learning
+# rate that rounding decides: at batch 100 the CPU's fp32 parameters end
+# 1.2e-3 to 2.8e-3 off the same 5 steps in fp64 (by its thread count), and
+# on an H100 80GB HBM3 at 700 W the card's 4.3e-3, its fifth loss 7.9e-5
+# off fp64's at a loss of 0.085 (the CPU's 1.1e-6), while the gradient at
+# each of the card's steps is within TOL of the CPU's. So for these
+# methods the gradient of each term of the loss is held, card against CPU
+# by _hold's rule, at the weights of the card's first steps, as many as
+# the method's entry here (the CPU starting each from the card's weights,
+# replaying its top-k selections or ReLU masks).
+# The free-running steps' parameters are held as any method's unless the
+# CPU's own fp32 parameters miss fp64 by more than PARAM_MAX_DIFF too, and
+# then their losses are held unless the gradient was held at every step.
+GRADIENT_HELD = {"HAGCN": 1, "HierCorrPool": PARITY_STEPS}
 
 
-def _steps(engine: Engine, xs, ys, device: str, dtype=torch.float32):
-    """PARITY_STEPS train steps on ``engine``; returns the losses."""
-    return np.array([float(engine.train_step(
-        torch.from_numpy(x).to(device, dtype),
-        torch.from_numpy(y).to(device, dtype))) for x, y in zip(xs, ys)])
+def _steps(engine: Engine, xs, ys, device: str, dtype=torch.float32,
+           states=None):
+    """PARITY_STEPS train steps on ``engine``; returns the losses. With a
+    list ``states``, appends the model's state_dict (on the host) before
+    each step."""
+    losses = []
+    for x, y in zip(xs, ys):
+        if states is not None:
+            states.append({k: v.detach().cpu().clone()
+                           for k, v in engine.model.state_dict().items()})
+        losses.append(float(engine.train_step(
+            torch.from_numpy(x).to(device, dtype),
+            torch.from_numpy(y).to(device, dtype))))
+    return np.array(losses)
 
 
 def _term_gradients(model, x, y, device: str, dtype=torch.float32):
     """``{term: the gradient of every parameter as one flat fp64 vector on
-    the host}`` for each term of an auxiliary-loss model's training loss,
-    the prediction's mean squared error and the auxiliary term, at the
-    model's weights on one batch."""
+    the host}`` for each term of the model's training loss, the
+    prediction's mean squared error and, for an auxiliary-loss model, the
+    auxiliary term, at the model's weights on one batch."""
     model = model.to(device, dtype).train()
-    pred, aux = model(torch.from_numpy(x).to(device, dtype))
+    out = model(torch.from_numpy(x).to(device, dtype))
+    pred, aux = out if isinstance(out, tuple) else (out, None)
     mse = torch.mean((pred - torch.from_numpy(y).to(device, dtype)) ** 2)
     params = list(model.parameters())
+    terms = [("squared error", mse)] + ([] if aux is None
+                                        else [("auxiliary", aux)])
     out = {}
-    for term, value in (("squared error", mse), ("auxiliary", aux)):
+    for term, value in terms:
         grads = torch.autograd.grad(value, params, retain_graph=True,
                                     allow_unused=True)
         out[term] = torch.cat([
@@ -1005,12 +1166,14 @@ def _term_gradients(model, x, y, device: str, dtype=torch.float32):
     return out
 
 
-def _hold_term_gradients(method: str, seeded, x, y) -> None:
+def _hold_term_gradients(method: str, seeded, x, y, step: int) -> None:
     """The gradient of each term of ``method``'s loss at ``seeded()``'s
     weights on one batch, card against CPU by :func:`_hold` (the fp64
     witness the same on the CPU on the plain recurrence), the CPU
-    replaying the card's top-k selections."""
-    sel = _Selections(method) if method in RANKED else None
+    replaying the card's top-k selections, or for a method in KINKED its
+    ReLU masks."""
+    sel = (_Selections(method) if method in RANKED
+           else _Kinks() if method in KINKED else None)
     with _during(sel, "record"):
         card = _term_gradients(seeded(), x, y, "cuda")
     with _during(sel, "replay"):
@@ -1023,9 +1186,9 @@ def _hold_term_gradients(method: str, seeded, x, y) -> None:
                                    torch.float64)
 
     if sel:
-        sel.report(method, "the loss terms' gradients")
+        sel.report(method, f"the loss terms' gradients at step {step}")
     for term in card:
-        _hold(f"train parity {method}: first-step gradient of the {term} "
+        _hold(f"train parity {method}: step {step}'s gradient of the {term} "
               f"term, card vs cpu ({card[term].numel()} values)",
               card[term], cpu[term], lambda term=term: exact()[term])
 
@@ -1038,7 +1201,8 @@ def _train_parity(method: str) -> None:
     parameters miss, both sides are held against the same steps in fp64 on
     the CPU: the card within the same tolerance of them and the closer of
     the two. A method in GRADIENT_HELD also holds the gradient of each term
-    of its loss at the first step, by :func:`_hold`."""
+    of its loss at the weights of the card's first steps, by
+    :func:`_hold`."""
     torch.backends.cudnn.deterministic = True
     torch.manual_seed(0)
     sd = build_model(method, "CMAPSS", "FD001").state_dict()
@@ -1060,9 +1224,10 @@ def _train_parity(method: str) -> None:
 
     path = _path(method)
     sel = _Selections(method) if method in RANKED else None
+    states = [] if method in GRADIENT_HELD else None
     _reset()
     with _during(sel, "record"):
-        card = _steps(engines["cuda"], xs, ys, "cuda")
+        card = _steps(engines["cuda"], xs, ys, "cuda", states=states)
     torch.cuda.synchronize()
     fwd_launches, bwd_launches = _counts(path.kernel)
     _only_its_kernel(method, "train parity")
@@ -1076,8 +1241,12 @@ def _train_parity(method: str) -> None:
         cpu = _steps(engines["cpu"], xs, ys, "cpu")
     if sel:
         sel.report(method, f"{PARITY_STEPS} training steps")
-    if method in GRADIENT_HELD:
-        _hold_term_gradients(method, seeded, xs[0], ys[0])
+    for i, state in enumerate((states or [])[:GRADIENT_HELD.get(method)]):
+        def at_step(dtype=torch.float32, state=state):
+            model = build_model(method, "CMAPSS", "FD001")
+            model.load_state_dict(state)
+            return _no_dropout(model.to(dtype))
+        _hold_term_gradients(method, at_step, xs[i], ys[i], step=i + 1)
     torch.backends.cudnn.deterministic = False
 
     params = {dev: {k: p.detach().cpu().double() for k, p in
@@ -1117,26 +1286,30 @@ def _train_parity(method: str) -> None:
           f"{off['cuda'][0]:.3e} and its parameters by "
           f"{off['cuda'][1]:.3e}, the CPU's fp32 by {off['cpu'][0]:.3e} "
           f"and {off['cpu'][1]:.3e}")
-    if loss_miss and not (
+    waived = method in GRADIENT_HELD and not off["cpu"][1] < PARAM_MAX_DIFF
+    every_step = GRADIENT_HELD.get(method) == PARITY_STEPS
+    if waived:
+        print(f"train parity {method}: no fp32 run here holds the "
+              f"parameters within {PARAM_MAX_DIFF} of fp64, so they are not "
+              f"held; the gradient of each term of the loss held at the "
+              f"weights of the card's first {GRADIENT_HELD[method]} "
+              f"step(s)" + ("; with it held at every step, the "
+                            "free-running losses are not held either"
+                            if every_step else ""))
+    if loss_miss and not (waived and every_step) and not (
             np.all(np.abs(card - losses64)
                    <= LOSS_ATOL + LOSS_RTOL * np.abs(losses64))
             and off["cuda"][0] < off["cpu"][0]):
         raise AssertionError(f"train parity {method}: the card's losses "
                              f"miss the CPU's, and miss fp64's or are not "
                              f"the closer to them")
-    if param_miss:
-        if method in GRADIENT_HELD and not off["cpu"][1] < PARAM_MAX_DIFF:
-            print(f"train parity {method}: no fp32 run here holds the "
-                  f"parameters within {PARAM_MAX_DIFF} of fp64; the "
-                  f"gradients of each term of the loss and the losses "
-                  f"held")
-        elif not (off["cuda"][1] < PARAM_MAX_DIFF
-                  and off["cuda"][1] < off["cpu"][1]):
-            raise AssertionError(f"train parity {method}: the card's "
-                                 f"parameters miss the CPU's by "
-                                 f"{param_diff}, and fp64's by "
-                                 f"{off['cuda'][1]}, the CPU's fp32 by "
-                                 f"{off['cpu'][1]}")
+    if param_miss and not waived and not (
+            off["cuda"][1] < PARAM_MAX_DIFF
+            and off["cuda"][1] < off["cpu"][1]):
+        raise AssertionError(f"train parity {method}: the card's "
+                             f"parameters miss the CPU's by {param_diff}, "
+                             f"and fp64's by {off['cuda'][1]}, the CPU's "
+                             f"fp32 by {off['cpu'][1]}")
 
 
 def _write_fd001(root: str, seed: int = 3):
@@ -1535,13 +1708,17 @@ def _lstm_times(shapes):
         # The plain versions' Python time loops take ~0.5 (forward) and
         # ~0.9 s (backward) a call at HAGCN's T = 14,000: fewer replays.
         plain_reps = 21 if t <= 2000 else 3
+        # Up to 50 kernel calls a graph, fewer where a call is long: at
+        # T = 14,000 (~17 ms a call) one call a graph, whose replay spends
+        # well under 0.1% of its time launching; the phase takes ~35 s less.
+        calls = max(1, min(50, 20000 // t))
         out[(t, b, h)] = {
-            "fwd": (_graph_ms(lambda: kernel.forward(xg, w)),
+            "fwd": (_graph_ms(lambda: kernel.forward(xg, w), inner=calls),
                     _graph_ms(lambda: fused_lstm.lstm_trajectory_plain(xg, w),
                               inner=inner, reps=plain_reps),
                     *_lstm_bound_ms(t, b, h), _event_ms(lib_fwd)),
             "bwd": (_graph_ms(lambda: kernel.backward(xg, w, ys, cs, dys,
-                                                      dcf)),
+                                                      dcf), inner=calls),
                     _graph_ms(lambda: fused_lstm.lstm_recurrence_bwd_plain(
                         xg, w, ys, cs, dys, dcf), inner=max(1, inner // 3),
                         reps=plain_reps),
@@ -1652,9 +1829,15 @@ def _train_times(method: str, fd001) -> None:
     xb = torch.from_numpy(train_x[:SERVE_BATCH]).cuda()
     yb = torch.from_numpy(train_y[:SERVE_BATCH]).cuda()
     step_ms = _step_ms(engine, xb, yb)
-    engine.run_epoch(train_x, train_y, 1, shuffle=True)  # the data's upload
+    # Outside the timed epoch: the data's upload, and one step at the
+    # remainder batch's shape (31 rows), the one shape the step times above
+    # did not warm.
+    engine._device_data(train_x, train_y)
+    rem = len(train_x) % SERVE_BATCH
+    if rem:
+        engine.train_step(xb[:rem], yb[:rem])
     t0 = time.perf_counter()
-    engine.run_epoch(train_x, train_y, 2, shuffle=True)
+    engine.run_epoch(train_x, train_y, 1, shuffle=True)
     epoch_s = time.perf_counter() - t0
     steps = -(-len(train_x) // SERVE_BATCH)
     path = _path(method)
@@ -1668,21 +1851,49 @@ def _train_times(method: str, fd001) -> None:
              step_ms, "step")
 
 
+class _Phases:
+    """The wall time of each phase of :func:`main`, printed at its end."""
+
+    def __init__(self):
+        self.last = time.perf_counter()
+        self.times = []
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.times.append((name, now - self.last))
+        self.last = now
+
+    def report(self) -> None:
+        print("phases (wall s): " + ", ".join(
+            f"{name} {s:.1f}" for name, s in self.times)
+              + f"; total {sum(s for _, s in self.times):.1f}")
+
+
 def main() -> None:
+    phases = _Phases()
     kind = _device()
     _build()
+    phases.mark("device and build")
     max_err = _kernel_vs_plain()
     bwd_max_err = _bwd_vs_plain()
     lstm_err, lstm_bwd_err = _lstm_vs_plain()
     gat_err = _gat_vs_plain()
+    phases.mark("kernels vs plain")
     served = {m: _serve(m) for m in METHODS}
+    tiers = _serve_tiers()
+    phases.mark("serve")
+    artifacts = {}
     with tempfile.TemporaryDirectory() as tmp:
-        artifacts = {m: _artifacts(m, served[m], tmp) for m in METHODS}
+        for method in METHODS:
+            artifacts[method] = _artifacts(method, served[method], tmp)
+            phases.mark(f"artifacts {method}")
     for method in METHODS:
         _train_parity(method)
+    phases.mark("train parity")
     with tempfile.TemporaryDirectory() as tmp:
         fd001 = _write_fd001(tmp)
         trained = {m: _train_entry_point(m, fd001) for m in METHODS}
+        phases.mark("train entry point")
 
         kernel = fused_gnn.fused_dot_graph_spmm
         fwd = _kernel_times("fused_dot_graph_spmm", KERNEL_CASES[:2], kernel,
@@ -1692,6 +1903,7 @@ def main() -> None:
                             kernel.backward,
                             fused_gnn.fused_dot_graph_spmm_bwd_plain,
                             backward=True)
+        phases.mark("kernel times, dot graph")
         with _Clocks():
             # HAGCN's three layers at a batch of 100 (H = 60, 120) and its
             # widest at a request of 1000 (T = 14,000).
@@ -1700,14 +1912,21 @@ def main() -> None:
                                 (1400, 5, 120), (14000, 5, 120),
                                 (100, 544, 30)])
             _lstm_cluster_times()
+            phases.mark("kernel times, LSTM")
             # The serving and training shapes of both models, and the two
             # check shapes of few large graphs.
             gat = _gat_times([GAT_CASES[k] for k in (0, 1, 2, 3, 4, 7)])
+        phases.mark("kernel times, attention")
         for method in METHODS:
             _serve_times(method, *served[method][:4])
             _artifact_times(method, artifacts[method][0],
                             *served[method][1:4])
             _train_times(method, fd001)
+            phases.mark(f"times {method}")
+        for tier, models in tiers.items():
+            _serve_times(tier, *models)
+        phases.mark("times, tiers")
+    phases.report()
 
     def entry(name, times, max_abs_err, launches, **extra):
         ms, plain_ms, bound_ms, bound_by, *library = times

@@ -9,8 +9,9 @@ Trains on the card (``--device cuda``, the default; it raises where CUDA is
 absent) or on the CPU (``--device cpu``); with ``--eval_torch_checkpoint
 PT`` it evaluates the weights of a ``checkpoint.pt`` (the port's or the
 reference's) on the test set instead of training. The ported methods are
-FC_STGNN, LOGO, HAGCN, RGCNU, STAGNN, STFA, GRU_CM and STGNN
-(``models.MODELS``); any other ``--GNN_method`` raises. Flags that select
+the twelve aero-engine methods (``models.MODELS``): FC_STGNN, LOGO, HAGCN,
+RGCNU, STAGNN, STFA, GRU_CM, STGNN, DVGTformer, HierCorrPool, ASTGCNN and
+ST_Conv; any other ``--GNN_method`` raises. Flags that select
 what is not ported yet raise ``NotImplementedError``; the port's order of
 work is in ROADMAP.md.
 """

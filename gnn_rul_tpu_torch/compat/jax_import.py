@@ -3,7 +3,9 @@
 The inverse of the JAX package's torch-reference import
 (``gnn_rul_tpu/compat/torch_import.py``: ``_map_fc_stgnn``, ``_map_logo``,
 ``_map_hagcn``, ``_map_rgcnu``, ``_map_stagnn``, ``_map_stfa``,
-``_map_gru_cm``, ``_map_stgnn``) for the ported methods: it takes the flax
+``_map_gru_cm``, ``_map_stgnn``, ``_map_dvgtformer``,
+``_hiercorrpool_core``, ``_map_astgcnn``, ``_map_st_conv``) for the ported
+methods: it takes the flax
 ``{"params", "batch_stats"}`` tree as numpy arrays and returns a
 ``state_dict`` under the original torch reference's keys, which the port's
 modules carry:
@@ -15,13 +17,16 @@ modules carry:
     ``weight (1, 2d)``, ``bias (1,)``
   - BatchNorm ``scale/bias`` + ``mean/var`` -> ``weight/bias`` +
     ``running_mean/running_var``, with ``num_batches_tracked`` 0
+  - LayerNorm ``scale/bias`` -> ``weight/bias``
   - LSTM ``w_ih (D, 4H)``, ``w_hh (H, 4H)``, ``b_ih``, ``b_hh`` ->
     ``weight_ih_l0 (4H, D)``, ``weight_hh_l0 (4H, H)``, ``bias_ih_l0``,
     ``bias_hh_l0`` (``_reverse`` for the backward direction); a GRU's
     ``(D, 3H)``, ``(H, 3H)`` alike
-  - a raw parameter (GIN's ``eps``, ChebNet's ``filters``) as it is, or
+  - a raw parameter (GIN's ``eps``, ChebNet's ``filters``, ST_Conv's
+    ``theta1``-``theta4``, DVGTformer's ``t_v``/``x_v``) as it is, or
     transposed (GRU_CM's ``edge_kernel (2f, out)`` -> the edge Linear's
-    ``weight (out, 2f)``), under the row's whole key
+    ``weight (out, 2f)``, ASTGCNN's bias-free ``distance_P`` kernel -> the
+    ``P`` Linear's weight), under the row's whole key
 """
 
 from __future__ import annotations
@@ -183,15 +188,96 @@ def _stgnn_layout() -> Layout:
             ("fc", "linear", ("fc", "Dense_0"))]
 
 
+def _dvgtformer_layout(params: Dict[str, Any]) -> Layout:
+    """``(torch prefix, kind, flax path)`` for every DVGTformer layer; the
+    block and head counts are read off the tree. Each head's q/k/v is a
+    ``LinearParams`` (``{q,k,v}<h>/Dense_0``) in the flax tree."""
+    rows = [("linear_t", "linear", ("linear_t", "Dense_0")),
+            ("linear_x", "linear", ("linear_x", "Dense_0")),
+            ("t_v", "param", ("t_v",)), ("x_v", "param", ("x_v",)),
+            ("output_layer.0", "linear", ("out0", "Dense_0")),
+            ("output_layer.2", "linear", ("out1", "Dense_0"))]
+    blocks = sum(k.startswith("tvgt") for k in params)
+    heads = sum(k.startswith("q") for k in params["tvgt0"])
+    for i in range(blocks):
+        for kind, pre, tag in (("tvgt", "tvgtformer_blocks", "temp"),
+                               ("svgt", "svgtformer_blocks", "spat")):
+            blk, at = f"{pre}.{i}", (f"{kind}{i}",)
+            rows += [(f"{blk}.linears_{qkv.upper()}_{tag}.{h}", "linear",
+                      at + (f"{qkv}{h}", "Dense_0"))
+                     for qkv in "qkv" for h in range(heads)]
+            rows += [(f"{blk}.W_O_{tag}", "linear", at + ("W_O", "Dense_0")),
+                     (f"{blk}.layer_norm1_{tag}", "layernorm",
+                      at + ("layer_norm1",)),
+                     (f"{blk}.layer_norm2_{tag}", "layernorm",
+                      at + ("layer_norm2",)),
+                     (f"{blk}.feed_forward_{tag}.0", "linear",
+                      at + ("ff0", "Dense_0")),
+                     (f"{blk}.feed_forward_{tag}.2", "linear",
+                      at + ("ff1", "Dense_0"))]
+    return rows
+
+
+def _hiercorrpool_layout() -> Layout:
+    """``(torch prefix, kind, flax path)`` for every HierCorrPool layer:
+    the flax tree sits under ``core``, the torch keys are flat."""
+    tp = ("core", "Time_Preprocessing")
+    rows = []
+    for i in (1, 2, 3):
+        rows += [(f"Time_Preprocessing.conv_block{i}.0", "conv",
+                  tp + (f"conv{i}", "Conv_0")),
+                 (f"Time_Preprocessing.conv_block{i}.1", "bn",
+                  tp + (f"bn{i}", "BatchNorm1d_0", "BatchNorm_0"))]
+    gc = ("core", "gc1")
+    return rows + [
+        ("gc1.Message_Passing.theta.0", "linear",
+         gc + ("Message_Passing", "theta0", "Dense_0")),
+        ("gc1.Graph_Clustering.dimension_mapping", "linear",
+         gc + ("Graph_Clustering", "dimension_mapping", "Dense_0")),
+        ("gc1.Graph_Clustering.matrix", "linear",
+         gc + ("Graph_Clustering", "matrix", "Dense_0")),
+        ("fc_0", "linear", ("core", "fc_0", "Dense_0")),
+        ("fc_1", "linear", ("core", "fc_1", "Dense_0"))]
+
+
+def _astgcnn_layout() -> Layout:
+    """``(torch prefix, kind, flax path)`` for every ASTGCNN layer; its TCN
+    keeps 14 channels, so it has no ``downsample0``."""
+    return _tcn_rows("tcn", False) + [
+        ("gate.theta", "linear", ("gate_theta", "Dense_0")),
+        ("gate.bias", "param", ("gate_bias",)),
+        ("distance_module.P.weight", "param_t", ("distance_P", "kernel")),
+        ("chebnet.filters", "param", ("chebnet", "filters")),
+        ("fc", "linear", ("fc", "Dense_0"))]
+
+
+def _st_conv_layout() -> Layout:
+    """``(torch prefix, kind, flax path)`` for every ST_Conv layer (the
+    layer-1 modules, the only ones its forward calls); ``cnn_layer_1``'s
+    convolution is a bare flax ``nn.Conv``, with no ``Conv_0`` level."""
+    return [("gcn_layer_1.theta.0", "linear",
+             ("gcn_layer_1", "theta0", "Dense_0")),
+            ("cnn_layer_1.conv", "conv", ("cnn_layer_1", "conv")),
+            ("cnn_layer_1.bn", "bn",
+             ("cnn_layer_1", "bn", "BatchNorm1d_0", "BatchNorm_0")),
+            *_tcn_rows("tcn_layer_1", False),
+            *[(f"theta{i}", "param", (f"theta{i}",)) for i in (1, 2, 3, 4)],
+            ("fc", "linear", ("fc", "Dense_0"))]
+
+
 # method -> its layout, from the flax params (STAGNN's and STFA's head
-# counts are read off the tree).
+# counts, DVGTformer's block and head counts are read off the tree).
 _LAYOUTS = {"FC_STGNN": lambda params: _fc_stgnn_layout(),
             "LOGO": lambda params: _logo_layout(),
             "HAGCN": lambda params: _hagcn_layout(),
             "RGCNU": lambda params: _rgcnu_layout(),
             "STAGNN": _stagnn_layout, "STFA": _stfa_layout,
             "GRU_CM": lambda params: _gru_cm_layout(),
-            "STGNN": lambda params: _stgnn_layout()}
+            "STGNN": lambda params: _stgnn_layout(),
+            "DVGTformer": _dvgtformer_layout,
+            "HierCorrPool": lambda params: _hiercorrpool_layout(),
+            "ASTGCNN": lambda params: _astgcnn_layout(),
+            "ST_Conv": lambda params: _st_conv_layout()}
 
 
 def _get(tree: Dict[str, Any], path: Tuple[str, ...]) -> Dict[str, Any]:
@@ -234,6 +320,9 @@ def from_jax_variables(method: str,
         elif kind == "attention":
             sd[f"{prefix}.weight"] = _t(np.asarray(p["att_kernel"]).T)
             sd[f"{prefix}.bias"] = _t(p["att_bias"])
+        elif kind == "layernorm":
+            sd[f"{prefix}.weight"] = _t(p["scale"])
+            sd[f"{prefix}.bias"] = _t(p["bias"])
         elif kind == "conv":
             sd[f"{prefix}.weight"] = _t(
                 np.asarray(p["kernel"]).transpose(2, 1, 0))

@@ -40,9 +40,11 @@ CLI, from a ``checkpoint.pt`` of the port or of the reference:
         --out fc_stgnn_fd001.pt2 [--batch_size 0] [--device cuda]
 
 The ported methods are ``models.MODELS``: FC_STGNN, LOGO, HAGCN, RGCNU,
-STAGNN, STFA, GRU_CM and STGNN. LOGO's recurrence runs along the batch
-axis and HAGCN's along the batch times the nodes, so the answer of either
-for a row depends on the other rows of the forward, padding rows included.
+STAGNN, STFA, GRU_CM, STGNN, DVGTformer, HierCorrPool, ASTGCNN and
+ST_Conv (RGCNU and the last six reach no port kernel). LOGO's recurrence
+runs along the batch axis and HAGCN's along the batch times the nodes, so
+the answer of either for a row depends on the other rows of the forward,
+padding rows included.
 STAGNN's adjacency is ``cov > 0`` per window, HAGCN's pooling keeps the
 nodes of top score and STGNN's graph the top similarities of each row:
 step functions, so a covariance within rounding of 0, or a score within

@@ -14,7 +14,8 @@ pair is causal and keeps the length; the JAX ``CausalConv1d`` pads the left
 side only, the same function. The reference's weight-normed ``net0``/``net1``
 submodules are built but never called in its forward, and are not
 reproduced (as in the JAX package). A reference ``checkpoint.pt`` may carry
-their keys; ``export.serving_model`` drops every key under ``<tcn>.net0.``
+their keys; ``train.checkpoint.load_model_dict`` (under
+``export.serving_model`` and the trainer) drops every key under ``<tcn>.net0.``
 and ``<tcn>.net1.`` of each ``TemporalConvNet`` in the model before its
 strict load, so such a checkpoint loads while any other unexpected key
 still fails.

@@ -1,6 +1,6 @@
-"""Dense adjacency construction (counterpart of ``gnn_rul_tpu/ops/graphs.py``;
-only what FC_STGNN, LOGO, HAGCN, STAGNN and STGNN need so far).
-``record_edges`` waits for ``ops/edge_count.py`` (ROADMAP.md)."""
+"""Dense adjacency construction (counterpart of ``gnn_rul_tpu/ops/graphs.py``,
+every function of it). ``record_edges`` waits for ``ops/edge_count.py``
+(ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,14 @@ def dot_graph_from_mapped(h: torch.Tensor) -> torch.Tensor:
     sim = torch.einsum("...nd,...md->...nm", h, h)
     sim = leaky_relu(sim - eye * 1e8)
     return torch.softmax(sim, dim=-1) + eye
+
+
+def dot_graph(x: torch.Tensor) -> torch.Tensor:
+    """The unparameterized dot-product graph of raw features, ``A =
+    softmax(leaky_relu(x x^T - 1e8 I), -1) + I`` (reference
+    models/HierCorrPool/Model_Base.py:11-25): :func:`dot_graph_from_mapped`
+    on ``x`` itself."""
+    return dot_graph_from_mapped(x)
 
 
 def pearson_graph(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -61,6 +69,25 @@ def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
                        min=0.0)
 
 
+def gaussian_graph(x: torch.Tensor) -> torch.Tensor:
+    """``A = exp(-cdist(x, x))``, the euclidean (not squared) distance
+    between the rows of ``x (..., N, D)`` (reference models/ASTGCNN/
+    Model.py:184-195).
+
+    The distances come from direct pairwise differences, as the JAX package
+    computes them: ``torch.cdist`` takes the ``a^2 + b^2 - 2ab`` expansion
+    on CUDA above 25 rows, which loses fp32 precision. The square root is
+    taken through a double ``where``, so that the gradient on the diagonal
+    (distance 0, where the root's derivative is infinite) is 0, the
+    subgradient ``torch.cdist`` gives, and not nan."""
+    diff = x[..., :, None, :] - x[..., None, :, :]
+    s = torch.sum(diff * diff, dim=-1)
+    positive = s > 0
+    safe = torch.where(positive, s, torch.ones_like(s))
+    d = torch.where(positive, torch.sqrt(safe), torch.zeros_like(s))
+    return torch.exp(-d)
+
+
 def top_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
     """The indices of the ``k`` largest of each row of ``scores (..., N)``,
     in descending order, the lower index first among equal scores, as
@@ -80,6 +107,13 @@ def topk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
     return (scores >= kth).to(scores.dtype)
 
 
+def gaussian_topk_graph(x: torch.Tensor, k: int) -> torch.Tensor:
+    """:func:`gaussian_graph` sparsified to each row's top-k by
+    :func:`topk_mask` (reference models/STGNN/Model.py:8-25)."""
+    a = gaussian_graph(x)
+    return a * topk_mask(a, k)
+
+
 def covariance_threshold_graph(x: torch.Tensor,
                                threshold: float) -> torch.Tensor:
     """``A = (cov > threshold)`` as float over the rows of ``(..., N, L)``,
@@ -91,3 +125,18 @@ def covariance_threshold_graph(x: torch.Tensor,
     xc = x - x.mean(dim=-1, keepdim=True)
     cov = torch.einsum("...nl,...ml->...nm", xc, xc) / (x.shape[-1] - 1)
     return (cov > threshold).to(x.dtype)
+
+
+def add_self_loops(adj: torch.Tensor, weight: float = 1.0) -> torch.Tensor:
+    """``A + weight * I`` over the last two axes."""
+    n = adj.shape[-1]
+    return adj + weight * torch.eye(n, dtype=adj.dtype, device=adj.device)
+
+
+def sym_normalize(adj: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Symmetric normalization ``D^-1/2 A D^-1/2`` of a dense adjacency,
+    the degree from the row sums clipped below at ``eps``, plus 1e-12
+    under the root (reference GCNLayer, models/RGCNU/Model.py:7-21)."""
+    deg = torch.sum(adj, dim=-1)
+    d_inv_sqrt = torch.rsqrt(torch.clamp(deg, min=eps) + 1e-12)
+    return adj * d_inv_sqrt[..., :, None] * d_inv_sqrt[..., None, :]

@@ -6,8 +6,9 @@ auxiliary output (graph regularization for LOGO, KL for HAGCN,
 reconstruction for STNet and GDAGDL; RGCNU's is unused, weight 0).
 LOGO_bearing also steps a MultiStepLR([5, 10, 20, 25], 0.5) per batch.
 The table names all 21 methods of the reference; the ported ones are
-``models.MODELS`` (FC_STGNN, LOGO, HAGCN, RGCNU, STAGNN, STFA, GRU_CM and
-STGNN), and every other name raises.
+``models.MODELS`` (the twelve aero-engine methods: FC_STGNN, LOGO, HAGCN,
+RGCNU, STAGNN, STFA, GRU_CM, STGNN, DVGTformer, HierCorrPool, ASTGCNN and
+ST_Conv), and every other name raises.
 """
 
 from __future__ import annotations

@@ -79,11 +79,13 @@ def load_model_dict(model: nn.Module,
     else:
         keys = dict(state_dict)
     # The reference's TemporalConvNet builds weight-normed net0/net1
-    # submodules that its forward never calls; their keys are dropped, and
-    # only theirs, so that any other unexpected key still fails the strict
-    # load (as the JAX importer reads only the keys it names).
+    # submodules that its forward never calls, and ST_Conv layer-2 modules
+    # (the model's UNCALLED); their keys are dropped, and only theirs, so
+    # that any other unexpected key still fails the strict load (as the JAX
+    # importer reads only the keys it names).
     dead = tuple(f"{name}.{sub}." for name, m in model.named_modules()
                  if isinstance(m, TemporalConvNet) for sub in ("net0", "net1"))
+    dead += tuple(getattr(model, "UNCALLED", ()))
     model.load_state_dict({k: v for k, v in keys.items()
                            if not k.startswith(dead)}, strict=True)
     return model

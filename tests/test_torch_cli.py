@@ -153,7 +153,7 @@ def test_cli_eval_torch_checkpoint_evaluates_the_weights(tmp_path, layout):
     assert npz["pre"].shape == (10,)
 
 
-@pytest.mark.parametrize("method", ["GRU_CM", "HAGCN"])
+@pytest.mark.parametrize("method", ["GRU_CM", "HAGCN", "HierCorrPool"])
 def test_eval_torch_checkpoint_matches_jax_evaluate_only(tmp_path, method):
     """The port's --eval_torch_checkpoint and the JAX package's (its
     Trainer.evaluate_only on import_torch_checkpoint) on the same port

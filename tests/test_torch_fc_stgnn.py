@@ -81,4 +81,4 @@ def test_mask_and_pe_are_not_state():
 
 def test_other_methods_raise_naming_roadmap(variables):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        from_jax_variables("DVGTformer", variables)
+        from_jax_variables("SAGCN", variables)

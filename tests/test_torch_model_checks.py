@@ -1,5 +1,6 @@
 """Checks shared by the per-model port tests (tests/test_torch_hagcn.py,
-test_torch_rgcnu.py, test_torch_gru_models.py): a port model against the
+test_torch_rgcnu.py, test_torch_gru_models.py, test_torch_hiercorrpool.py,
+test_torch_dvgtformer.py, test_torch_tcn_models.py): a port model against the
 JAX package's at CMAPSS/FD001 full width on the CPU, from the same
 weights (carried by from_jax_variables) on the same seeded inputs. This
 module holds no test of its own.
@@ -31,6 +32,7 @@ from gnn_rul_tpu.train import algorithms as jalgorithms
 from gnn_rul_tpu.train import engine as jengine
 from gnn_rul_tpu_torch import export
 from gnn_rul_tpu_torch.compat import from_jax_variables
+from gnn_rul_tpu_torch.configs.data_configs import get_dataset_config
 from gnn_rul_tpu_torch.models import hagcn
 from gnn_rul_tpu_torch.ops.kernels import WRAPPERS
 from gnn_rul_tpu_torch.train import algorithms
@@ -190,6 +192,30 @@ def check_eval_forward(method, variables, rows, seed):
     return swapped(own, FWD_RTOL)
 
 
+def check_cell_forward(method, dataset, dataset_id, rows, seed):
+    """The eval forward at another cell of the hparam bank (its widths, its
+    dataset's sensors) against the JAX model's at FWD tolerance, from the
+    JAX model's own initialisation at that cell. Returns the port's
+    answers."""
+    kwargs = hparams.model_hparams(dataset, dataset_id, method)
+    jmodel = jalgorithms.get_algorithm_spec(method).model_cls(**kwargs)
+    channels = get_dataset_config(dataset).input_channels
+    variables = numpy_tree(dict(jmodel.init(
+        {"params": jax.random.PRNGKey(seed),
+         "dropout": jax.random.PRNGKey(seed + 1)},
+        jnp.zeros((2, channels, 50), jnp.float32), train=False)))
+    x = np.random.default_rng(seed).normal(
+        size=(rows, channels, 50)).astype(np.float32)
+    want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False))
+    model = export.build_model(method, dataset, dataset_id)
+    model.load_state_dict(from_jax_variables(method, variables), strict=True)
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (rows, 1)
+    np.testing.assert_allclose(got, want, atol=FWD_ATOL, rtol=FWD_RTOL)
+    return got
+
+
 def check_round_trip(method, variables):
     """JAX -> port -> JAX gives back every leaf bit for bit, and the port
     model's keys are exactly those from_jax_variables writes."""
@@ -208,10 +234,11 @@ def check_round_trip(method, variables):
 
 def step_trajectories(method, monkeypatch):
     """STEPS Adam steps of each engine from the JAX engine's initial
-    weights, each on its own seeded batch of STEP_ROWS (an epoch of one
-    batch, shuffle off), with dropout off on both sides (the JAX package's
-    Dropout patched to the identity). Returns (JAX losses, port losses,
-    initial params, JAX params after, port engine, the batches)."""
+    weights and BatchNorm statistics, each on its own seeded batch of
+    STEP_ROWS (an epoch of one batch, shuffle off), with dropout off on both
+    sides (the JAX package's Dropout patched to the identity). Returns (JAX
+    losses, port losses, initial params, JAX params after, port engine, the
+    batches, JAX batch_stats after)."""
     monkeypatch.setattr(jax_basic.Dropout, "__call__",
                         lambda self, x, train=False: x)
     rng = np.random.default_rng(7)
@@ -223,7 +250,8 @@ def step_trajectories(method, monkeypatch):
                                 TRAIN_PARAMS, seed=0)
     state = jax_engine.init_state(batches[0][0])
     start = numpy_tree(state.params)
-    port = Engine(no_dropout(port_model(method, {"params": start})),
+    port = Engine(no_dropout(port_model(method, {
+        "params": start, "batch_stats": numpy_tree(state.batch_stats)})),
                   algorithms.get_algorithm_spec(method), TRAIN_PARAMS,
                   seed=0, device="cpu")
     jax_losses, port_losses = [], []
@@ -232,15 +260,40 @@ def step_trajectories(method, monkeypatch):
         jax_losses.append(loss)
         port_losses.append(port.run_epoch(x, y, step, shuffle=False))
     return (np.array(jax_losses), np.array(port_losses), start,
-            numpy_tree(state.params), port, batches)
+            numpy_tree(state.params), port, batches,
+            numpy_tree(state.batch_stats))
 
 
-def _params(method, model):
-    """A port model's parameters as the JAX tree's leaves, in fp64."""
+def _params(method, model, collection="params"):
+    """A port model's parameters (or BatchNorm statistics) as the JAX
+    tree's leaves, in fp64."""
     sd = {k: v.double() for k, v in model.state_dict().items()}
     return {path: np.asarray(leaf, np.float64) for path, leaf in
             jax.tree_util.tree_leaves_with_path(numpy_tree(
-                import_torch_state_dict(method, sd, hp(method))["params"]))}
+                import_torch_state_dict(method, sd, hp(method))[collection]))}
+
+
+def check_running_statistics(method, port, jax_stats, smallest_rows):
+    """The port's BatchNorm statistics after the steps against the JAX
+    package's: running means at the JAX parity tests' tolerance; running
+    variances within the bound of the biased/unbiased variance gap
+    (ROADMAP.md Queue 3 entry 1; tests/test_torch_training.py states the
+    bound, running_var / (n - 1) for the fewest rows ``smallest_rows`` a
+    BN layer normalizes, however often a step updates it), never smaller
+    than the JAX package's. Returns the number of statistics held."""
+    got = _params(method, port.model, "batch_stats")
+    want = jax.tree_util.tree_leaves_with_path(jax_stats)
+    assert len(got) == len(want) > 0
+    for path, leaf in want:
+        if path[-1].key == "mean":
+            np.testing.assert_allclose(got[path], leaf, atol=5e-4,
+                                       rtol=1e-3, err_msg=str(path))
+        else:
+            np.testing.assert_allclose(
+                got[path], leaf, atol=5e-4,
+                rtol=1e-3 + 1.0 / (smallest_rows - 1), err_msg=str(path))
+            assert np.all(got[path] >= leaf - 5e-4), path
+    return len(want)
 
 
 def _jax_fp64_trajectory(method, start, batches):
@@ -269,17 +322,24 @@ def _jax_fp64_trajectory(method, start, batches):
     return np.array(losses), dict(leaves)
 
 
-def check_trajectory(method, monkeypatch, unused=()):
+def check_trajectory(method, monkeypatch, unused=(), bn_rows=None):
     """The losses of STEPS steps at LOSS tolerance and every parameter
     within PARAM_MAX_DIFF after them, each by :func:`hold`; the steps moved
     the weights. ``unused`` names the top-level flax modules outside the
     loss: torch's Adam skips a parameter without a gradient, so the port
     (as the torch reference) leaves them as they were, while the JAX
     package's optimizer moves them by the weight decay; they are held to
-    their start instead. Returns the references that held (losses,
-    parameters) and the JAX parameters' largest move in ``unused``."""
-    jax_losses, port_losses, start, params, port, batches = \
+    their start instead. A model with BatchNorm gives ``bn_rows``, the
+    fewest rows any of its BN layers normalizes at STEP_ROWS, and its
+    running statistics are held by :func:`check_running_statistics`.
+    Returns the references that held (losses, parameters) and the JAX
+    parameters' largest move in ``unused``."""
+    jax_losses, port_losses, start, params, port, batches, jax_stats = \
         step_trajectories(method, monkeypatch)
+    if bn_rows is None:
+        assert not jax_stats
+    else:
+        check_running_statistics(method, port, jax_stats, bn_rows)
     assert np.isfinite(port_losses).all()
     exact = functools.cache(
         lambda: _jax_fp64_trajectory(method, start, batches))

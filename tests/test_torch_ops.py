@@ -456,3 +456,67 @@ def test_chebnet_matches_jax_and_draws_xavier_over_k_in_out():
         got = net(torch.from_numpy(x), torch.from_numpy(adj))
     want = jnet.apply(jvars, jnp.asarray(x), jnp.asarray(adj))
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+
+
+def test_dot_graph_matches_jax():
+    """HierCorrPool's unparameterized graph of raw features at its FD001
+    shape (B, 14, 80)."""
+    x = np.random.default_rng(25).normal(size=(3, 14, 80)).astype(np.float32)
+    got = graphs.dot_graph(torch.from_numpy(x))
+    np.testing.assert_allclose(_np(got), _np(jgraphs.dot_graph(
+        jnp.asarray(x))), atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [14, 30])
+def test_gaussian_graph_matches_jax_and_its_gradient_is_finite(n):
+    """ASTGCNN's exp(-cdist) by direct differences, at 14 rows and above
+    the 25 at which torch.cdist on CUDA would switch to the expansion; a
+    repeated row gives a second distance of 0 off the diagonal. The
+    gradient through the double-where root is finite, 0 at every zero
+    distance, and equals JAX's."""
+    rng = np.random.default_rng(26)
+    x = rng.normal(size=(2, n, 50)).astype(np.float32) * 0.2
+    x[1, 3] = x[1, 7]
+    w = rng.normal(size=(2, n, n)).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = graphs.gaussian_graph(xt)
+    (got * torch.from_numpy(w)).sum().backward()
+    want, vjp = jax.vjp(jgraphs.gaussian_graph, jnp.asarray(x))
+    (want_grad,) = vjp(jnp.asarray(w))
+    assert np.all(np.diagonal(_np(got), axis1=-2, axis2=-1) == 1.0)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-6, rtol=1e-5)
+    assert torch.isfinite(xt.grad).all()
+    np.testing.assert_allclose(_np(xt.grad), _np(want_grad), atol=1e-5,
+                               rtol=1e-4)
+    # A row's distance to itself is 0 wherever the row moves, so with
+    # weight on the diagonal alone the gradient is exactly 0 (sqrt's own
+    # derivative there would give nan).
+    diag = torch.from_numpy(x).requires_grad_(True)
+    graphs.gaussian_graph(diag).diagonal(dim1=-2, dim2=-1).sum().backward()
+    want_diag = jax.grad(lambda v: jnp.sum(jnp.diagonal(
+        jgraphs.gaussian_graph(v), axis1=-2, axis2=-1)))(jnp.asarray(x))
+    assert torch.count_nonzero(diag.grad) == 0
+    np.testing.assert_array_equal(_np(want_diag), 0.0)
+
+
+def test_gaussian_topk_graph_matches_jax():
+    x = np.random.default_rng(27).normal(size=(3, 14, 5)).astype(np.float32)
+    got = graphs.gaussian_topk_graph(torch.from_numpy(x), 4)
+    want = jgraphs.gaussian_topk_graph(jnp.asarray(x), 4)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-6, rtol=1e-5)
+    assert (_np(got > 0).sum(axis=-1) == 4).all()
+
+
+@pytest.mark.parametrize("weight,eps", [(1.0, 0.0), (0.5, 1e-3)])
+def test_self_loops_and_sym_normalize_match_jax(weight, eps):
+    adj = np.random.default_rng(28).uniform(size=(3, 14, 14)).astype(
+        np.float32)
+    adj[0, 2] = 0.0  # a row of degree 0 before the loops
+    got = graphs.add_self_loops(torch.from_numpy(adj), weight)
+    want = jgraphs.add_self_loops(jnp.asarray(adj), weight)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    for a in (adj, _np(got)):
+        np.testing.assert_allclose(
+            _np(graphs.sym_normalize(torch.from_numpy(a), eps)),
+            _np(jgraphs.sym_normalize(jnp.asarray(a), eps)), atol=1e-6,
+            rtol=1e-5)
