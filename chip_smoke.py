@@ -28,18 +28,22 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    and GDAGDL's N, ragged shapes, and on each side of every point where
    its plan changes;
 4. serve: FC_STGNN, LOGO, STAGNN, STFA, HAGCN, RGCNU, GRU_CM, STGNN,
-   DVGTformer, HierCorrPool, ASTGCNN and ST_Conv on FD001, at full width
-   with seeded weights through ``serving_model``; every answer against the
-   same weights on the CPU at the same batch, and each path's kernel
-   launches counted over that path's run alone (every other wrapper's count
-   must stay 0: the last seven launch no port kernel); then the tier
-   configurations, HierCorrPool at FD004's hparams and DVGTformer at
-   N-CMAPSS's (20 sensors), card against CPU at 100 and 1000 rows, no
-   launch; for STAGNN, whose graph is ``cov > 0``, the smallest |cov|
-   and the adjacency entries that differ between card and CPU; for HAGCN
-   and STGNN, which select by top-k, the CPU replays the card's selections
-   and the smallest gap between the k-th and (k+1)-th score and the
-   selections that differ are printed (:class:`_Selections`);
+   DVGTformer, HierCorrPool, ASTGCNN and ST_Conv on FD001, and
+   HierCorrPool_bearing, ST_GCN, SAGCN, AGCN_TF, STMSGCN and STNet on
+   PHM2012 Condition_1 (windows of (1, 2560)), at full width with seeded
+   weights through ``serving_model``; every answer against the same
+   weights on the CPU at the same batch, and each path's kernel launches
+   counted over that path's run alone (every other wrapper's count must
+   stay 0: the last thirteen launch no port kernel); then the tier
+   configurations, HierCorrPool at FD004's hparams, DVGTformer at
+   N-CMAPSS's (20 sensors) and HierCorrPool_bearing at XJTU-SY
+   Condition_1's on the raw minute of 32,768 samples, card against CPU at
+   100 and 1000 rows, no launch; for STAGNN, whose graph is ``cov > 0``,
+   the smallest |cov| and the adjacency entries that differ between card
+   and CPU; for the step functions that the CPU replays as the card took
+   them, the margins and the choices that differ are printed: HAGCN's and
+   STGNN's top-k, SAGCN's and AGCN_TF's frequency bins, STNet's node
+   masks (:class:`_Replay`);
 5. artifacts: for each model, ``export_serving`` for the card at a
    symbolic batch and at batch 100 (traced on the CPU and moved to the
    card at export), and for the CPU at a symbolic batch; each saved with
@@ -58,20 +62,29 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    weights of the card's first step (HAGCN) or of each of its steps
    (HierCorrPool, its ReLU masks replayed on the CPU), the forward and
    backward launches counted;
-7. train, entry point: for each model, ``cli.main`` trains one epoch of a
-   synthetic processed FD001 at the real size on the card, with the
+7. preprocess: a raw C-MAPSS FD001 tree at its real size through
+   ``python -m gnn_rul_tpu_torch.data.preprocess`` (run in this process),
+   its windows' labels checked, and FC_STGNN trained one epoch from it
+   through ``cli.main`` (the dot-graph kernels' 318 and 316 launches); a
+   raw PHM2012 Condition_1 tree of 2,560 x 6 acc files, 50 a bearing, one
+   bearing ';'-separated, preprocessed and SAGCN trained one epoch from
+   it; pandas is never imported;
+8. train, entry point: for each model, ``cli.main`` trains one epoch of a
+   synthetic processed FD001 at the real size (the bearing methods: PHM2012
+   Condition_1 at FEMTO's real size, 3,674 training snapshots and five
+   test bearings) on the card, with the
    kernels' launches counted over that run alone; its results.csv and
    checkpoint.pt are read back, the checkpoint serves on the card as on
    the CPU, ``cli.main --eval_torch_checkpoint`` evaluates it on the card
    to the trainer's own final metrics (its launches counted), and
    ``python -m gnn_rul_tpu_torch.export``'s ``main`` exports it to an
    artifact that serves as the live model does;
-8. times: CUDA-event medians of each kernel, its plain version and, for
+9. times: CUDA-event medians of each kernel, its plain version and, for
    the LSTM recurrence, cuDNN's ``torch.nn.LSTM``, with the backward's time
    launch by launch (torch.profiler), HAGCN's shapes (T = 1,400 at H = 60
    and 120, T = 14,000 at 120) and its H = 120 at the B of each cluster
    size; the serving latency and
-   samples/s (the two tier configurations too), the same requests through
+   samples/s (the three tier configurations too), the same requests through
    the symbolic-batch artifact and the live model in turns, the training
    step and epoch of each model, and torch.profiler breakdowns of one
    request and one training step.
@@ -93,6 +106,7 @@ import functools
 import json
 import os
 import re
+import runpy
 import statistics
 import subprocess
 import sys
@@ -106,16 +120,18 @@ import torch
 from gnn_rul_tpu_torch import cli
 from gnn_rul_tpu_torch.configs.data_configs import get_dataset_config
 from gnn_rul_tpu_torch.configs.hparams import model_hparams, train_params
-from gnn_rul_tpu_torch.data.io import save_processed
+from gnn_rul_tpu_torch.data import phm2012
+from gnn_rul_tpu_torch.data.io import load_processed, save_processed
 from gnn_rul_tpu_torch import export
 from gnn_rul_tpu_torch.export import build_model, serving_model
-from gnn_rul_tpu_torch.models import hagcn, stgnn
+from gnn_rul_tpu_torch.models import hagcn, stgnn, stnet
 from gnn_rul_tpu_torch.models.stfa import prior_knowledge_graph
 from gnn_rul_tpu_torch.nn import recurrent
 from gnn_rul_tpu_torch.ops.graphs import covariance_threshold_graph
 from gnn_rul_tpu_torch.ops.kernels import (WRAPPERS, build, fused_gat,
                                            fused_gnn, fused_lstm)
 from gnn_rul_tpu_torch.ops.windows import decay_mask
+from gnn_rul_tpu_torch.signal import features
 from gnn_rul_tpu_torch.train.algorithms import get_algorithm_spec
 from gnn_rul_tpu_torch.train.engine import Engine
 
@@ -147,12 +163,31 @@ THRESHOLD_BS, THRESHOLD_HS = (3, 70), (120, 192)
 # H100's 132 SMs (fused_lstm.cuh, pick_plan), timed per step.
 CLUSTER_BS = (5, 9, 17)
 # The ported methods: the four of the kernels' slices, HAGCN (its Bi-LSTM on
-# the recurrence kernels), then the seven that reach no port kernel.
+# the recurrence kernels), the seven aero-engine methods that reach no port
+# kernel, then the six bearing methods, which reach none either.
+BEARING_METHODS = ("HierCorrPool_bearing", "ST_GCN", "SAGCN", "AGCN_TF",
+                   "STMSGCN", "STNet")
 METHODS = ("FC_STGNN", "LOGO", "STAGNN", "STFA", "HAGCN", "RGCNU", "GRU_CM",
-           "STGNN", "DVGTformer", "HierCorrPool", "ASTGCNN", "ST_Conv")
+           "STGNN", "DVGTformer", "HierCorrPool", "ASTGCNN",
+           "ST_Conv") + BEARING_METHODS
+# The (dataset, dataset_id) each method runs at: C-MAPSS FD001, windows of
+# (14, 50); the bearing methods PHM2012's Condition_1 (FEMTO), windows of
+# (1, 2560), a vibration snapshot.
+CELL = {m: (("PHM2012", "Condition_1") if m in BEARING_METHODS
+            else ("CMAPSS", "FD001")) for m in METHODS}
 # The benchmark tiers served at their own configurations (BASELINE.md tiers
-# 3 and 4): (method, dataset, dataset_id).
-TIERS = (("HierCorrPool", "CMAPSS", "FD004"), ("DVGTformer", "NCMAPSS", None))
+# 3 to 5): (method, dataset, dataset_id, window length, None for the
+# dataset config's). XJTU-SY's raw minute is 32,768 samples (64 patches of
+# 512 in the hparams); the config's 30,768 is the reference's stale value.
+TIERS = (("HierCorrPool", "CMAPSS", "FD004", None),
+         ("DVGTformer", "NCMAPSS", None, None),
+         ("HierCorrPool_bearing", "XJTU_SY", "Condition_1", 32768))
+# FEMTO's PHM2012 Condition_1 at its real size: the acc files of each
+# bearing (Bearing1_1 and 1_2 train, the other five test).
+PHM_C1_FILES = {"Bearing1_1": 2803, "Bearing1_2": 871, "Bearing1_3": 1802,
+                "Bearing1_4": 1139, "Bearing1_5": 2302, "Bearing1_6": 2302,
+                "Bearing1_7": 1502}
+SIGNAL_LENGTH = 2560  # a FEMTO snapshot: 0.1 s at 25.6 kHz
 
 
 class Path(NamedTuple):
@@ -230,6 +265,16 @@ def _only_its_kernel(method: str, what: str) -> None:
         if kernel is not own and _counts(kernel) != (0, 0):
             raise AssertionError(f"{what} {method}: {type(kernel).__name__} "
                                  f"launched {_counts(kernel)}, not its path")
+
+
+def _windows(dataset: str, rng, n: int, seq_len=None) -> np.ndarray:
+    """``n`` seeded windows of ``dataset``: unit-normal sensor readings for
+    C-MAPSS and N-CMAPSS, min-max scaled vibration signals (uniform in [0,
+    1)) for the bearing datasets."""
+    cfg = get_dataset_config(dataset)
+    shape = (n, cfg.input_channels, int(seq_len or cfg.sequence_len))
+    draw = rng.uniform if dataset in ("PHM2012", "XJTU_SY") else rng.normal
+    return draw(size=shape).astype(np.float32)
 
 
 def _device() -> str:
@@ -717,7 +762,7 @@ RANKED = {"HAGCN": (hagcn, "top_indices"), "STGNN": (stgnn, "topk_mask")}
 
 
 # The methods whose held gradients (GRADIENT_HELD) are taken with the
-# card's ReLU masks replayed on the CPU (:class:`_Kinks`): HierCorrPool's
+# card's ReLU masks replayed on the CPU (:func:`_kinks`): HierCorrPool's
 # encoder ReLUs follow train-mode BatchNorms, whose outputs cross 0 within
 # the card's rounding (on an H100 80GB HBM3 at 700 W, one input to its
 # third block's ReLU, 1.1e-7 from 0, took the other side on the card,
@@ -725,7 +770,14 @@ RANKED = {"HAGCN": (hagcn, "top_indices"), "STGNN": (stgnn, "topk_mask")}
 # free-running steps the masks are each side's own: the steps part the
 # weights by up to the learning rate (GRADIENT_HELD), and the masks with
 # them (by step 5 an input 4.8e-3 from 0 took another side).
-KINKED = ("HierCorrPool",)
+# HierCorrPool_bearing runs the same encoder behind its STFT.
+KINKED = ("HierCorrPool", "HierCorrPool_bearing")
+# The methods whose forward selects frequency bins (SAGCN's and AGCN_TF's
+# spectral features) and the one that thresholds a score (STNet's nodes
+# above 0.7), each replayed by :class:`_Replay`.
+BINNED = ("SAGCN", "AGCN_TF")
+BIN_SELECTIONS = ("median_bin", "peak_bin")
+THRESHOLDED = ("STNet",)
 
 
 def _during(sel, mode: str):
@@ -734,182 +786,293 @@ def _during(sel, mode: str):
     return getattr(sel, mode)() if sel else contextlib.nullcontext()
 
 
-class _Kinks:
-    """The masks ``x > 0`` of every ``nn.ReLU`` of a kinked method's
-    forwards: recorded as the card makes them, then replayed in the same
-    order on the CPU (and in fp64) as ``x * mask``, so that both sides
-    differentiate the same function. ReLU's gradient is a step function of
-    its input: where an input lies within rounding of 0, the card and the
-    CPU may pass or stop that element's whole gradient. :meth:`report`
-    counts the entries whose mask differs and fails where such an input
-    lies further than TOL_ATOL from 0 on the CPU."""
+class _Call(NamedTuple):
+    """A step function's call replayed on the CPU (:class:`_Replay`)."""
+    name: str                 # the function's name
+    x: torch.Tensor           # the CPU's input, on the host
+    k: object                 # its int argument (top-k's k), else None
+    own: torch.Tensor         # the CPU's own choice
+    card: torch.Tensor        # the card's choice, which the CPU replayed
+    card_x: object            # the card's input, where kept, else None
 
-    def __init__(self):
-        self.card = []   # the card's masks on the host, per ReLU call
-        self.cpu = []    # (the CPU's input, its own mask)
+
+def _signature(args) -> tuple:
+    return tuple(a.shape if torch.is_tensor(a) else a for a in args
+                 if torch.is_tensor(a) or isinstance(a, int))
+
+
+def _input(args) -> torch.Tensor:
+    return next(a for a in args if torch.is_tensor(a))
+
+
+def _as_input(chosen, *args):
+    """The card's choice on the device of the call's input, a float choice
+    (a mask) in its dtype."""
+    x = _input(args)
+    return chosen.to(x.device, x.dtype if chosen.is_floating_point()
+                     else chosen.dtype)
+
+
+class _Replay:
+    """The step functions of a method's forwards (top-k selections,
+    frequency bins, threshold masks, ReLU masks): recorded as the card
+    takes them, then replayed in the same order on the CPU (and in fp64),
+    so that both sides compute one function. A step function's output
+    jumps where its input crosses a boundary: where an input lies within
+    rounding of one, the card and the CPU may choose otherwise and give
+    answers that differ by more than any tolerance. The first replay also
+    keeps the CPU's own choices; ``reporter(method, what, calls)`` prints
+    the margins and the choices that differ between card and CPU, fails
+    where they differ further from a boundary than rounding explains, and
+    returns their count.
+
+    Each ``owner.<name>`` of ``names`` is patched. ``choose(*args)`` is a
+    call's choice where it is not the function's output (a ReLU's mask),
+    and ``answer(choice, *args)`` what a replayed call returns."""
+
+    def __init__(self, owner, names, reporter, choose=None,
+                 answer=_as_input, card_inputs=False):
+        self.owner, self.names, self.reporter = owner, names, reporter
+        self.choose, self.answer = choose, answer
+        self.card_inputs = card_inputs
+        self.card = []   # (name, signature, choice, input or None), per call
+        self.cpu = []    # _Call, per call of the first replay
 
     @contextlib.contextmanager
-    def _patched(self, fn):
-        forward = torch.nn.ReLU.forward
-        torch.nn.ReLU.forward = fn
+    def _patched(self, make):
+        kept = {name: getattr(self.owner, name) for name in self.names}
+        for name, fn in kept.items():
+            setattr(self.owner, name, make(name, fn))
         try:
             yield
         finally:
-            torch.nn.ReLU.forward = forward
+            for name, fn in kept.items():
+                setattr(self.owner, name, fn)
+
+    def _choice(self, fn, args):
+        return (fn(*args) if self.choose is None
+                else self.choose(*args)).cpu()
 
     def record(self):
-        def fn(module, x):
-            self.card.append((x > 0).cpu())
-            return torch.relu(x)
-        return self._patched(fn)
+        def make(name, fn):
+            def recorded(*args):
+                out = fn(*args)
+                chosen = out if self.choose is None else self.choose(*args)
+                self.card.append((name, _signature(args), chosen.cpu(),
+                                  _input(args).detach().cpu()
+                                  if self.card_inputs else None))
+                return out
+            return recorded
+        return self._patched(make)
 
     def replay(self):
-        """Replays the card's masks from the first; keeps the CPU's own of
-        the first replay."""
+        """Replays the card's choices from the first; keeps the CPU's own
+        of the first replay."""
         it = iter(self.card)
         first = not self.cpu
 
-        def fn(module, x):
-            mask = next(it)
-            if mask.shape != x.shape:
-                raise AssertionError("the CPU's forwards are not the card's")
-            if first:
-                self.cpu.append((x.detach().cpu(), (x > 0).cpu()))
-            return x * mask.to(x.device, x.dtype)
-        return self._patched(fn)
+        def make(name, fn):
+            def replayed(*args):
+                kind, signature, chosen, card_x = next(it)
+                if kind != name or signature != _signature(args):
+                    raise AssertionError("the CPU's forwards are not the "
+                                         "card's")
+                if first:
+                    k = next((a for a in args if isinstance(a, int)), None)
+                    self.cpu.append(_Call(name, _input(args).detach().cpu(),
+                                          k, self._choice(fn, args), chosen,
+                                          card_x))
+                return self.answer(chosen, *args)
+            return replayed
+        return self._patched(make)
 
     def report(self, method: str, what: str) -> int:
-        """Prints the ReLU inputs whose mask differs between card and CPU
-        and the largest |input| among them; returns their count."""
         if len(self.card) != len(self.cpu):
-            raise AssertionError(f"{len(self.card)} ReLU calls on the card, "
+            raise AssertionError(f"{len(self.card)} calls on the card, "
                                  f"{len(self.cpu)} replayed")
-        entries = differ = 0
-        far = 0.0
-        for (x, own), card in zip(self.cpu, self.card):
-            flipped = own != card
-            entries += own.numel()
-            differ += int(flipped.sum())
-            if flipped.any():
-                far = max(far, x[flipped].abs().max().item())
-        print(f"relu {method} {what}: {entries} inputs, {differ} masks differ "
-              f"between card and CPU"
-              + (f", the largest |input| among them {far:.3e}" if differ
-                 else "") + "; the CPU replays the card's masks")
-        if far > TOL_ATOL:
-            raise AssertionError(f"{method}: a ReLU input {far} from 0 takes "
-                                 f"another side on the card")
-        return differ
+        return self.reporter(method, what, self.cpu)
 
 
-class _Selections:
-    """The top-k selections of a ranked method's forwards: recorded as the
-    card makes them, then replayed in the same order on the CPU (and in
-    fp64), so that both sides compute the same function. A selection is a
-    step function of its scores: where two scores lie within rounding, the
-    card and the CPU may pick other nodes and give answers that differ by
-    more than any tolerance. Each replayed forward also keeps the CPU's own
-    selection from its own scores; :meth:`report` counts where the two
-    differ and fails where a node kept by one and not by the other scores
-    further than the kernels' relative tolerance from its row's k-th."""
+def _report_kinks(method: str, what: str, calls) -> int:
+    """Prints the ReLU inputs whose mask differs between card and CPU and
+    the largest |input| among them; fails where such an input lies further
+    than TOL_ATOL from 0 on the CPU."""
+    entries = differ = 0
+    far = 0.0
+    for c in calls:
+        flipped = c.own != c.card
+        entries += c.own.numel()
+        differ += int(flipped.sum())
+        if flipped.any():
+            far = max(far, c.x[flipped].abs().max().item())
+    print(f"relu {method} {what}: {entries} inputs, {differ} masks differ "
+          f"between card and CPU"
+          + (f", the largest |input| among them {far:.3e}" if differ
+             else "") + "; the CPU replays the card's masks")
+    if far > TOL_ATOL:
+        raise AssertionError(f"{method}: a ReLU input {far} from 0 takes "
+                             f"another side on the card")
+    return differ
 
-    def __init__(self, method: str):
-        self.module, self.name = RANKED[method]
-        self.select = getattr(self.module, self.name)
-        self.card = []   # (k, scores, selection) on the host, per forward
-        self.cpu = []    # (k, scores, the CPU's own selection)
 
-    @contextlib.contextmanager
-    def _patched(self, fn):
-        setattr(self.module, self.name, fn)
-        try:
-            yield
-        finally:
-            setattr(self.module, self.name, self.select)
+def _report_ranks(method: str, what: str, calls) -> int:
+    """Prints the smallest gap between the k-th and (k+1)-th score of every
+    row ranked on the CPU and the selections that differ between card and
+    CPU (graphs whose kept nodes differ, or mask entries). Fails where a
+    node kept on one side and not on the other (or a mask entry that
+    differs) scores, on the CPU, further than the kernels' relative
+    tolerance from its row's k-th score."""
+    rows = ties = differ = 0
+    gap_min = rel_min = float("inf")
+    rel_differ = 0.0
+    for c in calls:
+        # Every k here is below the row length N (k = 10, 5, 1 of 14, 10,
+        # 5 nodes; 10 of 14).
+        k = c.k
+        scores = c.x.double().reshape(-1, c.x.shape[-1])
+        if c.own.dtype == torch.long:         # indices: compare as sets
+            kept = [torch.zeros(scores.shape, dtype=torch.bool).scatter(
+                1, s.reshape(-1, k), True) for s in (c.own, c.card)]
+            swapped = kept[0] ^ kept[1]
+            differ += int(swapped.any(-1).sum())
+        else:                                 # masks: count entries
+            swapped = (c.own != c.card).reshape(scores.shape)
+            differ += int(swapped.sum())
+        rows += scores.shape[0]
+        top = scores.sort(-1, descending=True).values
+        gap = top[:, k - 1] - top[:, k]
+        rel = gap / top[:, k - 1].abs().clamp(min=1e-300)
+        ties += int((gap == 0).sum())
+        if (gap > 0).any():
+            gap_min = min(gap_min, gap[gap > 0].min().item())
+            rel_min = min(rel_min, rel[gap > 0].min().item())
+        if swapped.any():
+            kth = top[:, k - 1:k]
+            far = (scores - kth).abs() / kth.abs().clamp(min=1e-300)
+            rel_differ = max(rel_differ, far[swapped].max().item())
+    print(f"top-k {method} {what}: {rows} rows ranked, smallest nonzero "
+          f"gap between the k-th and (k+1)-th score {gap_min:.3e} "
+          f"(relative {rel_min:.3e}), {ties} rows tied exactly there; "
+          f"{differ} selections differ between card and CPU"
+          + (f", the score of a node kept on one side only at most "
+             f"{rel_differ:.3e} relative from its row's k-th"
+             if differ else "")
+          + "; the CPU replays the card's selections")
+    if differ and rel_differ > TOL_RTOL:
+        raise AssertionError(f"{method}: a node kept on one side only "
+                             f"scores {rel_differ} relative from its "
+                             f"row's k-th, above {TOL_RTOL}")
+    return differ
 
-    def record(self):
-        def fn(scores, k):
-            chosen = self.select(scores, k)
-            self.card.append((k, scores.detach().cpu(), chosen.cpu()))
-            return chosen
-        return self._patched(fn)
 
-    def replay(self):
-        """Replays the card's selections from the first; keeps the CPU's
-        own of the first replay."""
-        it = iter(self.card)
-        first = not self.cpu
-
-        def fn(scores, k):
-            k_card, card_scores, chosen = next(it)
-            if k_card != k or card_scores.shape != scores.shape:
-                raise AssertionError("the CPU's forwards are not the card's")
-            if first:
-                self.cpu.append((k, scores.detach().cpu(),
-                                 self.select(scores, k).cpu()))
-            return chosen.to(scores.device, (scores.dtype if chosen
-                                             .is_floating_point()
-                                             else chosen.dtype))
-        return self._patched(fn)
-
-    def report(self, method: str, what: str) -> int:
-        """Prints the smallest gap between the k-th and (k+1)-th score of
-        every row ranked on the CPU and the selections that differ between
-        card and CPU (graphs whose kept nodes differ, or mask entries);
-        returns their count. Fails where a node kept on one side and not
-        on the other (or a mask entry that differs) scores, on the CPU,
-        further than the kernels' relative tolerance from its row's k-th
-        score."""
-        if len(self.card) != len(self.cpu):
-            raise AssertionError(f"{len(self.card)} selections on the card, "
-                                 f"{len(self.cpu)} replayed")
-        rows = ties = differ = 0
-        gap_min = rel_min = float("inf")
-        rel_differ = 0.0
-        for (k, scores, own), (_, _, chosen) in zip(self.cpu, self.card):
-            # Every k here is below the row length N (k = 10, 5, 1 of 14,
-            # 10, 5 nodes; 10 of 14).
-            scores = scores.double().reshape(-1, scores.shape[-1])
-            if own.dtype == torch.long:       # indices: compare as sets
-                kept = [torch.zeros(scores.shape, dtype=torch.bool).scatter(
-                    1, c.reshape(-1, k), True) for c in (own, chosen)]
-                swapped = kept[0] ^ kept[1]
-                differ += int(swapped.any(-1).sum())
-            else:                             # masks: count entries
-                swapped = (own != chosen).reshape(scores.shape)
-                differ += int(swapped.sum())
-            rows += scores.shape[0]
-            top = scores.sort(-1, descending=True).values
-            gap = top[:, k - 1] - top[:, k]
-            rel = gap / top[:, k - 1].abs().clamp(min=1e-300)
-            ties += int((gap == 0).sum())
+def _report_bins(method: str, what: str, calls) -> int:
+    """Prints, per kind of bin, the rows ranked, those whose chosen value
+    another bin of the row equals exactly (a mirror pair), the smallest
+    nonzero relative gap between a chosen value and any other of its row,
+    and the bins that differ between card and CPU. Fails where the CPU's
+    values at the card's bin and at its own differ by more than TOL_RTOL
+    relative."""
+    differ = 0
+    for kind in BIN_SELECTIONS:
+        rows = ties = kind_differ = 0
+        gap_min, rel_differ = float("inf"), 0.0
+        for c in calls:
+            if c.name != kind:
+                continue
+            v = c.x.double().reshape(-1, c.x.shape[-1])
+            own, card = c.own.reshape(-1), c.card.reshape(-1)
+            at = v.gather(1, own[:, None])
+            gap = (v - at).abs() / at.abs().clamp(min=1e-300)
+            gap.scatter_(1, own[:, None], float("inf"))
+            rows += v.shape[0]
+            ties += int((gap == 0).any(-1).sum())
             if (gap > 0).any():
                 gap_min = min(gap_min, gap[gap > 0].min().item())
-                rel_min = min(rel_min, rel[gap > 0].min().item())
-            if swapped.any():
-                kth = top[:, k - 1:k]
-                far = (scores - kth).abs() / kth.abs().clamp(min=1e-300)
-                rel_differ = max(rel_differ, far[swapped].max().item())
-        print(f"top-k {method} {what}: {rows} rows ranked, smallest nonzero "
-              f"gap between the k-th and (k+1)-th score {gap_min:.3e} "
-              f"(relative {rel_min:.3e}), {ties} rows tied exactly there; "
-              f"{differ} selections differ between card and CPU"
-              + (f", the score of a node kept on one side only at most "
-                 f"{rel_differ:.3e} relative from its row's k-th"
-                 if differ else "")
-              + "; the CPU replays the card's selections")
-        if differ and rel_differ > TOL_RTOL:
-            raise AssertionError(f"{method}: a node kept on one side only "
-                                 f"scores {rel_differ} relative from its "
-                                 f"row's k-th, above {TOL_RTOL}")
-        return differ
+            flipped = own != card
+            kind_differ += int(flipped.sum())
+            if flipped.any():
+                theirs = v.gather(1, card[:, None])
+                rel_differ = max(rel_differ, ((at - theirs).abs()
+                                              / at.abs())[flipped]
+                                 .max().item())
+        print(f"bins {method} {what}: {kind} of {rows} rows, {ties} on a "
+              f"value another bin of the row equals exactly, smallest "
+              f"nonzero relative gap to another bin {gap_min:.3e}; "
+              f"{kind_differ} differ between card and CPU"
+              + (f", their values at most {rel_differ:.3e} relative "
+                 f"apart" if kind_differ else "")
+              + f"; the CPU replays the card's {len(calls)} selections")
+        if rel_differ > TOL_RTOL:
+            raise AssertionError(f"{method}: a {kind} differs between "
+                                 f"card and CPU on values {rel_differ} "
+                                 f"relative apart, above {TOL_RTOL}")
+        differ += kind_differ
+    return differ
+
+
+def _report_masks(method: str, what: str, calls) -> int:
+    """Prints the smallest |score - 0.7| and the node-mask entries that
+    differ between card and CPU; fails unless the threshold lies between
+    the card's score and the CPU's at each."""
+    entries = differ = 0
+    margin, apart = float("inf"), 0.0
+    for c in calls:
+        scores, card_scores = c.x.double(), c.card_x.double()
+        entries += c.own.numel()
+        margin = min(margin, (scores - stnet.THRESHOLD).abs().min().item())
+        flipped = c.own != c.card
+        differ += int(flipped.sum())
+        if flipped.any():
+            lo = torch.minimum(scores, card_scores)[flipped]
+            hi = torch.maximum(scores, card_scores)[flipped]
+            if not bool(((lo <= stnet.THRESHOLD)
+                         & (stnet.THRESHOLD <= hi)).all()):
+                raise AssertionError(f"{method}: a node mask differs where "
+                                     f"both scores lie on one side of "
+                                     f"{stnet.THRESHOLD}")
+            apart = max(apart, (hi - lo).max().item())
+    print(f"threshold {method} {what}: {entries} node scores, smallest "
+          f"|score - {stnet.THRESHOLD}| {margin:.3e}; {differ} masks "
+          f"differ between card and CPU"
+          + (f", card and CPU scores at most {apart:.3e} apart there"
+             if differ else "")
+          + f"; the CPU replays the card's {len(calls)} masks")
+    return differ
+
+
+def _kinks() -> _Replay:
+    """The masks ``x > 0`` of every ``nn.ReLU`` of a kinked method's
+    forwards, replayed on the CPU as ``x * mask``: ReLU's gradient is a step
+    function of its input, so where an input lies within rounding of 0,
+    the card and the CPU may pass or stop that element's whole gradient."""
+    return _Replay(torch.nn.ReLU, ("forward",), _report_kinks,
+                   choose=lambda module, x: x > 0,
+                   answer=lambda mask, module, x:
+                   x * mask.to(x.device, x.dtype))
+
+
+def _replayer(method: str):
+    """The recorder of ``method``'s step functions as the card takes them,
+    which the CPU then replays: top-k selections, frequency bins or node
+    masks; None for a method without one."""
+    if method in RANKED:
+        module, name = RANKED[method]
+        return _Replay(module, (name,), _report_ranks)
+    if method in BINNED:
+        return _Replay(features, BIN_SELECTIONS, _report_bins)
+    if method in THRESHOLDED:
+        return _Replay(stnet, ("high_nodes",), _report_masks,
+                       card_inputs=True)
+    return None
 
 
 def _seeded_state_dict(method: str = "FC_STGNN", seed: int = 0,
-                       dataset: str = "CMAPSS", dataset_id="FD001"):
-    """``method`` weights at ``(dataset, dataset_id)`` from ``seed``, with
-    any BN running statistics set away from (0, 1) so that eval-mode BN is
-    not the identity."""
+                       dataset=None, dataset_id=None):
+    """``method`` weights at ``(dataset, dataset_id)`` (its CELL's where
+    not given) from ``seed``, with any BN running statistics set away from
+    (0, 1) so that eval-mode BN is not the identity."""
+    if dataset is None:
+        dataset, dataset_id = CELL[method]
     torch.manual_seed(seed)
     sd = build_model(method, dataset, dataset_id).state_dict()
     gen = torch.Generator().manual_seed(seed)
@@ -926,19 +1089,19 @@ def _serve(method: str):
     size and the kernel's launches over the run. Each answer is held
     against the CPU at the same batch: LOGO's answers depend on the other
     rows of a forward, the padding rows included."""
+    dataset, dataset_id = CELL[method]
     sd = _seeded_state_dict(method)
-    models = {bs: {dev: serving_model(method, "CMAPSS", "FD001", sd,
+    models = {bs: {dev: serving_model(method, dataset, dataset_id, sd,
                                       batch_size=bs, device=dev)
                    for dev in ("cuda", "cpu")}
               for bs in (SERVE_BATCH, None)}
     rng = np.random.default_rng(1)
-    requests = [(SERVE_BATCH, rng.normal(size=(n, 14, 50)).astype(np.float32))
+    requests = [(SERVE_BATCH, _windows(dataset, rng, n))
                 for n in [SERVE_BATCH] * 5 + [37]]
-    requests.append((None, rng.normal(size=(1000, 14, 50))
-                     .astype(np.float32)))
+    requests.append((None, _windows(dataset, rng, 1000)))
     forwards = sum(-(-len(x) // (bs or len(x))) for bs, x in requests)
 
-    sel = _Selections(method) if method in RANKED else None
+    sel = _replayer(method)
     path = _path(method)
     _reset()
     with _during(sel, "record"):
@@ -979,17 +1142,17 @@ def _serve_tiers():
     Returns {"<method> <dataset>/<dataset_id>": (fixed, symbolic, x100,
     x1000)}."""
     out = {}
-    for method, dataset, dataset_id in TIERS:
+    for method, dataset, dataset_id, seq_len in TIERS:
         sd = _seeded_state_dict(method, 0, dataset, dataset_id)
-        channels = get_dataset_config(dataset).input_channels
         models = {bs: {dev: serving_model(method, dataset, dataset_id, sd,
-                                          batch_size=bs, device=dev)
+                                          batch_size=bs, seq_len=seq_len,
+                                          device=dev)
                        for dev in ("cuda", "cpu")}
                   for bs in (SERVE_BATCH, None)}
         rng = np.random.default_rng(4)
-        requests = [(bs, rng.normal(size=(n, channels, WINDOW))
-                     .astype(np.float32))
+        requests = [(bs, _windows(dataset, rng, n, seq_len))
                     for bs, n in ((SERVE_BATCH, SERVE_BATCH), (None, 1000))]
+        channels, length = requests[0][1].shape[1:]
         _reset()
         answers = [models[bs]["cuda"](x) for bs, x in requests]
         torch.cuda.synchronize()
@@ -1004,7 +1167,8 @@ def _serve_tiers():
                                        rtol=SERVE_RTOL)
             worst = max(worst, float(np.abs(got - want).max()))
         print(f"serve {method} {dataset}/{dataset_id}: requests of "
-              f"{SERVE_BATCH} and 1000 of ({channels}, {WINDOW}) windows, "
+              f"{SERVE_BATCH} and 1000 of ({channels}, {length}) windows "
+              f"({requests[1][1].nbytes} bytes the larger), "
               f"no port kernel launched; every answer matches the CPU, max "
               f"|diff| {worst:.3e} (atol={SERVE_ATOL}, rtol={SERVE_RTOL})")
         out[f"{method} {dataset}/{dataset_id}"] = (
@@ -1040,7 +1204,7 @@ def _artifacts(method: str, served, tmp: str):
                            ("for cpu, symbolic batch, moved at load", None,
                             "cpu")):
         t0 = time.perf_counter()
-        meta, program = export.export_serving(method, "CMAPSS", "FD001", sd,
+        meta, program = export.export_serving(method, *CELL[method], sd,
                                               batch_size=bs, device=dev)
         counted = _op_nodes(program)
         nodes = counted.get(path.op, 0)
@@ -1121,11 +1285,41 @@ def _no_dropout(model):
 # methods the gradient of each term of the loss is held, card against CPU
 # by _hold's rule, at the weights of the card's first steps, as many as
 # the method's entry here (the CPU starting each from the card's weights,
-# replaying its top-k selections or ReLU masks).
-# The free-running steps' parameters are held as any method's unless the
-# CPU's own fp32 parameters miss fp64 by more than PARAM_MAX_DIFF too, and
-# then their losses are held unless the gradient was held at every step.
-GRADIENT_HELD = {"HAGCN": 1, "HierCorrPool": PARITY_STEPS}
+# replaying its top-k selections or ReLU masks). HierCorrPool_bearing holds
+# its first step's only: at the CPU's second step's weights its squared
+# error's gradient reaches 98 in the encoder's first convolution, and the
+# CPU's own fp32 gradient misses the same in fp64 by 4.1e-5 on 50 values
+# (the card's, at the card's weights, by 8.0e-5 on an H100 80GB HBM3 at
+# 700 W), as HAGCN's does past its first step.
+# STNet's steps at the bank's lr 1e-2 run its losses from 0.62 to 28,092
+# and back to 231 in 5 steps, and amplify the rounding of cuDNN's LSTM: its
+# first-step gradient of the last Linear is 5.2e-6 off fp64 on the card
+# against 3.2e-7 on the CPU (both within TOL), and after 5 steps the card's
+# parameters end 9.4e-4 off fp64 whichever Adam runs them (foreach, loop:
+# 9.4e-4; fused: 1.2e-3), the CPU's 1.4e-4 to 2.3e-4 at 1 to 8 threads (on
+# an H100 80GB HBM3 at 700 W and its host). Its gradient is held at each
+# step's weights as the card trains, on cuDNN, with the card's node masks
+# replayed; its free-running steps, held as any method's, run on the card
+# without cuDNN (CUDNN_OFF), where its parameters end 1.1e-4 from the
+# CPU's (on cuDNN 9.4e-4 from fp64; on an H100 80GB HBM3 at 700 W).
+# A method's free-running parameters are held as any method's unless the
+# CPU's own fp32 parameters miss fp64 by more than PARAM_MAX_DIFF too; then
+# its losses are not held either where its gradient is held at every step.
+GRADIENT_HELD = {"HAGCN": 1, "HierCorrPool": PARITY_STEPS,
+                 "HierCorrPool_bearing": 1, "STNet": PARITY_STEPS}
+# The methods whose free-running parity steps run on the card with cuDNN
+# off (torch's own CUDA LSTM), the steps on cuDNN printed against fp64.
+CUDNN_OFF = ("STNet",)
+
+
+@contextlib.contextmanager
+def _cudnn(enabled: bool):
+    kept = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = kept
 
 
 def _steps(engine: Engine, xs, ys, device: str, dtype=torch.float32,
@@ -1172,8 +1366,7 @@ def _hold_term_gradients(method: str, seeded, x, y, step: int) -> None:
     witness the same on the CPU on the plain recurrence), the CPU
     replaying the card's top-k selections, or for a method in KINKED its
     ReLU masks."""
-    sel = (_Selections(method) if method in RANKED
-           else _Kinks() if method in KINKED else None)
+    sel = _kinks() if method in KINKED else _replayer(method)
     with _during(sel, "record"):
         card = _term_gradients(seeded(), x, y, "cuda")
     with _during(sel, "replay"):
@@ -1197,37 +1390,47 @@ def _train_parity(method: str) -> None:
     """PARITY_STEPS steps at batch 100 on the card and on the CPU from the
     same weights on the same batches, dropout off, cuDNN deterministic and
     without TF32 for this phase; a ranked method's CPU steps replay the
-    card's top-k selections (:class:`_Selections`). Where the losses or the
+    card's top-k selections (:class:`_Replay`). Where the losses or the
     parameters miss, both sides are held against the same steps in fp64 on
     the CPU: the card within the same tolerance of them and the closer of
-    the two. A method in GRADIENT_HELD also holds the gradient of each term
-    of its loss at the weights of the card's first steps, by
-    :func:`_hold`."""
+    the two. A method in CUDNN_OFF runs these card steps without cuDNN and
+    prints how far its steps on cuDNN end from fp64. A method in
+    GRADIENT_HELD also holds the gradient of each term of its loss at the
+    weights of the card's first steps (on cuDNN), by :func:`_hold`."""
     torch.backends.cudnn.deterministic = True
     torch.manual_seed(0)
-    sd = build_model(method, "CMAPSS", "FD001").state_dict()
+    dataset, dataset_id = CELL[method]
+    sd = build_model(method, dataset, dataset_id).state_dict()
 
     def seeded(dtype=torch.float32):
-        model = build_model(method, "CMAPSS", "FD001")
+        model = build_model(method, dataset, dataset_id)
         model.load_state_dict(sd)
         return _no_dropout(model.to(dtype))
 
     def engine(device, dtype=torch.float32):
         return Engine(seeded(dtype), get_algorithm_spec(method),
-                      train_params("CMAPSS", "FD001", method), device=device)
+                      train_params(dataset, dataset_id, method),
+                      device=device)
 
     engines = {device: engine(device) for device in ("cuda", "cpu")}
     rng = np.random.default_rng(2)
-    xs = rng.normal(size=(PARITY_STEPS, SERVE_BATCH, 14, 50)).astype(
-        np.float32)
+    xs = _windows(dataset, rng, PARITY_STEPS * SERVE_BATCH)
+    xs = xs.reshape(PARITY_STEPS, SERVE_BATCH, *xs.shape[1:])
     ys = rng.uniform(size=(PARITY_STEPS, SERVE_BATCH, 1)).astype(np.float32)
 
     path = _path(method)
-    sel = _Selections(method) if method in RANKED else None
+    sel = _replayer(method)
     states = [] if method in GRADIENT_HELD else None
+    cudnn_off = method in CUDNN_OFF
     _reset()
-    with _during(sel, "record"):
-        card = _steps(engines["cuda"], xs, ys, "cuda", states=states)
+    with _during(sel, "record"), _cudnn(not cudnn_off):
+        card = _steps(engines["cuda"], xs, ys, "cuda",
+                      states=None if cudnn_off else states)
+    if cudnn_off:
+        # The steps as the card trains, on cuDNN: the weights at which the
+        # gradient is held, and their distance from fp64, printed.
+        engines["cudnn"] = engine("cuda")
+        card_cudnn = _steps(engines["cudnn"], xs, ys, "cuda", states=states)
     torch.cuda.synchronize()
     fwd_launches, bwd_launches = _counts(path.kernel)
     _only_its_kernel(method, "train parity")
@@ -1243,7 +1446,7 @@ def _train_parity(method: str) -> None:
         sel.report(method, f"{PARITY_STEPS} training steps")
     for i, state in enumerate((states or [])[:GRADIENT_HELD.get(method)]):
         def at_step(dtype=torch.float32, state=state):
-            model = build_model(method, "CMAPSS", "FD001")
+            model = build_model(method, dataset, dataset_id)
             model.load_state_dict(state)
             return _no_dropout(model.to(dtype))
         _hold_term_gradients(method, at_step, xs[i], ys[i], step=i + 1)
@@ -1251,7 +1454,7 @@ def _train_parity(method: str) -> None:
 
     params = {dev: {k: p.detach().cpu().double() for k, p in
                     engines[dev].model.named_parameters()}
-              for dev in ("cuda", "cpu")}
+              for dev in engines}
     param_diff = max((p - params["cpu"][k]).abs().max().item()
                      for k, p in params["cuda"].items())
     print(f"train parity {method}: {PARITY_STEPS} steps at batch "
@@ -1270,9 +1473,21 @@ def _train_parity(method: str) -> None:
     loss_miss = not np.all(np.abs(card - cpu)
                            <= LOSS_ATOL + LOSS_RTOL * np.abs(cpu))
     param_miss = not param_diff < PARAM_MAX_DIFF
-    if not (loss_miss or param_miss):
+    if not (loss_miss or param_miss or cudnn_off):
         return
     losses64, params64 = exact()
+    if cudnn_off:
+        on, off_ = (max((p - params64[k]).abs().max().item()
+                        for k, p in params[dev].items())
+                    for dev in ("cudnn", "cuda"))
+        print(f"train parity {method}: against the same steps in fp64 on "
+              f"the CPU, the card's parameters on cuDNN are off by "
+              f"{on:.3e} and its losses by "
+              f"{float(np.abs(card_cudnn - losses64).max()):.3e}; without "
+              f"cuDNN (the steps held here) by {off_:.3e} and "
+              f"{float(np.abs(card - losses64).max()):.3e}")
+        if not (loss_miss or param_miss):
+            return
     worst = max(params["cuda"], key=lambda k: (
         params["cuda"][k] - params["cpu"][k]).abs().max().item())
     off = {dev: (float(np.abs(run - losses64).max()),
@@ -1312,18 +1527,44 @@ def _train_parity(method: str) -> None:
                              f"fp32 by {off['cpu'][1]}")
 
 
-def _write_fd001(root: str, seed: int = 3):
+FD001_TEST_ROWS = 13096  # the rows of test_FD001.txt, 100 engines
+# The 21 sensors' levels in FD001's files; the 7 the preprocessor drops
+# (s1, s5, s6, s10, s16, s18, s19) are flat, the others drift with wear.
+_FD001_LEVELS = (518.67, 642.0, 1585.0, 1400.0, 14.62, 21.61, 553.9,
+                 2388.0, 9050.0, 1.3, 47.3, 521.7, 2388.0, 8130.0, 8.42,
+                 0.03, 392.0, 2388.0, 100.0, 38.9, 23.3)
+_FD001_FLAT = (0, 4, 5, 9, 15, 17, 18)
+
+
+def _engine_lengths(rng, total: int, lo: int, hi: int) -> np.ndarray:
+    """FD001_ENGINES lengths drawn in [lo, hi), scaled to sum to
+    ``total``."""
+    lengths = rng.integers(lo, hi, FD001_ENGINES)
+    lengths = np.floor(lengths * total / lengths.sum()).astype(int)
+    lengths[: total - lengths.sum()] += 1
+    return lengths
+
+
+class _Processed(NamedTuple):
+    """A processed dataset on disk and in the loader's layout: the training
+    windows and labels, the test windows per key (None for one test set,
+    the bearing for PHM2012), the max RUL of the first test key, and the
+    ``--data_path`` root."""
+    train_x: np.ndarray
+    train_y: np.ndarray
+    tests: dict
+    max_rul: float
+    root: str
+
+
+def _write_fd001(root: str, seed: int = 3) -> _Processed:
     """A synthetic processed FD001 at the real size, in the layout of the
     C-MAPSS preprocessor: per engine a [0, 1] sensor series, every window
     of 50 at stride 1 labelled with the capped RUL at its last row over
-    MAX_RUL; one test window per engine. Returns (train x, train y) in the
-    loader's layout and the data root."""
+    MAX_RUL; one test window per engine."""
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(128, 363, FD001_ENGINES)
-    lengths = np.floor(lengths * FD001_ROWS / lengths.sum()).astype(int)
-    lengths[: FD001_ROWS - lengths.sum()] += 1
     train_x, train_y, test_x, test_y = [], [], [], []
-    for length in lengths:
+    for length in _engine_lengths(rng, FD001_ROWS, 128, 363):
         series = np.clip(0.5 + np.cumsum(
             rng.normal(scale=0.02, size=(length, 14)), axis=0), 0, 1)
         rul = np.minimum(np.arange(length)[::-1], MAX_RUL) / MAX_RUL
@@ -1342,26 +1583,69 @@ def _write_fd001(root: str, seed: int = 3):
                    np.array(test_y, np.float32)[:, None], MAX_RUL)
     if len(train_x) != FD001_ROWS - FD001_ENGINES * (WINDOW - 1):
         raise AssertionError(f"{len(train_x)} training windows")
-    return ((np.ascontiguousarray(train_x.transpose(0, 2, 1)), train_y),
-            np.stack(test_x).astype(np.float32).transpose(0, 2, 1),
-            os.path.join(root, "Processed_dataset"))
+    return _Processed(
+        np.ascontiguousarray(train_x.transpose(0, 2, 1)), train_y,
+        {None: np.stack(test_x).astype(np.float32).transpose(0, 2, 1)},
+        MAX_RUL, os.path.join(root, "Processed_dataset"))
 
 
-def _train_entry_point(method: str, fd001):
+def _write_phm2012(root: str, seed: int = 7) -> _Processed:
+    """A synthetic processed PHM2012 Condition_1 at FEMTO's real size, in
+    the layout of the PHM2012 preprocessor: a snapshot of 2,560 samples per
+    acc file (PHM_C1_FILES), min-max scaled; train the two training
+    bearings' 3,674 snapshots, shuffled; test a dict of the five test
+    bearings; labels ``(n - i + RUL_last)`` over their max, and
+    ``max_ruls`` per bearing."""
+    rng = np.random.default_rng(seed)
+    split = phm2012.TRAIN_TEST_SPLIT
+    x, y, max_ruls = {}, {}, {}
+    for bearing, n in PHM_C1_FILES.items():
+        # A vibration whose amplitude grows as the bearing wears.
+        amp = np.linspace(0.05, 0.5, n, dtype=np.float32)[:, None]
+        x[bearing] = np.clip(0.5 + amp * rng.standard_normal(
+            (n, SIGNAL_LENGTH), dtype=np.float32), 0, 1)
+        labels = n - np.arange(n) + phm2012.RUL_DICT[bearing]
+        max_ruls[bearing] = float(labels.max())
+        y[bearing] = (labels / labels.max()).astype(np.float32)
+    train = split["Condition1_train"]
+    perm = rng.permutation(sum(PHM_C1_FILES[b] for b in train))
+    train_x = np.concatenate([x[b] for b in train])[perm]
+    train_y = np.concatenate([y[b] for b in train])[perm]
+    tests = {b: x[b] for b in split["Condition1_test"]}
+    data_dir = os.path.join(root, "Processed_dataset", "PHM2012",
+                            "Condition_1")
+    save_processed(data_dir, "train", train_x, train_y, max_ruls)
+    save_processed(data_dir, "test", tests,
+                   {b: y[b] for b in tests}, max_ruls)
+    first = split["Condition1_test"][0]
+    return _Processed(train_x[:, None, :], train_y[:, None],
+                      {b: v[:, None, :] for b, v in tests.items()},
+                      max_ruls[first], os.path.join(root,
+                                                    "Processed_dataset"))
+
+
+def _results_rows(run_dir: str, key) -> list:
+    """The rows of a run's results.csv (``<key>_results.csv`` for a key of
+    a dict test set)."""
+    tag = f"{key}_" if key is not None else ""
+    with open(os.path.join(run_dir, f"{tag}results.csv")) as f:
+        return [line.strip().split(",") for line in f if line.strip()]
+
+
+def _train_entry_point(method: str, data: _Processed):
     """The main path: ``cli.main`` trains one epoch of ``method`` on the
     card; then ``cli.main --eval_torch_checkpoint`` evaluates the epoch's
-    checkpoint.pt, whose metrics must be the trainer's own. Returns the
-    kernel's (forward, backward) launches and its backward calls over the
-    training run, and its launches over the evaluation."""
-    (train_x, _), test_x, data_root = fd001
-    save_dir = os.path.join(os.path.dirname(data_root), "logs")
+    checkpoint.pt, whose metrics must be the trainer's own on every test
+    set. Returns the kernel's (forward, backward) launches and its backward
+    calls over the training run, and its launches over the evaluation."""
+    dataset, dataset_id = CELL[method]
+    save_dir = os.path.join(os.path.dirname(data.root), "logs")
+    args = ["--GNN_method", method, "--dataset", dataset, "--dataset_id",
+            dataset_id, "--data_path", data.root, "--save_dir", save_dir]
     path = _path(method)
     _reset()
     t0 = time.perf_counter()
-    results = cli.main([
-        "--GNN_method", method, "--dataset", "CMAPSS", "--dataset_id",
-        "FD001", "--data_path", data_root, "--save_dir", save_dir,
-        "--epochs", "1", "--num_runs", "1"])
+    results = cli.main(args + ["--epochs", "1", "--num_runs", "1"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd_launches, bwd_launches = _counts(path.kernel)
@@ -1371,74 +1655,80 @@ def _train_entry_point(method: str, fd001):
     run_dir = os.path.join(save_dir, "GNN_RUL", "run_1", f"{method}_run_0")
     with open(os.path.join(run_dir, "logs_run_0.log")) as f:
         losses = [float(v) for v in re.findall(r"loss\t: (\S+)", f.read())]
-    with open(os.path.join(run_dir, "results.csv")) as f:
-        rows = [line.strip().split(",") for line in f if line.strip()]
-    best = results[0][None]
-    print(f"train entry point {method}: cli.main, 1 epoch of {len(train_x)} "
-          f"windows on the card in {wall:.2f} s (build, upload and "
-          f"evaluation included); epoch loss {losses}; best (Score_v1, "
-          f"Score_v2, MAE, RMSE) {best}; launches forward {fwd_launches}, "
-          f"backward {bwd_launches} in {bwd_calls} calls")
+    best = results[0]
+    n_test = sum(map(len, data.tests.values()))
+    print(f"train entry point {method}: cli.main, 1 epoch of "
+          f"{len(data.train_x)} windows on the card in {wall:.2f} s (build, "
+          f"upload and evaluation of {n_test} test windows included); epoch "
+          f"loss {losses}; best (Score_v1, Score_v2, MAE, RMSE) "
+          f"{best if len(best) > 1 else best[None]}; launches forward "
+          f"{fwd_launches}, backward {bwd_launches} in {bwd_calls} calls")
     if len(losses) != 1 or not np.isfinite(losses[0]):
         raise AssertionError(f"epoch losses {losses}")
-    if rows[0] != ["Score_v1", "Score_v2", "MAE", "RMSE"] or len(rows) != 2 \
-            or not np.isfinite([float(v) for v in rows[1]]).all():
-        raise AssertionError(f"results.csv holds {rows}")
-    steps = -(-len(train_x) // SERVE_BATCH)
-    evals = -(-len(test_x) // SERVE_BATCH)
+    if set(best) != set(data.tests):
+        raise AssertionError(f"results for {sorted(best)}")
+    for key in data.tests:
+        rows = _results_rows(run_dir, key)
+        if rows[0] != ["Score_v1", "Score_v2", "MAE", "RMSE"] \
+                or len(rows) != 2 \
+                or not np.isfinite([float(v) for v in rows[1]]).all():
+            raise AssertionError(f"results.csv of {key} holds {rows}")
+    steps = -(-len(data.train_x) // SERVE_BATCH)
+    evals = sum(-(-len(x) // SERVE_BATCH) for x in data.tests.values())
     want = (path.train_per_forward * steps + path.per_forward * evals,
             path.train_per_forward * path.bwd_per_call * steps)
     if (fwd_launches, bwd_launches) != want:
         raise AssertionError(f"expected (forward, backward) launches {want}, "
                              f"got {(fwd_launches, bwd_launches)}")
 
+    key, test_x = next(iter(data.tests.items()))
     if method == "STAGNN":
         _adjacency_margin("FD001 test windows", test_x)
     ckpt_path = os.path.join(run_dir, "checkpoint.pt")
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-    on_card, on_cpu = (serving_model(method, "CMAPSS", "FD001",
+    on_card, on_cpu = (serving_model(method, dataset, dataset_id,
                                      ckpt["model_dict"],
                                      batch_size=SERVE_BATCH, device=dev)
                        for dev in ("cuda", "cpu"))
-    sel = _Selections(method) if method in RANKED else None
+    sel = _replayer(method)
     with _during(sel, "record"):
         got = on_card(test_x)
     with _during(sel, "replay"):
         want_pred = on_cpu(test_x)
+    what = f"{dataset} test windows{f' of {key}' if key else ''}"
     if sel:
-        sel.report(method, "FD001 test windows, trained weights")
+        sel.report(method, f"{what}, trained weights")
     if got.shape != (len(test_x),) or not np.isfinite(got).all():
         raise AssertionError(f"checkpoint serves {got.shape} or non-finite")
     np.testing.assert_allclose(got, want_pred, atol=SERVE_ATOL,
                                rtol=SERVE_RTOL)
     print(f"train entry point {method}: checkpoint.pt serves {len(test_x)} "
-          f"test windows on the card as on the CPU (atol={SERVE_ATOL}, "
+          f"{what} on the card as on the CPU (atol={SERVE_ATOL}, "
           f"rtol={SERVE_RTOL})")
 
     _reset()
-    evaluated = cli.main([
-        "--GNN_method", method, "--dataset", "CMAPSS", "--dataset_id",
-        "FD001", "--data_path", data_root, "--save_dir", save_dir,
-        "--eval_torch_checkpoint", ckpt_path])
+    evaluated = cli.main(args + ["--eval_torch_checkpoint", ckpt_path])
     torch.cuda.synchronize()
     eval_launches = _counts(path.kernel)[0]
     _only_its_kernel(method, "evaluate_only")
-    eval_diff = float(np.max(np.abs(np.subtract(evaluated[None], best))
-                             / np.maximum(np.abs(best), 1e-30)))
+    eval_diff = max(float(np.max(np.abs(np.subtract(evaluated[k], best[k]))
+                                 / np.maximum(np.abs(best[k]), 1e-30)))
+                    for k in best)
     print(f"train entry point {method}: cli.main --eval_torch_checkpoint "
-          f"on checkpoint.pt: (Score_v1, Score_v2, MAE, RMSE) "
-          f"{evaluated[None]}, the trainer's {best}, largest relative "
-          f"difference {eval_diff:.3e}; launches forward {eval_launches}")
-    np.testing.assert_allclose(evaluated[None], best, rtol=1e-5)
+          f"on checkpoint.pt: (Score_v1, Score_v2, MAE, RMSE) of "
+          f"{len(evaluated)} test set(s) equal the trainer's, largest "
+          f"relative difference {eval_diff:.3e}; launches forward "
+          f"{eval_launches}")
+    for k in best:
+        np.testing.assert_allclose(evaluated[k], best[k], rtol=1e-5)
     if eval_launches != path.per_forward * evals:
         raise AssertionError(f"evaluate_only launched {eval_launches}, not "
                              f"{path.per_forward * evals}")
     art_path = os.path.join(run_dir, "model.pt2")
-    line = export.main(["--checkpoint", os.path.join(run_dir, "checkpoint.pt"),
-                        "--GNN_method", method, "--dataset", "CMAPSS",
-                        "--dataset_id", "FD001", "--out", art_path,
-                        "--batch_size", str(SERVE_BATCH),
-                        "--max_rul", str(MAX_RUL)])
+    line = export.main(["--checkpoint", ckpt_path, "--GNN_method", method,
+                        "--dataset", dataset, "--dataset_id", dataset_id,
+                        "--out", art_path, "--batch_size", str(SERVE_BATCH),
+                        "--max_rul", str(data.max_rul)])
     got_art = export.load_artifact(art_path)(test_x)
     np.testing.assert_allclose(got_art, got, atol=ARTIFACT_ATOL,
                                rtol=ARTIFACT_RTOL)
@@ -1447,6 +1737,182 @@ def _train_entry_point(method: str, fd001):
           f"windows as the live model on the card does (atol="
           f"{ARTIFACT_ATOL}, rtol={ARTIFACT_RTOL})")
     return fwd_launches, bwd_launches, bwd_calls, eval_launches
+
+
+def _write_raw_fd001(root: str, seed: int = 5):
+    """A raw C-MAPSS FD001 tree at its real size, in the files' format:
+    100 train engines of 20,631 rows and 100 test engines of 13,096 (some
+    shorter than the window), 26 space-separated columns ending in two
+    blanks; the RUL file one value and a blank a line. Returns the train
+    lengths and the test RULs."""
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "CMAPSSData")
+    os.makedirs(base)
+    fmt = ["%d", "%d", "%.4f", "%.4f", "%.1f"] + ["%.4f"] * 21
+    train_len = _engine_lengths(rng, FD001_ROWS, 128, 363)
+    test_len = _engine_lengths(rng, FD001_TEST_ROWS, 31, 303)
+    for name, lengths in (("train", train_len), ("test", test_len)):
+        tables = []
+        for eid, n in enumerate(lengths, start=1):
+            cycle = np.arange(1, n + 1)
+            wear = (cycle / n)[:, None] * rng.uniform(-1, 1, 21)
+            wear[:, list(_FD001_FLAT)] = 0.0
+            noise = rng.normal(scale=0.002, size=(n, 21))
+            noise[:, list(_FD001_FLAT)] = 0.0
+            sensors = np.asarray(_FD001_LEVELS) * (1 + 0.01 * wear + noise)
+            tables.append(np.column_stack([
+                np.full(n, eid), cycle,
+                rng.normal(scale=0.002, size=n).round(4),
+                rng.normal(scale=0.0003, size=n).round(4),
+                np.full(n, 100.0), sensors]))
+        np.savetxt(os.path.join(base, f"{name}_FD001.txt"),
+                   np.concatenate(tables), fmt=fmt, delimiter=" ",
+                   newline="  \n")
+    ruls = rng.integers(7, 146, FD001_ENGINES)
+    with open(os.path.join(base, "RUL_FD001.txt"), "w") as f:
+        f.writelines(f"{r} \n" for r in ruls)
+    return train_len, ruls
+
+
+def _write_raw_phm2012(root: str, files: int = 50, seed: int = 6) -> None:
+    """A raw PHM2012 Condition_1 tree in FEMTO's format: ``files`` acc files
+    for each of its seven bearings, 2,560 rows of (hour, minute, second,
+    microsecond, horizontal and vertical acceleration) each; Bearing1_3's
+    files are ';'-separated, as some of FEMTO's are."""
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "PHM_2012_Bearing_Datasets")
+    split = phm2012.TRAIN_TEST_SPLIT
+    micro = 39 * np.arange(SIGNAL_LENGTH)
+    for folder, names in (("Learning_set", split["Condition1_train"]),
+                          ("Test_set", split["Condition1_test"])):
+        for name in names:
+            d = os.path.join(base, folder, name)
+            os.makedirs(d)
+            for i in range(files):
+                acc = rng.normal(scale=0.2 + i / files,
+                                 size=(SIGNAL_LENGTH, 2))
+                table = np.column_stack([
+                    np.full(SIGNAL_LENGTH, 9), np.full(SIGNAL_LENGTH, i // 6),
+                    np.full(SIGNAL_LENGTH, 10 * (i % 6)), 65664 + micro, acc])
+                np.savetxt(os.path.join(d, f"acc_{i + 1:05d}.csv"), table,
+                           fmt=["%d"] * 4 + ["%.3f"] * 2,
+                           delimiter=";" if name == "Bearing1_3" else ",")
+
+
+def _preprocess_cli(*argv: str) -> None:
+    """``python -m gnn_rul_tpu_torch.data.preprocess *argv``, run in this
+    process, so that what it imports stays visible."""
+    kept = sys.argv
+    sys.argv = ["gnn_rul_tpu_torch.data.preprocess", *argv]
+    try:
+        runpy.run_module("gnn_rul_tpu_torch.data.preprocess",
+                         run_name="__main__")
+    finally:
+        sys.argv = kept
+
+
+def _train_from(method: str, dataset: str, dataset_id: str, root: str,
+                save_dir: str) -> None:
+    """``cli.main`` trains one epoch of ``method`` from the processed set
+    under ``root``; the kernels' launches must be the method's path's
+    exactly."""
+    data = load_processed(os.path.join(root, dataset, dataset_id), "train")
+    test = load_processed(os.path.join(root, dataset, dataset_id), "test")
+    tests = (test["samples"].values() if isinstance(test["samples"], dict)
+             else [test["samples"]])
+    path = _path(method)
+    _reset()
+    t0 = time.perf_counter()
+    results = cli.main(["--GNN_method", method, "--dataset", dataset,
+                        "--dataset_id", dataset_id, "--data_path", root,
+                        "--save_dir", save_dir, "--epochs", "1",
+                        "--num_runs", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts(path.kernel)
+    _only_its_kernel(method, "preprocess")
+    steps = -(-len(data["samples"]) // SERVE_BATCH)
+    evals = sum(-(-len(x) // SERVE_BATCH) for x in tests)
+    want = (path.train_per_forward * steps + path.per_forward * evals,
+            path.train_per_forward * path.bwd_per_call * steps)
+    best = results[0]
+    print(f"preprocess: {method} trained 1 epoch from the preprocessed "
+          f"{dataset}/{dataset_id} ({len(data['samples'])} windows) in "
+          f"{wall:.2f} s; best {best}; launches (forward, backward) "
+          f"{launches}")
+    if launches != want:
+        raise AssertionError(f"expected (forward, backward) launches {want}, "
+                             f"got {launches}")
+    if not all(np.isfinite(v).all() for v in best.values()):
+        raise AssertionError(f"metrics {best}")
+
+
+def _preprocess(tmp: str) -> None:
+    """The offline path from raw files, pandas never imported: a raw FD001
+    tree at its real size through ``python -m
+    gnn_rul_tpu_torch.data.preprocess --dataset CMAPSS`` (15,731 train
+    windows and 100 test windows, each label the capped RUL at its
+    window's end), FC_STGNN trained one epoch from its output through
+    ``cli.main``; a raw PHM2012 Condition_1 tree of 2,560 x 6 files, 50 a
+    bearing (one bearing ';'-separated), preprocessed, and SAGCN trained
+    one epoch from it."""
+    raw, out = os.path.join(tmp, "raw"), os.path.join(tmp, "preprocessed")
+    save_dir = os.path.join(tmp, "preprocess_logs")
+    t0 = time.perf_counter()
+    train_len, ruls = _write_raw_fd001(raw)
+    t1 = time.perf_counter()
+    _preprocess_cli("--dataset", "CMAPSS", "--data_root", raw,
+                    "--dataset_id", "FD001", "--out_dir", out)
+    t2 = time.perf_counter()
+    fd001 = os.path.join(out, "CMAPSS", "FD001")
+    train, test = (load_processed(fd001, split) for split in ("train",
+                                                              "test"))
+    labels = np.concatenate([
+        np.minimum(n - np.arange(WINDOW, n + 1), MAX_RUL) / MAX_RUL
+        for n in train_len]).astype(np.float32)[:, None]
+    test_labels = (np.minimum(ruls, MAX_RUL) / MAX_RUL).astype(
+        np.float32)[:, None]
+    print(f"preprocess: raw FD001 ({FD001_ROWS} train rows, "
+          f"{FD001_TEST_ROWS} test rows) written in {t1 - t0:.2f} s, "
+          f"preprocessed in {t2 - t1:.2f} s: train {train['samples'].shape}, "
+          f"test {test['samples'].shape}, train windows in "
+          f"[{train['samples'].min():.4f}, {train['samples'].max():.4f}]")
+    if train["samples"].shape != (FD001_ROWS - FD001_ENGINES * (WINDOW - 1),
+                                  WINDOW, 14) \
+            or test["samples"].shape != (FD001_ENGINES, WINDOW, 14):
+        raise AssertionError("FD001 preprocessed to other shapes")
+    if not (np.array_equal(train["labels"], labels)
+            and np.array_equal(test["labels"], test_labels)):
+        raise AssertionError("a label is not the capped RUL at its "
+                             "window's end")
+    if not (0.0 <= train["samples"].min() and train["samples"].max() <= 1.0):
+        raise AssertionError("FD001's one condition does not scale to "
+                             "[0, 1]")
+    _train_from("FC_STGNN", "CMAPSS", "FD001", out, save_dir)
+
+    t0 = time.perf_counter()
+    _write_raw_phm2012(raw)
+    t1 = time.perf_counter()
+    _preprocess_cli("--dataset", "PHM2012", "--data_root", raw,
+                    "--condition", "1", "--out_dir", out)
+    t2 = time.perf_counter()
+    c1 = os.path.join(out, "PHM2012", "Condition_1")
+    train, test = (load_processed(c1, split) for split in ("train", "test"))
+    print(f"preprocess: raw PHM2012 Condition_1 (7 bearings x 50 files of "
+          f"{SIGNAL_LENGTH} x 6) written in {t1 - t0:.2f} s, preprocessed "
+          f"in {t2 - t1:.2f} s: train {train['samples'].shape}, test "
+          f"{ {b: v.shape for b, v in test['samples'].items()} }, max_ruls "
+          f"{train['max_ruls']}")
+    if train["samples"].shape != (100, SIGNAL_LENGTH) \
+            or sorted(test["samples"]) != phm2012.TRAIN_TEST_SPLIT[
+                "Condition1_test"] \
+            or train["max_ruls"]["Bearing1_4"] != 50 + 33.9:
+        raise AssertionError("PHM2012 preprocessed to other shapes")
+    _train_from("SAGCN", "PHM2012", "Condition_1", out, save_dir)
+    if "pandas" in sys.modules:
+        raise AssertionError("pandas was imported")
+    print("preprocess: raw files to training on the card, pandas never "
+          "imported")
 
 
 def _graph_ms(fn, inner: int = 50, reps: int = 21) -> float:
@@ -1493,8 +1959,11 @@ def _request_ms(model, x, warmup: int = 5, reps: int = 30) -> float:
 def _profile(name: str, fn, untraced_ms: float, unit: str,
              reps: int = 10) -> None:
     """Print the card's time per ``fn()`` by kernel and copy
-    (torch.profiler) and its share of ``untraced_ms``, the time of one call
-    measured without the profiler (which slows the host down)."""
+    (torch.profiler), its share of the traced calls' own wall time (the
+    same window), and beside it its share of ``untraced_ms``, the time of
+    one call measured in a separate run without the profiler (which slows
+    the host down; the card's time in one window over the wall time of
+    another can pass 100%)."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
@@ -1515,8 +1984,9 @@ def _profile(name: str, fn, untraced_ms: float, unit: str,
     ours_us = sum(e.device_time_total for e in on_card
                   if any(k in e.key for k in OUR_KERNELS)) / reps
     print(f"profile {name} [{SMI}]: card busy {busy_us:.1f} us per {unit}, "
-          f"{100 * busy_us / (untraced_ms * 1e3):.1f}% of the untraced "
-          f"{unit} (traced {unit} {traced_us:.1f} us); the port's kernels "
+          f"{100 * busy_us / traced_us:.1f}% of the traced {unit} "
+          f"({traced_us:.1f} us), {100 * busy_us / (untraced_ms * 1e3):.1f}% "
+          f"of the untraced {unit} (a separate run); the port's kernels "
           f"{ours_us:.1f} us ({100 * ours_us / busy_us:.1f}% of busy); "
           f"by kernel:")
     for e in on_card[:16]:
@@ -1704,7 +2174,11 @@ def _lstm_times(shapes):
         def lib_train():
             lib(x)[0].backward(g)
 
-        train_fwd = _event_ms(lambda: lib(x))
+        # cuDNN's calls a timed run: 10 up to T = 200, fewer above (one
+        # from T = 1,400; HAGCN's T = 14,000 takes ~60 ms forward, ~120 ms
+        # forward and backward), a depth cut in PR 11 (PERF.md §4).
+        lib_inner = max(1, min(10, 2000 // t))
+        train_fwd = _event_ms(lambda: lib(x), inner=lib_inner)
         # The plain versions' Python time loops take ~0.5 (forward) and
         # ~0.9 s (backward) a call at HAGCN's T = 14,000: fewer replays.
         plain_reps = 21 if t <= 2000 else 3
@@ -1716,14 +2190,15 @@ def _lstm_times(shapes):
             "fwd": (_graph_ms(lambda: kernel.forward(xg, w), inner=calls),
                     _graph_ms(lambda: fused_lstm.lstm_trajectory_plain(xg, w),
                               inner=inner, reps=plain_reps),
-                    *_lstm_bound_ms(t, b, h), _event_ms(lib_fwd)),
+                    *_lstm_bound_ms(t, b, h),
+                    _event_ms(lib_fwd, inner=lib_inner)),
             "bwd": (_graph_ms(lambda: kernel.backward(xg, w, ys, cs, dys,
                                                       dcf), inner=calls),
                     _graph_ms(lambda: fused_lstm.lstm_recurrence_bwd_plain(
                         xg, w, ys, cs, dys, dcf), inner=max(1, inner // 3),
                         reps=plain_reps),
                     *_lstm_bound_ms(t, b, h, backward=True),
-                    _event_ms(lib_train) - train_fwd),
+                    _event_ms(lib_train, inner=lib_inner) - train_fwd),
         }
         for part, name in (("fwd", "lstm_recurrence"),
                            ("bwd", "lstm_recurrence_bwd")):
@@ -1791,12 +2266,15 @@ def _lstm_cluster_times(t: int = 200, h: int = 120) -> None:
 
 
 def _serve_times(method: str, fixed, symbolic, x100, x1000) -> None:
-    for name, model, xs in (("batch 100", fixed, x100),
-                            ("batch 1000", symbolic, x1000)):
+    # The forward alone: 10 forwards a CUDA graph at batch 100, 2 at 1000
+    # (a depth cut in PR 11, PERF.md §4: HAGCN's forward of 1000 takes
+    # ~42 ms).
+    for name, model, xs, inner in (("batch 100", fixed, x100, 10),
+                                   ("batch 1000", symbolic, x1000, 2)):
         req_ms = _request_ms(model, xs)
         x_dev = torch.from_numpy(xs).cuda()
         with torch.inference_mode():
-            fwd_ms = _graph_ms(lambda: model.model(x_dev), inner=10)
+            fwd_ms = _graph_ms(lambda: model.model(x_dev), inner=inner)
         print(f"serve {method} {name} [{SMI}]: {req_ms:.4f} ms/request, "
               f"{len(xs) / req_ms * 1e3:.1f} samples/s; the forward's device "
               f"work alone (CUDA graph) {fwd_ms:.4f} ms")
@@ -1820,12 +2298,13 @@ def _artifact_times(method: str, artifact, symbolic, x100, x1000) -> None:
                  lambda: artifact(xs), art_a, "request")
 
 
-def _train_times(method: str, fd001) -> None:
-    (train_x, train_y), _, _ = fd001
+def _train_times(method: str, data: _Processed) -> None:
+    train_x, train_y = data.train_x, data.train_y
+    dataset, dataset_id = CELL[method]
     torch.manual_seed(0)
-    engine = Engine(build_model(method, "CMAPSS", "FD001"),
+    engine = Engine(build_model(method, dataset, dataset_id),
                     get_algorithm_spec(method),
-                    train_params("CMAPSS", "FD001", method))
+                    train_params(dataset, dataset_id, method))
     xb = torch.from_numpy(train_x[:SERVE_BATCH]).cuda()
     yb = torch.from_numpy(train_y[:SERVE_BATCH]).cuda()
     step_ms = _step_ms(engine, xb, yb)
@@ -1837,7 +2316,8 @@ def _train_times(method: str, fd001) -> None:
     if rem:
         engine.train_step(xb[:rem], yb[:rem])
     t0 = time.perf_counter()
-    engine.run_epoch(train_x, train_y, 1, shuffle=True)
+    engine.run_epoch(train_x, train_y, 1,
+                     shuffle=get_dataset_config(dataset).shuffle)
     epoch_s = time.perf_counter() - t0
     steps = -(-len(train_x) // SERVE_BATCH)
     path = _path(method)
@@ -1891,8 +2371,11 @@ def main() -> None:
         _train_parity(method)
     phases.mark("train parity")
     with tempfile.TemporaryDirectory() as tmp:
-        fd001 = _write_fd001(tmp)
-        trained = {m: _train_entry_point(m, fd001) for m in METHODS}
+        _preprocess(tmp)
+        phases.mark("preprocess")
+        data = {"CMAPSS": _write_fd001(tmp), "PHM2012": _write_phm2012(tmp)}
+        trained = {m: _train_entry_point(m, data[CELL[m][0]])
+                   for m in METHODS}
         phases.mark("train entry point")
 
         kernel = fused_gnn.fused_dot_graph_spmm
@@ -1921,7 +2404,7 @@ def main() -> None:
             _serve_times(method, *served[method][:4])
             _artifact_times(method, artifacts[method][0],
                             *served[method][1:4])
-            _train_times(method, fd001)
+            _train_times(method, data[CELL[method][0]])
             phases.mark(f"times {method}")
         for tier, models in tiers.items():
             _serve_times(tier, *models)
@@ -2027,22 +2510,23 @@ _TURN = ("import chip_smoke as c; c._device(); c._build(); "
 
 # A turn of the host's times: each model's training step at batch 100 and
 # a request of 100 through the live model, through functions that every
-# tree since STFA's port has.
+# tree since the bearing models' port has.
 _HOST_TURN = """
 import numpy as np, torch
 import chip_smoke as c
 c._device(); c._build()
-rng = np.random.default_rng(0)
-x = rng.normal(size=(c.SERVE_BATCH, 14, 50)).astype(np.float32)
-y = rng.uniform(size=(c.SERVE_BATCH, 1)).astype(np.float32)
 for m in c.METHODS:
+    dataset, sub = c.CELL[m]
+    rng = np.random.default_rng(0)
+    x = c._windows(dataset, rng, c.SERVE_BATCH)
+    y = rng.uniform(size=(c.SERVE_BATCH, 1)).astype(np.float32)
     torch.manual_seed(0)
-    engine = c.Engine(c.build_model(m, "CMAPSS", "FD001"),
+    engine = c.Engine(c.build_model(m, dataset, sub),
                       c.get_algorithm_spec(m),
-                      c.train_params("CMAPSS", "FD001", m))
+                      c.train_params(dataset, sub, m))
     step = c._step_ms(engine, torch.from_numpy(x).cuda(),
                       torch.from_numpy(y).cuda())
-    model = c.serving_model(m, "CMAPSS", "FD001", c._seeded_state_dict(m),
+    model = c.serving_model(m, dataset, sub, c._seeded_state_dict(m),
                             batch_size=c.SERVE_BATCH)
     print(f"host turn {m} [{c.SMI}]: training step {step:.4f} ms, request "
           f"of {c.SERVE_BATCH} {c._request_ms(model, x):.4f} ms", flush=True)

@@ -4,14 +4,17 @@ The inverse of the JAX package's torch-reference import
 (``gnn_rul_tpu/compat/torch_import.py``: ``_map_fc_stgnn``, ``_map_logo``,
 ``_map_hagcn``, ``_map_rgcnu``, ``_map_stagnn``, ``_map_stfa``,
 ``_map_gru_cm``, ``_map_stgnn``, ``_map_dvgtformer``,
-``_hiercorrpool_core``, ``_map_astgcnn``, ``_map_st_conv``) for the ported
+``_hiercorrpool_core`` for HierCorrPool and HierCorrPool_bearing,
+``_map_astgcnn``, ``_map_st_conv``, ``_map_st_gcn``, ``_map_sagcn``,
+``_map_agcn_tf``, ``_map_stmsgcn``, ``_map_stnet``) for the ported
 methods: it takes the flax
 ``{"params", "batch_stats"}`` tree as numpy arrays and returns a
 ``state_dict`` under the original torch reference's keys, which the port's
 modules carry:
 
   - Dense kernel ``(in, out)``   -> Linear weight ``(out, in)``   [transpose]
-  - Conv kernel ``(k, in, out)`` -> Conv1d weight ``(out, in, k)``, and its
+  - Conv kernel ``(k, in, out)`` -> Conv1d weight ``(out, in, k)``, or
+    ``(kh, kw, in, out)`` -> Conv2d weight ``(out, in, kh, kw)``, and its
     ``bias`` where the flax tree has one
   - GAT ``att_kernel (2d, 1)``, ``att_bias (1,)`` -> the attention Linear's
     ``weight (1, 2d)``, ``bias (1,)``
@@ -97,16 +100,20 @@ def _gat_rows(prefix: str, path: Tuple[str, ...], head: str) -> Layout:
             (f"{prefix}.{head}.attention", "attention", path + (head,))]
 
 
-def _tcn_rows(name: str, downsample: bool) -> Layout:
+def _tcn_rows(name: str, downsample: bool,
+              at: Tuple[str, ...] = ()) -> Layout:
+    """A TemporalConvNet's rows: the torch prefix ``name``, the flax path
+    ``at`` (``(name,)`` where empty)."""
+    at = at or (name,)
     rows = []
     for block in (1, 2):
         rows += [(f"{name}.conv_block{block}.0", "conv",
-                  (name, f"conv{block}", "Conv_0")),
+                  at + (f"conv{block}", "Conv_0")),
                  (f"{name}.conv_block{block}.2", "bn",
-                  (name, f"bn{block}", "BatchNorm1d_0", "BatchNorm_0"))]
+                  at + (f"bn{block}", "BatchNorm1d_0", "BatchNorm_0"))]
     if downsample:
         rows.append((f"{name}.downsample0", "conv",
-                     (name, "downsample0", "Conv_0")))
+                     at + ("downsample0", "Conv_0")))
     return rows
 
 
@@ -265,8 +272,73 @@ def _st_conv_layout() -> Layout:
             ("fc", "linear", ("fc", "Dense_0"))]
 
 
-# method -> its layout, from the flax params (STAGNN's and STFA's head
-# counts, DVGTformer's block and head counts are read off the tree).
+def _st_gcn_layout(params: Dict[str, Any]) -> Layout:
+    """``(torch prefix, kind, flax path)`` for every ST_GCN layer; the
+    block count is read off the tree. Each block is the reference's
+    ``sg_tcn.layers.{i}``: ``.0`` the MPNN, ``.1`` the TCN (10 channels,
+    no ``downsample0``)."""
+    rows = []
+    for i in range(sum(k.startswith("mpnn") for k in params["sg_tcn"])):
+        layer = f"sg_tcn.layers.{i}"
+        rows.append((f"{layer}.0.theta.0", "linear",
+                     ("sg_tcn", f"mpnn{i}", "theta0", "Dense_0")))
+        rows += _tcn_rows(f"{layer}.1", False, ("sg_tcn", f"tcn{i}"))
+    return rows + [("fc1", "linear", ("fc1", "Dense_0")),
+                   ("fc2", "linear", ("fc2", "Dense_0"))]
+
+
+def _sagcn_layout() -> Layout:
+    """``(torch prefix, kind, flax path)`` for every SAGCN layer."""
+    rows = [("gcn1.linear", "linear", ("gcn1", "linear", "Dense_0"))]
+    for proj in ("proj1", "proj2"):
+        rows += [(f"{proj}.{name}", "linear", (proj, name, "Dense_0"))
+                 for name in ("project_matrices", "linear")]
+    rows += [(f"attn.{name}", "linear", ("attn", name, "Dense_0"))
+             for name in ("tanh_layer", "softmax_layer")]
+    return rows + [("fc", "linear", ("fc", "Dense_0"))]
+
+
+def _agcn_tf_layout(params: Dict[str, Any]) -> Layout:
+    """``(torch prefix, kind, flax path)`` for every AGCN_TF layer; the head
+    count is read off the tree."""
+    rows = []
+    for kind in ("spa", "tem"):
+        rows += [(f"attention_{kind}_adj.{2 * i}", "linear",
+                  (f"{kind}_adj{i}", "Dense_0")) for i in (0, 1)]
+    rows += [(f"{gnn}.theta.0", "linear", (gnn, "theta0", "Dense_0"))
+             for gnn in ("spatial_gnn", "temporal_gnn")]
+    for h in range(sum(k.startswith("head") for k in params)):
+        rows += [(f"self_attention.heads.{h}.{w}", "linear",
+                  (f"head{h}", w, "Dense_0")) for w in ("W_q", "W_k", "W_v")]
+    return rows + [("fc", "linear", ("fc", "Dense_0"))]
+
+
+def _stmsgcn_layout(params: Dict[str, Any]) -> Layout:
+    """``(torch prefix, kind, flax path)`` for every STMSGCN layer; the GCN
+    count is read off the tree."""
+    rows = [(f"gcn_layers.{i}.linear", "linear",
+             (f"gcn{i}", "linear", "Dense_0"))
+            for i in range(sum(k.startswith("gcn") for k in params))]
+    return rows + [("gru_layer.gru", "gru", ("gru",)),
+                   ("fc", "linear", ("fc", "Dense_0"))]
+
+
+def _stnet_layout(params: Dict[str, Any]) -> Layout:
+    """``(torch prefix, kind, flax path)`` for every STNet layer; the
+    ChebNet and MLP layer counts are read off the tree. The MLPs are the
+    reference's ``nn.Sequential``, their Linears at even indices."""
+    rows = [("cnn", "conv", ("cnn", "Conv_0"))]
+    rows += [(f"chebnets.{i}.filters", "param", (f"chebnet{i}", "filters"))
+             for i in range(sum(k.startswith("chebnet") for k in params))]
+    for mlp in ("encoder", "decoder"):
+        rows += [(f"{mlp}.{2 * i}", "linear", (mlp, f"Linear_{i}", "Dense_0"))
+                 for i in range(len(params[mlp]))]
+    return rows + [("lstm", "lstm", ("lstm",)),
+                   ("linear", "linear", ("linear", "Dense_0"))]
+
+
+# method -> its layout, from the flax params (head, block and layer counts
+# are read off the tree).
 _LAYOUTS = {"FC_STGNN": lambda params: _fc_stgnn_layout(),
             "LOGO": lambda params: _logo_layout(),
             "HAGCN": lambda params: _hagcn_layout(),
@@ -277,7 +349,12 @@ _LAYOUTS = {"FC_STGNN": lambda params: _fc_stgnn_layout(),
             "DVGTformer": _dvgtformer_layout,
             "HierCorrPool": lambda params: _hiercorrpool_layout(),
             "ASTGCNN": lambda params: _astgcnn_layout(),
-            "ST_Conv": lambda params: _st_conv_layout()}
+            "ST_Conv": lambda params: _st_conv_layout(),
+            "HierCorrPool_bearing": lambda params: _hiercorrpool_layout(),
+            "ST_GCN": _st_gcn_layout,
+            "SAGCN": lambda params: _sagcn_layout(),
+            "AGCN_TF": _agcn_tf_layout, "STMSGCN": _stmsgcn_layout,
+            "STNet": _stnet_layout}
 
 
 def _get(tree: Dict[str, Any], path: Tuple[str, ...]) -> Dict[str, Any]:
@@ -324,8 +401,9 @@ def from_jax_variables(method: str,
             sd[f"{prefix}.weight"] = _t(p["scale"])
             sd[f"{prefix}.bias"] = _t(p["bias"])
         elif kind == "conv":
-            sd[f"{prefix}.weight"] = _t(
-                np.asarray(p["kernel"]).transpose(2, 1, 0))
+            kernel = np.asarray(p["kernel"])  # (*spatial, in, out)
+            sd[f"{prefix}.weight"] = _t(kernel.transpose(
+                kernel.ndim - 1, kernel.ndim - 2, *range(kernel.ndim - 2)))
             if "bias" in p:
                 sd[f"{prefix}.bias"] = _t(p["bias"])
         else:

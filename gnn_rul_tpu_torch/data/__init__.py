@@ -1,1 +1,2 @@
-"""Processed-dataset loading and serialization."""
+"""Offline preprocessing (numpy, no pandas), processed-dataset loading and
+serialization."""

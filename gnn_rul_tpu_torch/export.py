@@ -40,8 +40,12 @@ CLI, from a ``checkpoint.pt`` of the port or of the reference:
         --out fc_stgnn_fd001.pt2 [--batch_size 0] [--device cuda]
 
 The ported methods are ``models.MODELS``: FC_STGNN, LOGO, HAGCN, RGCNU,
-STAGNN, STFA, GRU_CM, STGNN, DVGTformer, HierCorrPool, ASTGCNN and
-ST_Conv (RGCNU and the last six reach no port kernel). LOGO's recurrence
+STAGNN, STFA, GRU_CM, STGNN, DVGTformer, HierCorrPool, ASTGCNN, ST_Conv
+and the bearing methods HierCorrPool_bearing, ST_GCN, SAGCN, AGCN_TF,
+STMSGCN and STNet (RGCNU and the last twelve reach no port kernel; a
+bearing window is ``(batch, 1, L)``, the raw vibration signal). SAGCN's
+and AGCN_TF's spectral features pick a frequency bin and STNet's graph
+joins the nodes scoring above 0.7, step functions too. LOGO's recurrence
 runs along the batch axis and HAGCN's along the batch times the nodes, so
 the answer of either for a row depends on the other rows of the forward,
 padding rows included.
@@ -189,12 +193,16 @@ class ArtifactServingModel(ServingModel):
 def serving_model(method: str, dataset: str, dataset_id: Optional[str],
                   state_dict: Mapping[str, Any], *,
                   batch_size: Optional[int] = None,
+                  seq_len: Optional[int] = None,
                   device: str = "cuda") -> ServingModel:
     """Build ``method`` for ``(dataset, dataset_id)``, load ``state_dict``
     strictly and return a :class:`ServingModel` on ``device``.
 
     ``batch_size=None`` serves any batch in one forward; a fixed
-    ``batch_size`` runs every forward at that batch.
+    ``batch_size`` runs every forward at that batch. ``seq_len`` overrides
+    the dataset config's window length, as in :func:`export_serving`
+    (XJTU-SY's raw minute is 32,768 samples; the config's 30,768 is the
+    reference's stale value).
     """
     _check_batch_size(batch_size)
     dev = resolve_device(device)
@@ -207,7 +215,7 @@ def serving_model(method: str, dataset: str, dataset_id: Optional[str],
         "dataset": dataset,
         "dataset_id": dataset_id,
         "input_shape": [None if batch_size is None else int(batch_size),
-                        cfg.input_channels, cfg.sequence_len],
+                        cfg.input_channels, int(seq_len or cfg.sequence_len)],
         "output": _OUTPUT,
         "device": str(dev),
     }

@@ -100,8 +100,13 @@ class HierCorrPool(nn.Module):
         self.fc_1 = nn.Linear(embedding_dim * 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, _ = x.shape
-        xp = patchify(x, self.num_patch, self.patch_size)   # (B, T, N, P)
+        return self.trunk(patchify(x, self.num_patch, self.patch_size))
+
+    def trunk(self, xp: torch.Tensor) -> torch.Tensor:
+        """Node features ``(B, T, N, D)`` -> ``(B, 1)``: everything after
+        the front end (the JAX ``HierCorrPoolCore``), shared with
+        HierCorrPool_bearing."""
+        b, _, n, _ = xp.shape
         td_in = xp.reshape(b, self.num_patch, -1).transpose(1, 2)
         td_out = self.Time_Preprocessing(td_in).transpose(1, 2)
         # The reference's regrouping (Model.py:38-42): flatten (T', C), then

@@ -42,3 +42,18 @@ class BatchNormNCL(nn.BatchNorm1d):
             raise ValueError(f"BatchNormNCL expects (B, C, L), got "
                              f"{tuple(x.shape)}")
         return super().forward(x)
+
+
+class MLP(nn.Sequential):
+    """``Linear`` layers with a ReLU between them and none after the last
+    (the JAX ``MLP``), as the reference's ``nn.Sequential``: its Linears
+    are ``0``, ``2``, ``4`` ..."""
+
+    def __init__(self, in_features: int, features):
+        layers = []
+        for i, out_features in enumerate(features):
+            if i:
+                layers.append(nn.ReLU())
+            layers.append(nn.Linear(in_features, out_features))
+            in_features = out_features
+        super().__init__(*layers)

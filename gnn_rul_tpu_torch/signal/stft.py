@@ -1,0 +1,29 @@
+"""The bearing front ends' STFT magnitude (counterpart of
+``gnn_rul_tpu/signal/stft.py``).
+
+Every bearing front end of the reference calls ``torch.stft(x, n_fft=hop=
+win=nperseg, window=hann(periodic), return_complex=True)`` and takes the
+magnitude (e.g. models/STNet/Model.py:93-102), with torch's defaults
+``center=True`` (reflect-padded by nperseg // 2 on each side) and
+``onesided=True``: ``nperseg // 2 + 1`` bins and ``1 + L // nperseg``
+frames. The JAX package rebuilds that call from strided frames and an rFFT;
+the port makes the call itself, which on the card is cuFFT (the JAX
+package's is an XLA FFT, no Pallas kernel).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def stft_magnitude(x: torch.Tensor, nperseg: int) -> torch.Tensor:
+    """|STFT| of ``(B, L)`` signals -> ``(B, nperseg // 2 + 1, 1 + L //
+    nperseg)``."""
+    # Formed in float64 and rounded once: torch's float32 window is up to
+    # an ulp off the correctly rounded one (the JAX package's).
+    window = torch.hann_window(nperseg, periodic=True, dtype=torch.float64,
+                               device=x.device).to(x.dtype)
+    return torch.stft(x, n_fft=nperseg, hop_length=nperseg,
+                      win_length=nperseg, window=window, center=True,
+                      pad_mode="reflect", onesided=True,
+                      return_complex=True).abs()

@@ -6,9 +6,10 @@ auxiliary output (graph regularization for LOGO, KL for HAGCN,
 reconstruction for STNet and GDAGDL; RGCNU's is unused, weight 0).
 LOGO_bearing also steps a MultiStepLR([5, 10, 20, 25], 0.5) per batch.
 The table names all 21 methods of the reference; the ported ones are
-``models.MODELS`` (the twelve aero-engine methods: FC_STGNN, LOGO, HAGCN,
+``models.MODELS`` (the twelve aero-engine methods, FC_STGNN, LOGO, HAGCN,
 RGCNU, STAGNN, STFA, GRU_CM, STGNN, DVGTformer, HierCorrPool, ASTGCNN and
-ST_Conv), and every other name raises.
+ST_Conv, and six bearing methods, HierCorrPool_bearing, ST_GCN, SAGCN,
+AGCN_TF, STMSGCN and STNet), and every other name raises.
 """
 
 from __future__ import annotations

@@ -56,3 +56,16 @@ def calc_metrics(pred_labels, true_labels, max_rul):
     mae = mae_value(pred_labels, true_labels, max_rul)
     rmse = rmse_value(pred_labels, true_labels, max_rul)
     return s1, s2, mae, rmse
+
+
+def calc_metrics_aeroengine(pred_labels, true_labels, max_rul):
+    """(Score, AvgScore, RMSE): the reference's utils.py:171-178."""
+    s, avg = scoring_function(pred_labels, true_labels, max_rul)
+    return s, avg, rmse_value(pred_labels, true_labels, max_rul)
+
+
+def calc_metrics_bearing(pred_labels, true_labels, max_rul):
+    """(Score_v2, MAE, RMSE): the reference's utils.py:180-189."""
+    s = scoring_function_v2(pred_labels, true_labels)
+    return (s, mae_value(pred_labels, true_labels, max_rul),
+            rmse_value(pred_labels, true_labels, max_rul))

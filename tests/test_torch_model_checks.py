@@ -1,9 +1,24 @@
 """Checks shared by the per-model port tests (tests/test_torch_hagcn.py,
 test_torch_rgcnu.py, test_torch_gru_models.py, test_torch_hiercorrpool.py,
-test_torch_dvgtformer.py, test_torch_tcn_models.py): a port model against the
-JAX package's at CMAPSS/FD001 full width on the CPU, from the same
+test_torch_dvgtformer.py, test_torch_tcn_models.py,
+test_torch_bearing_models.py): a port model against the JAX package's at
+full width on the CPU, CMAPSS/FD001 for an aero-engine method and
+PHM2012/Condition_1 for a bearing method (:func:`cell`), from the same
 weights (carried by from_jax_variables) on the same seeded inputs. This
 module holds no test of its own.
+
+SAGCN's and AGCN_TF's spectral features select a frequency bin (the
+median and the peak of the spectrum), a step function of the FFT's
+magnitudes whose mirror pairs ``|X[k]| = |X[n - k]|`` tie in exact math:
+torch's FFT ties them exactly, the JAX package's complex FFT parts them by
+rounding. The port replays the JAX package's bins, recorded inside its own
+computation (:func:`record_bins`, :func:`replay`), and its own may differ
+from them only where the two bins' power lies within the forward's
+relative tolerance. STNet joins the nodes whose
+score is above 0.7, a step function too: the port replays the JAX
+package's node masks, from its scores recorded inside its jitted steps
+(:func:`record_scores`), and its own may differ from them only where the
+threshold lies between the two packages' scores.
 
 A forward that keeps the nodes of top score (HAGCN's SAGPool) is a step
 function of its scores: where the k-th and (k+1)-th scores lie within
@@ -26,15 +41,18 @@ import pytest
 import torch
 
 from gnn_rul_tpu.compat import import_torch_state_dict
+from gnn_rul_tpu.models import stnet as jax_stnet
 from gnn_rul_tpu.configs import hparams
 from gnn_rul_tpu.nn import basic as jax_basic
+from gnn_rul_tpu.signal import features as jax_features
 from gnn_rul_tpu.train import algorithms as jalgorithms
 from gnn_rul_tpu.train import engine as jengine
 from gnn_rul_tpu_torch import export
 from gnn_rul_tpu_torch.compat import from_jax_variables
 from gnn_rul_tpu_torch.configs.data_configs import get_dataset_config
-from gnn_rul_tpu_torch.models import hagcn
+from gnn_rul_tpu_torch.models import hagcn, stnet
 from gnn_rul_tpu_torch.ops.kernels import WRAPPERS
+from gnn_rul_tpu_torch.signal import features
 from gnn_rul_tpu_torch.train import algorithms
 from gnn_rul_tpu_torch.train.engine import Engine
 
@@ -48,14 +66,28 @@ STEPS, STEP_ROWS = 5, 4
 TRAIN_PARAMS = {"num_epochs": 1, "batch_size": STEP_ROWS,
                 "learning_rate": 1e-3, "weight_decay": 1e-4, "alpha": 100,
                 "lambda": 0.1}
-# The methods whose forward keeps the nodes of top score, and the port
-# module whose ``top_indices`` chooses them (jax.lax.top_k in the JAX
-# package).
-SELECTING = {"HAGCN": hagcn}
+# The bearing methods, checked at PHM2012/Condition_1; those whose front
+# end is sagcn_features select frequency bins.
+BEARING = ("HierCorrPool_bearing", "ST_GCN", "SAGCN", "AGCN_TF", "STMSGCN",
+           "STNet")
+BINNING = ("SAGCN", "AGCN_TF")
+THRESHOLDED = ("STNet",)
+
+
+def cell(method):
+    """(dataset, dataset_id) of ``method``'s checks."""
+    return (("PHM2012", "Condition_1") if method in BEARING
+            else ("CMAPSS", "FD001"))
+
+
+def input_shape(method):
+    """(channels, length) of a window at ``method``'s cell."""
+    cfg = get_dataset_config(cell(method)[0])
+    return cfg.input_channels, cfg.sequence_len
 
 
 def hp(method):
-    return hparams.model_hparams("CMAPSS", "FD001", method)
+    return hparams.model_hparams(*cell(method), method)
 
 
 def numpy_tree(tree):
@@ -71,12 +103,136 @@ def jax_variables(method, seed=0):
     return numpy_tree(dict(jax_model(method).init(
         {"params": jax.random.PRNGKey(seed),
          "dropout": jax.random.PRNGKey(seed + 1)},
-        jnp.zeros((2, 14, 50), jnp.float32), train=False)))
+        jnp.zeros((2, *input_shape(method)), jnp.float32), train=False)))
 
 
-def x_rows(rows, seed):
-    return np.random.default_rng(seed).normal(size=(rows, 14, 50)).astype(
-        np.float32)
+def x_rows(rows, seed, method=None):
+    """Seeded windows: normal sensor readings at an aero-engine cell, a
+    min-max scaled vibration signal (uniform in [0, 1)) at a bearing
+    one."""
+    rng = np.random.default_rng(seed)
+    if method in BEARING:
+        return rng.uniform(size=(rows, *input_shape(method))).astype(
+            np.float32)
+    return rng.normal(size=(rows, 14, 50)).astype(np.float32)
+
+
+def _record(recorded, value):
+    """Appends ``value`` to ``recorded`` as numpy when the JAX package
+    computes it, inside jit too."""
+    jax.debug.callback(lambda a: recorded.append(np.asarray(a).copy()),
+                       value)
+
+
+def record_top_k(mp):
+    """Records the indices of every ``jax.lax.top_k`` call of an eager
+    forward (HAGCN's SAGPool); returns ``{"top_indices": [...]}``, an
+    array a call."""
+    recorded = {"top_indices": []}
+    top_k = jax.lax.top_k
+
+    def recording(operand, k, **kwargs):
+        values, indices = top_k(operand, k, **kwargs)
+        recorded["top_indices"].append(np.asarray(indices))
+        return values, indices
+    mp.setattr(jax.lax, "top_k", recording)
+    return recorded
+
+
+class _BinRecordingJnp:
+    """``jax.numpy`` for the JAX package's features module, whose
+    ``argsort`` and ``argmax`` (the median's and the peak's selections)
+    record the bins they choose. The bins are read from the very
+    computation they steer: the JAX package's CPU FFT can round a mirror
+    pair differently from one call to the next."""
+
+    def __init__(self, recorded):
+        self.recorded = recorded
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    def argsort(self, a, axis=-1, **kwargs):
+        order = jnp.argsort(a, axis=axis, **kwargs)
+        _record(self.recorded["median_bin"], order[:, a.shape[-1] // 2])
+        return order
+
+    def argmax(self, a, axis=None, **kwargs):
+        chosen = jnp.argmax(a, axis=axis, **kwargs)
+        _record(self.recorded["peak_bin"], chosen)
+        return chosen
+
+
+def record_bins(mp):
+    """Records the median and peak bins of every ``frequency_features_8``
+    call; returns ``{"median_bin": [...], "peak_bin": [...]}``."""
+    recorded = {"median_bin": [], "peak_bin": []}
+    mp.setattr(jax_features, "jnp", _BinRecordingJnp(recorded))
+    return recorded
+
+
+def record_scores(mp):
+    """Records each JAX STNet forward's node scores (its ``cnn``'s output,
+    ``(B, T, N)``); returns ``{"high_nodes": [...]}``."""
+    recorded = {"high_nodes": []}
+    conv2d = jax_stnet.Conv2d
+
+    def recording(*args, **kwargs):
+        module = conv2d(*args, **kwargs)
+
+        def call(x):
+            out = module(x)
+            _record(recorded["high_nodes"], out[:, 0])
+            return out
+        return call
+    mp.setattr(jax_stnet, "Conv2d", recording)
+    return recorded
+
+
+def replayed_indices(theirs, x, *k):
+    """A recorded top-k's or bin's indices as the port's selection."""
+    assert theirs.shape == (*x.shape[:-1], *k)
+    return torch.from_numpy(theirs.astype(np.int64))
+
+
+def replayed_mask(theirs, scores):
+    """STNet's node mask of the JAX package's recorded scores."""
+    assert theirs.shape == scores.shape
+    return torch.from_numpy(
+        (theirs > stnet.THRESHOLD).astype(np.float32)).to(scores.dtype)
+
+
+def replay(mp, module, recorded, own, answer):
+    """Patches each function of the port's ``module`` named in ``recorded``
+    (as a ``record_*`` function returns it) to return ``answer(the JAX
+    package's next recorded value, *args)``, read as each call runs (so
+    lists that the JAX side fills step by step); appends ``(the call's
+    input, the port's own choice, the recorded value)`` to ``own``."""
+    for name, calls in recorded.items():
+        choose, used = getattr(module, name), [0]
+
+        def select(x, *args, choose=choose, calls=calls, used=used):
+            jax.effects_barrier()
+            theirs = calls[used[0]]
+            used[0] += 1
+            own.append((x.detach().double().numpy(),
+                        choose(x, *args).numpy(), theirs))
+            return answer(theirs, x, *args)
+        mp.setattr(module, name, select)
+
+
+def differing_bins(own, rtol):
+    """The selections whose port bin differs from the replayed one. Fails
+    where the two bins' values differ by more than ``rtol`` relative."""
+    differ = 0
+    for values, mine, theirs in own:
+        rows = np.arange(len(mine))
+        a, b = values[rows, mine], values[rows, theirs]
+        differ += int((mine != theirs).sum())
+        assert np.all(np.abs(a - b) <= rtol * np.abs(b)), (
+            f"bins {mine[mine != theirs]} and {theirs[mine != theirs]} "
+            f"differ in value")
+    return differ
 
 
 def no_dropout(model):
@@ -87,7 +243,7 @@ def no_dropout(model):
 
 
 def port_model(method, variables):
-    model = export.build_model(method, "CMAPSS", "FD001")
+    model = export.build_model(method, *cell(method))
     model.load_state_dict(from_jax_variables(method, variables), strict=True)
     return model
 
@@ -115,39 +271,13 @@ def launches():
             for w in WRAPPERS.values()]
 
 
-def _recording(selections):
-    """``jax.lax.top_k`` that appends each call's ``(k, indices)`` to
-    ``selections``."""
-    top_k = jax.lax.top_k
-
-    def recorded(operand, k, **kwargs):
-        values, indices = top_k(operand, k, **kwargs)
-        selections.append((k, np.asarray(indices)))
-        return values, indices
-    return recorded
-
-
-def _replaying(choose, selections, own):
-    """A ``top_indices`` that returns the recorded ``selections`` in order
-    and appends ``(scores, k, its own choice, the replayed one)`` to
-    ``own``."""
-    replay = iter(selections)
-
-    def top_indices(scores, k):
-        k_jax, chosen = next(replay)
-        assert k_jax == k and chosen.shape == (*scores.shape[:-1], k)
-        own.append((scores.detach().double().numpy(), k,
-                    choose(scores, k).numpy(), chosen))
-        return torch.from_numpy(chosen.astype(np.int64))
-    return top_indices
-
-
 def swapped(own, rtol):
     """The graphs whose kept nodes differ between the port's own choice and
     the replayed one. Fails where a node kept by one and not by the other
     scores, on the port, further than ``rtol`` of its graph's k-th score."""
     differ = 0
-    for scores, k, mine, theirs in own:
+    for scores, mine, theirs in own:
+        k = theirs.shape[-1]
         scores = scores.reshape(-1, scores.shape[-1])
         kept = []
         for chosen in (mine, theirs):
@@ -164,48 +294,88 @@ def swapped(own, rtol):
     return differ
 
 
+def differing_masks(own):
+    """The node-mask entries where the port's own mask would differ from
+    the JAX package's. Fails unless the threshold lies between the two
+    scores at each (their rounding, or the steps' drift, parts them there,
+    not a rule); prints the smallest margin and the scores' largest gap at
+    a differing entry."""
+    differ, margin, apart = 0, np.inf, 0.0
+    for mine, _, theirs in own:
+        theirs = theirs.astype(np.float64)
+        margin = min(margin, float(np.abs(mine - stnet.THRESHOLD).min()))
+        flipped = (mine > stnet.THRESHOLD) != (theirs > stnet.THRESHOLD)
+        differ += int(flipped.sum())
+        lo = np.minimum(mine, theirs)[flipped]
+        hi = np.maximum(mine, theirs)[flipped]
+        assert np.all((lo <= stnet.THRESHOLD) & (stnet.THRESHOLD <= hi))
+        if flipped.any():
+            apart = max(apart, float((hi - lo).max()))
+    print(f"STNet node masks: {sum(m.size for m, _, _ in own)} entries, "
+          f"smallest |score - {stnet.THRESHOLD}| {margin:.3e}; {differ} "
+          f"differ from JAX's" + (f", their scores at most {apart:.3e} "
+                                  f"apart" if differ else ""))
+    return differ
+
+
+# The methods whose forward takes a step function of its values, replayed
+# from the JAX package into the port: (the port module whose functions
+# take it, the JAX side's recorder, the port's answer of a recorded value,
+# the count of the port's own choices that differ, failing where rounding
+# does not explain them).
+REPLAYED = {
+    "HAGCN": (hagcn, record_top_k, replayed_indices,
+              functools.partial(swapped, rtol=FWD_RTOL)),
+    **{m: (features, record_bins, replayed_indices,
+           functools.partial(differing_bins, rtol=FWD_RTOL))
+       for m in BINNING},
+    **{m: (stnet, record_scores, replayed_mask, differing_masks)
+       for m in THRESHOLDED},
+}
+
+
 def check_eval_forward(method, variables, rows, seed):
     """The eval forward against the JAX model's at FWD tolerance, on the
-    plain versions (CPU tensors launch no kernel). A method in SELECTING
-    replays the JAX forward's top-k choices; returns how many of the
-    port's own choices differ from them (:func:`swapped`), 0 for any other
-    method."""
-    x = x_rows(rows, seed)
-    selections, own = [], []
-    module = SELECTING.get(method)
+    plain versions (CPU tensors launch no kernel). A method in REPLAYED
+    replays the JAX forward's choices; returns how many of the port's own
+    choices differ from them (0 for any other method)."""
+    x = x_rows(rows, seed, method)
+    own, recorded = [], {}
+    module, record, answer, differing = REPLAYED.get(
+        method, (None, None, None, lambda own: 0))
     with pytest.MonkeyPatch.context() as mp:
-        if module:
-            mp.setattr(jax.lax, "top_k", _recording(selections))
+        if record:
+            recorded = record(mp)
         want = np.asarray(jax_model(method).apply(
             variables, jnp.asarray(x), train=False))
-        if module:
-            mp.setattr(module, "top_indices",
-                       _replaying(module.top_indices, selections, own))
+        if record:
+            replay(mp, module, recorded, own, answer)
         before = launches()
         with torch.no_grad():
             got = port_model(method, variables).eval()(
                 torch.from_numpy(x)).numpy()
     assert launches() == before
-    assert len(own) == len(selections)
     assert got.shape == want.shape == (rows, 1)
     np.testing.assert_allclose(got, want, atol=FWD_ATOL, rtol=FWD_RTOL)
-    return swapped(own, FWD_RTOL)
+    assert len(own) == sum(len(calls) for calls in recorded.values())
+    return differing(own)
 
 
-def check_cell_forward(method, dataset, dataset_id, rows, seed):
+def check_cell_forward(method, dataset, dataset_id, rows, seed, length=50):
     """The eval forward at another cell of the hparam bank (its widths, its
-    dataset's sensors) against the JAX model's at FWD tolerance, from the
-    JAX model's own initialisation at that cell. Returns the port's
-    answers."""
+    dataset's sensors, windows of ``length``) against the JAX model's at
+    FWD tolerance, from the JAX model's own initialisation at that cell.
+    Returns the port's answers."""
     kwargs = hparams.model_hparams(dataset, dataset_id, method)
     jmodel = jalgorithms.get_algorithm_spec(method).model_cls(**kwargs)
     channels = get_dataset_config(dataset).input_channels
     variables = numpy_tree(dict(jmodel.init(
         {"params": jax.random.PRNGKey(seed),
          "dropout": jax.random.PRNGKey(seed + 1)},
-        jnp.zeros((2, channels, 50), jnp.float32), train=False)))
-    x = np.random.default_rng(seed).normal(
-        size=(rows, channels, 50)).astype(np.float32)
+        jnp.zeros((2, channels, length), jnp.float32), train=False)))
+    rng = np.random.default_rng(seed)
+    draw = rng.uniform if dataset in ("PHM2012", "XJTU_SY") else rng.normal
+    x = draw(size=(rows, channels, length)).astype(np.float32)
     want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False))
     model = export.build_model(method, dataset, dataset_id)
     model.load_state_dict(from_jax_variables(method, variables), strict=True)
@@ -242,7 +412,7 @@ def step_trajectories(method, monkeypatch):
     monkeypatch.setattr(jax_basic.Dropout, "__call__",
                         lambda self, x, train=False: x)
     rng = np.random.default_rng(7)
-    batches = [(x_rows(STEP_ROWS, 100 + s),
+    batches = [(x_rows(STEP_ROWS, 100 + s, method),
                 rng.uniform(size=(STEP_ROWS, 1)).astype(np.float32))
                for s in range(STEPS)]
     jax_engine = jengine.Engine(jax_model(method),
@@ -254,11 +424,19 @@ def step_trajectories(method, monkeypatch):
         "params": start, "batch_stats": numpy_tree(state.batch_stats)})),
                   algorithms.get_algorithm_spec(method), TRAIN_PARAMS,
                   seed=0, device="cpu")
+    own = []
+    if method in BINNING + THRESHOLDED:
+        # Each JAX step records its choices before the port's step
+        # replays them.
+        module, record, answer, _ = REPLAYED[method]
+        replay(monkeypatch, module, record(monkeypatch), own, answer)
     jax_losses, port_losses = [], []
     for step, (x, y) in enumerate(batches, start=1):
         state, loss = jax_engine.run_epoch(state, x, y, step, shuffle=False)
         jax_losses.append(loss)
         port_losses.append(port.run_epoch(x, y, step, shuffle=False))
+    if method in THRESHOLDED:
+        differing_masks(own)
     return (np.array(jax_losses), np.array(port_losses), start,
             numpy_tree(state.params), port, batches,
             numpy_tree(state.batch_stats))
@@ -377,15 +555,15 @@ def check_symbolic_artifact(method, variables, tmp_path, rows=(1, 37)):
     """A symbolic-batch artifact exported, saved and loaded on the CPU
     answers as the live model does at LIVE tolerance, at every batch."""
     sd = from_jax_variables(method, variables)
-    meta, program = export.export_serving(method, "CMAPSS", "FD001", sd,
+    meta, program = export.export_serving(method, *cell(method), sd,
                                           device="cpu")
-    assert meta["input_shape"] == [None, 14, 50]
+    assert meta["input_shape"] == [None, *input_shape(method)]
     path = export.save_artifact(str(tmp_path / f"{method}.pt2"), meta,
                                 program)
     art = export.load_artifact(path, device="cpu")
-    live = export.serving_model(method, "CMAPSS", "FD001", sd, device="cpu")
+    live = export.serving_model(method, *cell(method), sd, device="cpu")
     for n in rows:
-        x = x_rows(n, seed=n + 50)
+        x = x_rows(n, seed=n + 50, method=method)
         got = art(x)
         assert got.shape == (n,) and got.dtype == np.float32
         np.testing.assert_allclose(got, live(x), atol=LIVE_ATOL,

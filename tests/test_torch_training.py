@@ -185,7 +185,7 @@ def test_calc_metrics_matches_jax():
 
 def test_other_methods_raise_naming_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        algorithms.get_algorithm_spec("SAGCN")
+        algorithms.get_algorithm_spec("GAT_LSTM")
     with pytest.raises(NotImplementedError, match="not found"):
         algorithms.get_algorithm_spec("NoSuchMethod")
     assert len(algorithms._TABLE) == len(jalgorithms._TABLE) == 21
