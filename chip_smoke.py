@@ -21,29 +21,32 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    LSTM recurrence forward (ys, the c trajectory,
    c_fin), then its backward's gate pass (the activated gates) and the
    whole backward (dxg, dw_hh, with both outputs' cotangents nonzero), at
-   LOGO's, HAGCN's, LOGO_bearing's, ragged and H = 1024 (T, B, H), and on
-   each side of every point where the kernels' plan changes, in H at two
-   B and in B at two H (each cluster size included); the graph attention
-   at STAGNN's and STFA's (B, N, D), both adjacency layouts, GAT_LSTM's D
-   and GDAGDL's N, ragged shapes, and on each side of every point where
-   its plan changes;
+   LOGO's, HAGCN's, LOGO_bearing's (B = 200 at PHM2012, 544 at XJTU-SY),
+   ragged and H = 1024 (T, B, H), and on each side of every point where
+   the kernels' plan changes, in H at two B and in B at two H (each
+   cluster size included); the graph attention at STAGNN's and STFA's (B,
+   N, D), both adjacency layouts, GAT_LSTM's (the shared path graph) and
+   GDAGDL's (graphs of importance > 0), ragged shapes, adjacency rows and
+   whole graphs of 0 (the answer there exactly 0), and on each side of
+   every point where its plan changes;
 4. serve: FC_STGNN, LOGO, STAGNN, STFA, HAGCN, RGCNU, GRU_CM, STGNN,
    DVGTformer, HierCorrPool, ASTGCNN and ST_Conv on FD001, and
-   HierCorrPool_bearing, ST_GCN, SAGCN, AGCN_TF, STMSGCN and STNet on
-   PHM2012 Condition_1 (windows of (1, 2560)), at full width with seeded
-   weights through ``serving_model``; every answer against the same
-   weights on the CPU at the same batch, and each path's kernel launches
-   counted over that path's run alone (every other wrapper's count must
-   stay 0: the last thirteen launch no port kernel); then the tier
-   configurations, HierCorrPool at FD004's hparams, DVGTformer at
-   N-CMAPSS's (20 sensors) and HierCorrPool_bearing at XJTU-SY
-   Condition_1's on the raw minute of 32,768 samples, card against CPU at
-   100 and 1000 rows, no launch; for STAGNN, whose graph is ``cov > 0``,
-   the smallest |cov| and the adjacency entries that differ between card
-   and CPU; for the step functions that the CPU replays as the card took
-   them, the margins and the choices that differ are printed: HAGCN's and
-   STGNN's top-k, SAGCN's and AGCN_TF's frequency bins, STNet's node
-   masks (:class:`_Replay`);
+   HierCorrPool_bearing, ST_GCN, SAGCN, AGCN_TF, STMSGCN, STNet, GAT_LSTM,
+   GDAGDL and LOGO_bearing on PHM2012 Condition_1 (windows of (1, 2560)),
+   at full width with seeded weights through ``serving_model``; every
+   answer against the same weights on the CPU at the same batch, and each
+   path's kernel launches counted over that path's run alone (every other
+   wrapper's count must stay 0: thirteen methods launch no port kernel);
+   then the tier configurations, HierCorrPool at FD004's hparams,
+   DVGTformer at N-CMAPSS's (20 sensors), HierCorrPool_bearing and
+   LOGO_bearing at XJTU-SY Condition_1's on the raw minute of 32,768
+   samples, card against CPU at 100 and 1000 rows, LOGO_bearing's
+   recurrence launches counted (the others launch none); for STAGNN,
+   whose graph is ``cov > 0``, the smallest |cov| and the adjacency
+   entries that differ between card and CPU; for the step functions that
+   the CPU replays as the card took them, the margins and the choices that
+   differ are printed: HAGCN's and STGNN's top-k, SAGCN's and AGCN_TF's
+   frequency bins, STNet's and GDAGDL's node masks (:class:`_Replay`);
 5. artifacts: for each model, ``export_serving`` for the card at a
    symbolic batch and at batch 100 (traced on the CPU and moved to the
    card at export), and for the CPU at a symbolic batch; each saved with
@@ -53,15 +56,17 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    each (the 1000-row one through the symbolic ones), every answer held
    against the live model on the card at the same batch, and each
    artifact's kernel launches counted over its own requests;
-6. train, parity: for each model, 5 steps at batch 100 on the card and on
-   the CPU from the same weights on the same batches, dropout off; losses
-   and parameters compared (where either misses, both sides against the
-   same steps in fp64 on the CPU, the card to be within the same tolerance
-   of them and the closer), for HAGCN and HierCorrPool the gradient of each
-   term of the loss held card against CPU as each kernel is, at the
+6. train, parity: for each model, 5 steps (LOGO_bearing 7, across its
+   per-batch MultiStepLR's first milestone, each step's lr printed and
+   held to the schedule's) at batch 100 on the card and on the CPU from
+   the same weights on the same batches, dropout off; losses and
+   parameters compared (where either misses, both sides against the same
+   steps in fp64 on the CPU, the card to be within the same tolerance of
+   them and the closer), for the methods of GRADIENT_HELD the gradient of
+   each term of the loss held card against CPU as each kernel is, at the
    weights of the card's first step (HAGCN) or of each of its steps
-   (HierCorrPool, its ReLU masks replayed on the CPU), the forward and
-   backward launches counted;
+   (HierCorrPool, its ReLU masks replayed on the CPU; GAT_LSTM), the
+   forward and backward launches counted;
 7. preprocess: a raw C-MAPSS FD001 tree at its real size through
    ``python -m gnn_rul_tpu_torch.data.preprocess`` (run in this process),
    its windows' labels checked, and FC_STGNN trained one epoch from it
@@ -73,7 +78,9 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    synthetic processed FD001 at the real size (the bearing methods: PHM2012
    Condition_1 at FEMTO's real size, 3,674 training snapshots and five
    test bearings) on the card, with the
-   kernels' launches counted over that run alone; its results.csv and
+   kernels' launches counted over that run alone, and the lr after its
+   last step read from checkpoint.pt (LOGO_bearing's past all four
+   milestones, 1e-3 * 0.5 ** 4); its results.csv and
    checkpoint.pt are read back, the checkpoint serves on the card as on
    the CPU, ``cli.main --eval_torch_checkpoint`` evaluates it on the card
    to the trainer's own final metrics (its launches counted), and
@@ -82,9 +89,11 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
 9. times: CUDA-event medians of each kernel, its plain version and, for
    the LSTM recurrence, cuDNN's ``torch.nn.LSTM``, with the backward's time
    launch by launch (torch.profiler), HAGCN's shapes (T = 1,400 at H = 60
-   and 120, T = 14,000 at 120) and its H = 120 at the B of each cluster
-   size; the serving latency and
-   samples/s (the three tier configurations too), the same requests through
+   and 120, T = 14,000 at 120), LOGO_bearing's (B = 200 at H = 30 and
+   60; B = 544 at 30) and H = 120 at the B of each cluster size; the
+   attention at GAT_LSTM's (100, 40, 300) and GDAGDL's (12,800, 3, 300)
+   too; the serving latency and
+   samples/s (the four tier configurations too), the same requests through
    the symbolic-batch artifact and the live model in turns, the training
    step and epoch of each model, and torch.profiler breakdowns of one
    request and one training step.
@@ -124,16 +133,17 @@ from gnn_rul_tpu_torch.data import phm2012
 from gnn_rul_tpu_torch.data.io import load_processed, save_processed
 from gnn_rul_tpu_torch import export
 from gnn_rul_tpu_torch.export import build_model, serving_model
-from gnn_rul_tpu_torch.models import hagcn, stgnn, stnet
+from gnn_rul_tpu_torch.models import gdagdl, hagcn, stgnn, stnet
+from gnn_rul_tpu_torch.models.gat_lstm import path_graph
 from gnn_rul_tpu_torch.models.stfa import prior_knowledge_graph
-from gnn_rul_tpu_torch.nn import recurrent
+from gnn_rul_tpu_torch.nn import attention, recurrent
 from gnn_rul_tpu_torch.ops.graphs import covariance_threshold_graph
 from gnn_rul_tpu_torch.ops.kernels import (WRAPPERS, build, fused_gat,
                                            fused_gnn, fused_lstm)
 from gnn_rul_tpu_torch.ops.windows import decay_mask
 from gnn_rul_tpu_torch.signal import features
 from gnn_rul_tpu_torch.train.algorithms import get_algorithm_spec
-from gnn_rul_tpu_torch.train.engine import Engine
+from gnn_rul_tpu_torch.train.engine import GAMMA, MILESTONES, Engine
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
@@ -145,6 +155,9 @@ SERVE_BATCH = 100                        # FD001 batch_size (hparams.py)
 # card vs CPU over training steps: tests/test_parity_training.py:82-96
 LOSS_RTOL, LOSS_ATOL, PARAM_MAX_DIFF = 2e-4, 2e-5, 5e-4
 PARITY_STEPS = 5
+# LOGO_bearing's parity steps cross its MultiStepLR's first milestone (5),
+# as tests/test_parity_aux_losses.py's 7 do.
+PARITY_STEPS_OF = {"LOGO_bearing": 7}
 # FD001 at its real size: 100 engines, 20,631 rows, windows of 50 at
 # stride 1 -> 15,731 training windows; one test window per engine.
 FD001_ENGINES, FD001_ROWS, WINDOW, MAX_RUL = 100, 20631, 50, 125
@@ -164,9 +177,11 @@ THRESHOLD_BS, THRESHOLD_HS = (3, 70), (120, 192)
 CLUSTER_BS = (5, 9, 17)
 # The ported methods: the four of the kernels' slices, HAGCN (its Bi-LSTM on
 # the recurrence kernels), the seven aero-engine methods that reach no port
-# kernel, then the six bearing methods, which reach none either.
+# kernel, then the nine bearing methods: six that reach none either, then
+# GAT_LSTM and GDAGDL (the graph attention) and LOGO_bearing (the
+# recurrence).
 BEARING_METHODS = ("HierCorrPool_bearing", "ST_GCN", "SAGCN", "AGCN_TF",
-                   "STMSGCN", "STNet")
+                   "STMSGCN", "STNet", "GAT_LSTM", "GDAGDL", "LOGO_bearing")
 METHODS = ("FC_STGNN", "LOGO", "STAGNN", "STFA", "HAGCN", "RGCNU", "GRU_CM",
            "STGNN", "DVGTformer", "HierCorrPool", "ASTGCNN",
            "ST_Conv") + BEARING_METHODS
@@ -178,10 +193,13 @@ CELL = {m: (("PHM2012", "Condition_1") if m in BEARING_METHODS
 # The benchmark tiers served at their own configurations (BASELINE.md tiers
 # 3 to 5): (method, dataset, dataset_id, window length, None for the
 # dataset config's). XJTU-SY's raw minute is 32,768 samples (64 patches of
-# 512 in the hparams); the config's 30,768 is the reference's stale value.
+# 512 in HierCorrPool_bearing's hparams, 32 of 1024 in LOGO_bearing's); the
+# config's 30,768 is the reference's stale value. Tier 4's GAT_LSTM has no
+# N-CMAPSS configuration in the hparam bank, so it is not served.
 TIERS = (("HierCorrPool", "CMAPSS", "FD004", None),
          ("DVGTformer", "NCMAPSS", None, None),
-         ("HierCorrPool_bearing", "XJTU_SY", "Condition_1", 32768))
+         ("HierCorrPool_bearing", "XJTU_SY", "Condition_1", 32768),
+         ("LOGO_bearing", "XJTU_SY", "Condition_1", 32768))
 # FEMTO's PHM2012 Condition_1 at its real size: the acc files of each
 # bearing (Bearing1_1 and 1_2 train, the other five test).
 PHM_C1_FILES = {"Bearing1_1": 2803, "Bearing1_2": 871, "Bearing1_3": 1802,
@@ -211,9 +229,12 @@ FC_STGNN_NDF = (2 * _FC_HP["num_node"], 2 * _FC_HP["hidden_dim"],
                 2 * _FC_HP["hidden_dim"])
 _STAGNN_HP = model_hparams("CMAPSS", "FD001", "STAGNN")
 _STFA_HP = model_hparams("CMAPSS", "FD001", "STFA")
+_GAT_LSTM_HP = model_hparams("PHM2012", "Condition_1", "GAT_LSTM")
+_GDAGDL_HP = model_hparams("PHM2012", "Condition_1", "GDAGDL")
 # The dot-graph chain runs once per scale, the LSTM recurrence once per
 # Bi-LSTM layer, the graph attention once per head: STAGNN's two GAT layers
-# of 3 heads, STFA's 10 heads. STFA's attention dropout (0.2) sends its
+# of 3 heads, STFA's 10 heads, GAT_LSTM's and GDAGDL's 3 layers of one.
+# STFA's, GAT_LSTM's (0.2) and GDAGDL's (0.5) attention dropout sends their
 # training forwards down the plain path, so they launch none. The backward's
 # launches per call come from the wrapper's mirror of its plan
 # (fused_gnn.bwd_plan); the launches counted are those the C entry reports.
@@ -231,6 +252,19 @@ KERNEL_OF = {
     # and B = num_patch = 5.
     "HAGCN": Path(fused_lstm.lstm_recurrence, "lstm_recurrence", 3,
                   fused_lstm.BWD_LAUNCHES_PER_CALL, 3),
+    # GAT_LSTM's 3 layers on the shared (40, 40) path graph, GDAGDL's on
+    # B x 128 graphs of its 3 frequency bins.
+    "GAT_LSTM": Path(fused_gat.fused_gat, "fused_gat",
+                     len(_GAT_LSTM_HP["hidden_dim"]), 0,
+                     0 if _GAT_LSTM_HP["dropout"] > 0
+                     else len(_GAT_LSTM_HP["hidden_dim"])),
+    "GDAGDL": Path(fused_gat.fused_gat, "fused_gat",
+                   len(_GDAGDL_HP["gat_layer_dim"]), 0,
+                   0 if gdagdl.ATTENTION_DROPOUT > 0
+                   else len(_GDAGDL_HP["gat_layer_dim"])),
+    # LOGO's trunk: T = the batch, B = 5 bins x 40 patches, H = 30, 60, 30.
+    "LOGO_bearing": Path(fused_lstm.lstm_recurrence, "lstm_recurrence", 3,
+                         fused_lstm.BWD_LAUNCHES_PER_CALL, 3),
 }
 NO_KERNEL = Path(None, None, 0, 0, 0)
 
@@ -380,7 +414,7 @@ def _gat_key(b: int, n: int, d: int):
 
 @functools.cache
 def _gat_threshold_cases():
-    """(B, N, D, per-graph adj, bias, slope) on each side of every point at
+    """(B, N, D, adjacency, bias, slope) on each side of every point at
     which the attention kernel's plan (graphs a block, blocks a graph, wh
     in chunks or whole) changes: in B at STFA's (N, D) = (14, 5) up to
     B = 1,400 (10 graphs a block from B = 1,320) and at STAGNN's (14, 64) up
@@ -388,15 +422,15 @@ def _gat_threshold_cases():
     fitting the block), in D at B = 1 and N = 41 up to D = 400 (past where
     wh goes in chunks)."""
     cases = set()
-    for shape_of, top, batched in (
-            (lambda v: (v, 14, 5), 1400, False),
-            (lambda v: (v, 14, 64), 700, True),
-            (lambda v: (140, v, 16), 160, True),
-            (lambda v: (1, 41, v), 400, False)):
+    for shape_of, top, adj in (
+            (lambda v: (v, 14, 5), 1400, "shared"),
+            (lambda v: (v, 14, 64), 700, "per-graph"),
+            (lambda v: (140, v, 16), 160, "per-graph"),
+            (lambda v: (1, 41, v), 400, "shared")):
         keys = [_gat_key(*shape_of(v)) for v in range(1, top + 1)]
         for v in range(2, top + 1):
             if keys[v - 1] != keys[v - 2]:
-                cases.update((*shape_of(u), batched, 0.3, 0.1)
+                cases.update((*shape_of(u), adj, 0.3, 0.1)
                              for u in (v - 1, v))
     return sorted(cases)
 
@@ -568,11 +602,13 @@ def _bwd_vs_plain() -> float:
 # (T, B, H) of the LSTM recurrence: LOGO training (T = the batch of 100,
 # B = 70 node-patches, H = 24 and 48), the epoch's remainder batch, the
 # symbolic serving batch of 1000, HAGCN (T = 1400 at B = 5, H = 60, 120),
-# W_hh beyond one CTA's shared memory (H = 192), the LOGO_bearing/XJTU trunk
-# layer (T = 100, B = 544, H = 30), ragged shapes, the H limit (1024).
+# W_hh beyond one CTA's shared memory (H = 192), LOGO_bearing's trunk at
+# XJTU-SY (T = 100, B = 17 x 32 = 544, H = 30) and at PHM2012 (B = 5 x 40 =
+# 200, H = 30 and 60), ragged shapes, the H limit (1024).
 LSTM_CASES = [(100, 70, 24), (100, 70, 48), (31, 70, 24), (1000, 70, 48),
               (1400, 5, 60), (1400, 5, 120), (100, 70, 192), (100, 544, 30),
-              (7, 13, 30), (1, 1, 8), (5, 3, 1024)]
+              (7, 13, 30), (1, 1, 8), (5, 3, 1024), (100, 200, 30),
+              (100, 200, 60)]
 
 
 @functools.cache
@@ -665,57 +701,87 @@ def _lstm_vs_plain():
     return tuple(worst)
 
 
-# (B, N, D, per-graph adj, bias, slope) of the graph attention: STAGNN's
-# serving shapes (per-graph covariance graphs), STFA's (B x 25 patch graphs
-# on the shared prior graph: 2500 at batch 100, 25,000 for a request of
-# 1000), GDAGDL's N = 17 at GAT_LSTM's D = 300, ragged shapes, a negative
-# bias at slope 0.01, and a negative slope (the kernel takes each row's max
-# over its logits, not through f2's).
-GAT_CASES = [(100, 14, 64, True, 0.3, 0.1), (1000, 14, 64, True, 0.3, 0.1),
-             (2500, 14, 5, False, 0.3, 0.1), (25000, 14, 5, False, 0.3, 0.1),
-             (3, 17, 300, True, 0.3, 0.1), (1, 1, 1, True, 0.3, 0.1),
-             (5, 33, 7, False, 0.3, 0.1), (2, 130, 16, True, 0.3, 0.1),
-             (7, 33, 40, True, -0.4, 0.01), (300, 14, 64, True, 0.2, -0.3)]
-
-
-def _gat_inputs(b: int, n: int, d: int, batched: bool, bias: float,
-                seed: int):
+# (B, N, D, adjacency, bias, slope) of the graph attention, the adjacency
+# one of _gat_inputs': STAGNN's serving shapes (per-graph covariance
+# graphs), STFA's (B x 25 patch graphs on the shared prior graph: 2500 at
+# batch 100, 25,000 for a request of 1000), N = 17 at D = 300, ragged
+# shapes, a negative bias at slope 0.01, and a negative slope (the kernel
+# takes each row's max over its logits, not through f2's); GAT_LSTM's first
+# layer at batch 100 (the shared (40, 40) path graph), GDAGDL's (B x 128
+# patch graphs of 3 bins, joined where a seeded importance is above 0, so
+# some rows and some whole graphs are 0), and graphs with zero rows and
+# whole zero graphs at both plans (row tiles, whole graphs a block).
+GAT_CASES = [(100, 14, 64, "per-graph", 0.3, 0.1),
+             (1000, 14, 64, "per-graph", 0.3, 0.1),
+             (2500, 14, 5, "shared", 0.3, 0.1),
+             (25000, 14, 5, "shared", 0.3, 0.1),
+             (3, 17, 300, "per-graph", 0.3, 0.1),
+             (1, 1, 1, "per-graph", 0.3, 0.1), (5, 33, 7, "shared", 0.3, 0.1),
+             (2, 130, 16, "per-graph", 0.3, 0.1),
+             (7, 33, 40, "per-graph", -0.4, 0.01),
+             (300, 14, 64, "per-graph", 0.2, -0.3),
+             (100, 40, 300, "path", 0.3, 0.1),
+             (12800, 3, 300, "importance", 0.3, 0.1),
+             (7, 17, 64, "zero-rows", 0.3, 0.1),
+             (300, 3, 50, "zero-rows", -0.2, 0.1)]
+def _gat_inputs(b: int, n: int, d: int, adj: str, bias: float, seed: int):
     """Seeded attention inputs on the card: unit-normal wh, f1 and f2
-    (logits of unit scale, as a Linear projection gives), a random 0/1
-    per-graph adjacency with its diagonal set (a covariance graph's
-    variances), or STFA's prior graph where the shared one is 14 x 14."""
+    (logits of unit scale, as a Linear projection gives) and the adjacency
+    ``adj``: "per-graph", a random 0/1 graph a window with its diagonal
+    set (a covariance graph's variances); "shared", one (N, N) for every
+    graph (STFA's prior graph at N = 14, else random); "path", GAT_LSTM's
+    path graph; "importance", GDAGDL's outer product of (importance > 0) a
+    graph; "zero-rows", the same with every node of the first third of the
+    graphs below 0."""
     rng = np.random.default_rng(seed)
     wh = rng.normal(size=(b, n, d))
     f1 = rng.normal(size=(b, n))
     f2 = rng.normal(size=(b, n))
-    if batched:
-        adj = (rng.uniform(size=(b, n, n)) > 0.5).astype(np.float64)
-        adj[:, np.arange(n), np.arange(n)] = 1.0
-    elif n == 14:
-        adj = prior_knowledge_graph().numpy()
+    if adj == "per-graph":
+        a = (rng.uniform(size=(b, n, n)) > 0.5).astype(np.float64)
+        a[:, np.arange(n), np.arange(n)] = 1.0
+    elif adj == "shared":
+        a = (prior_knowledge_graph().numpy() if n == 14 else
+             (rng.uniform(size=(n, n)) > 0.5).astype(np.float64))
+    elif adj == "path":
+        a = path_graph(n).numpy()
     else:
-        adj = (rng.uniform(size=(n, n)) > 0.5).astype(np.float64)
+        importance = rng.normal(size=(b, n))
+        if adj == "zero-rows":
+            importance[: b // 3] = -np.abs(importance[: b // 3])
+        high = (importance > gdagdl.THRESHOLD).astype(np.float64)
+        a = high[:, :, None] * high[:, None, :]
     return tuple(torch.as_tensor(t, dtype=torch.float32).cuda().contiguous()
-                 for t in (wh, f1, f2, adj, np.float64(bias)))
+                 for t in (wh, f1, f2, a, np.float64(bias)))
 
 
 def _gat_vs_plain() -> float:
     """The attention kernel against its plain version at GAT_CASES and on
-    each side of its plan thresholds, by :func:`_hold`."""
+    each side of its plan thresholds, by :func:`_hold`; where a row of the
+    adjacency is all 0 (a node, or every node of a graph, below GDAGDL's
+    threshold) the kernel's answer must be exactly 0, as the function's
+    is."""
     kernel = fused_gat.fused_gat
     worst = 0.0
-    for i, (b, n, d, batched, bias, slope) in enumerate(
+    for i, (b, n, d, adj, bias, slope) in enumerate(
             GAT_CASES + _gat_threshold_cases()):
-        args = _gat_inputs(b, n, d, batched, bias, seed=300 + i)
+        args = _gat_inputs(b, n, d, adj, bias, seed=300 + i)
         got = kernel(*args, slope)
         want = fused_gat.fused_gat_plain(*args, slope)
         torch.cuda.synchronize()
-        worst = max(worst, _hold(
-            f"gat vs plain B={b} N={n} D={d} "
-            f"adj={'per-graph' if batched else 'shared'} bias={bias} "
-            f"slope={slope}", got, want,
-            lambda: fused_gat.fused_gat_plain(
-                *(t.double() for t in args), slope)))
+        what = (f"gat vs plain B={b} N={n} D={d} adj={adj} bias={bias} "
+                f"slope={slope}")
+        worst = max(worst, _hold(what, got, want, lambda: (
+            fused_gat.fused_gat_plain(*(t.double() for t in args), slope))))
+        zero = (args[3].sum(dim=-1) == 0).expand(b, n)
+        if zero.any():
+            off = got[zero].abs().max().item()
+            print(f"{what}: {int(zero.sum())} all-zero adjacency rows "
+                  f"({int((zero.sum(dim=-1) == n).sum())} whole graphs), the "
+                  f"kernel's largest |answer| there {off}")
+            if off != 0.0:
+                raise AssertionError(f"{what}: a row without a neighbour "
+                                     f"answers {off}, not 0")
     return worst
 
 
@@ -742,16 +808,17 @@ def _adjacency_margin(what: str, x: np.ndarray) -> int:
 
 
 @contextlib.contextmanager
-def _plain_recurrence():
-    """The models' Bi-LSTM recurrence on its plain version, differentiable
-    by autograd at any dtype, for an fp64 reference run (the registered
-    operator takes fp32 only)."""
-    kept = recurrent.lstm_recurrence
+def _plain_kernels():
+    """The models' Bi-LSTM recurrence and graph attention on their plain
+    versions, differentiable by autograd at any dtype, for an fp64
+    reference run (the registered operators take fp32 only)."""
+    kept = recurrent.lstm_recurrence, attention.fused_gat
     recurrent.lstm_recurrence = fused_lstm.lstm_recurrence_plain
+    attention.fused_gat = fused_gat.fused_gat_plain
     try:
         yield
     finally:
-        recurrent.lstm_recurrence = kept
+        recurrent.lstm_recurrence, attention.fused_gat = kept
 
 
 # The methods whose forward selects by top-k, and the function it selects
@@ -773,11 +840,12 @@ RANKED = {"HAGCN": (hagcn, "top_indices"), "STGNN": (stgnn, "topk_mask")}
 # HierCorrPool_bearing runs the same encoder behind its STFT.
 KINKED = ("HierCorrPool", "HierCorrPool_bearing")
 # The methods whose forward selects frequency bins (SAGCN's and AGCN_TF's
-# spectral features) and the one that thresholds a score (STNet's nodes
-# above 0.7), each replayed by :class:`_Replay`.
+# spectral features) and those that threshold a score (STNet's nodes above
+# 0.7, GDAGDL's of importance above 0), with the module that holds the
+# threshold (THRESHOLD, high_nodes), each replayed by :class:`_Replay`.
 BINNED = ("SAGCN", "AGCN_TF")
 BIN_SELECTIONS = ("median_bin", "peak_bin")
-THRESHOLDED = ("STNet",)
+THRESHOLDED = {"STNet": stnet, "GDAGDL": gdagdl}
 
 
 def _during(sel, mode: str):
@@ -1011,28 +1079,28 @@ def _report_bins(method: str, what: str, calls) -> int:
 
 
 def _report_masks(method: str, what: str, calls) -> int:
-    """Prints the smallest |score - 0.7| and the node-mask entries that
-    differ between card and CPU; fails unless the threshold lies between
-    the card's score and the CPU's at each."""
+    """Prints the smallest |score - threshold| and the node-mask entries
+    that differ between card and CPU; fails unless the threshold lies
+    between the card's score and the CPU's at each."""
+    threshold = THRESHOLDED[method].THRESHOLD
     entries = differ = 0
     margin, apart = float("inf"), 0.0
     for c in calls:
         scores, card_scores = c.x.double(), c.card_x.double()
         entries += c.own.numel()
-        margin = min(margin, (scores - stnet.THRESHOLD).abs().min().item())
+        margin = min(margin, (scores - threshold).abs().min().item())
         flipped = c.own != c.card
         differ += int(flipped.sum())
         if flipped.any():
             lo = torch.minimum(scores, card_scores)[flipped]
             hi = torch.maximum(scores, card_scores)[flipped]
-            if not bool(((lo <= stnet.THRESHOLD)
-                         & (stnet.THRESHOLD <= hi)).all()):
+            if not bool(((lo <= threshold) & (threshold <= hi)).all()):
                 raise AssertionError(f"{method}: a node mask differs where "
                                      f"both scores lie on one side of "
-                                     f"{stnet.THRESHOLD}")
+                                     f"{threshold}")
             apart = max(apart, (hi - lo).max().item())
     print(f"threshold {method} {what}: {entries} node scores, smallest "
-          f"|score - {stnet.THRESHOLD}| {margin:.3e}; {differ} masks "
+          f"|score - {threshold}| {margin:.3e}; {differ} masks "
           f"differ between card and CPU"
           + (f", card and CPU scores at most {apart:.3e} apart there"
              if differ else "")
@@ -1061,7 +1129,7 @@ def _replayer(method: str):
     if method in BINNED:
         return _Replay(features, BIN_SELECTIONS, _report_bins)
     if method in THRESHOLDED:
-        return _Replay(stnet, ("high_nodes",), _report_masks,
+        return _Replay(THRESHOLDED[method], ("high_nodes",), _report_masks,
                        card_inputs=True)
     return None
 
@@ -1138,9 +1206,10 @@ def _serve_tiers():
     """The tier configurations' serving path: each of TIERS at its own
     hparams with seeded weights, a request of 100 through a fixed batch of
     100 and one of 1000 through a symbolic batch, every answer on the card
-    against the CPU at the same batch; no wrapper may count a launch.
-    Returns {"<method> <dataset>/<dataset_id>": (fixed, symbolic, x100,
-    x1000)}."""
+    against the CPU at the same batch; the method's kernel launches its
+    count a forward, and no other wrapper counts a launch. Returns
+    {"<method> <dataset>/<dataset_id>": (fixed, symbolic, x100, x1000,
+    launches)}."""
     out = {}
     for method, dataset, dataset_id, seq_len in TIERS:
         sd = _seeded_state_dict(method, 0, dataset, dataset_id)
@@ -1153,10 +1222,16 @@ def _serve_tiers():
         requests = [(bs, _windows(dataset, rng, n, seq_len))
                     for bs, n in ((SERVE_BATCH, SERVE_BATCH), (None, 1000))]
         channels, length = requests[0][1].shape[1:]
+        path = _path(method)
         _reset()
         answers = [models[bs]["cuda"](x) for bs, x in requests]
         torch.cuda.synchronize()
+        launches = _counts(path.kernel)[0]
         _only_its_kernel(method, f"serve {dataset}/{dataset_id}")
+        if launches != path.per_forward * len(requests):
+            raise AssertionError(f"expected {path.per_forward} launches per "
+                                 f"forward, got {launches} for "
+                                 f"{len(requests)}")
         worst = 0.0
         for (bs, x), got in zip(requests, answers):
             want = models[bs]["cpu"](x)
@@ -1166,14 +1241,16 @@ def _serve_tiers():
             np.testing.assert_allclose(got, want, atol=SERVE_ATOL,
                                        rtol=SERVE_RTOL)
             worst = max(worst, float(np.abs(got - want).max()))
+        name = (type(path.kernel).__name__ if path.kernel
+                else "no port kernel,")
         print(f"serve {method} {dataset}/{dataset_id}: requests of "
               f"{SERVE_BATCH} and 1000 of ({channels}, {length}) windows "
-              f"({requests[1][1].nbytes} bytes the larger), "
-              f"no port kernel launched; every answer matches the CPU, max "
+              f"({requests[1][1].nbytes} bytes the larger), {name} "
+              f"launches={launches}; every answer matches the CPU, max "
               f"|diff| {worst:.3e} (atol={SERVE_ATOL}, rtol={SERVE_RTOL})")
         out[f"{method} {dataset}/{dataset_id}"] = (
             models[SERVE_BATCH]["cuda"], models[None]["cuda"],
-            requests[0][1], requests[1][1])
+            requests[0][1], requests[1][1], launches)
     return out
 
 
@@ -1302,11 +1379,20 @@ def _no_dropout(model):
 # replayed; its free-running steps, held as any method's, run on the card
 # without cuDNN (CUDNN_OFF), where its parameters end 1.1e-4 from the
 # CPU's (on cuDNN 9.4e-4 from fp64; on an H100 80GB HBM3 at 700 W).
+# GAT_LSTM's first attention layer keeps its logits f1_i + f2_j + b on one
+# side of 0 along nearly every row (its statistics' kurtosis, up to ~500,
+# dominates wh), where the leaky_relu is linear and f1_i cancels in the
+# row's softmax: the gradient of that half of its att_kernel comes from
+# the few rows that cross 0, a step function of the weights, and on the
+# CPU at batch 4 and lr 1e-3 (tests/test_torch_gat_bearing.py) no fp32 run
+# holds it within PARAM_MAX_DIFF of fp64 after 5 steps (JAX's 2.0e-3, the
+# port's 1.7e-3); its gradient is held at each step.
 # A method's free-running parameters are held as any method's unless the
 # CPU's own fp32 parameters miss fp64 by more than PARAM_MAX_DIFF too; then
 # its losses are not held either where its gradient is held at every step.
 GRADIENT_HELD = {"HAGCN": 1, "HierCorrPool": PARITY_STEPS,
-                 "HierCorrPool_bearing": 1, "STNet": PARITY_STEPS}
+                 "HierCorrPool_bearing": 1, "STNet": PARITY_STEPS,
+                 "GAT_LSTM": PARITY_STEPS}
 # The methods whose free-running parity steps run on the card with cuDNN
 # off (torch's own CUDA LSTM), the steps on cuDNN printed against fp64.
 CUDNN_OFF = ("STNet",)
@@ -1323,15 +1409,17 @@ def _cudnn(enabled: bool):
 
 
 def _steps(engine: Engine, xs, ys, device: str, dtype=torch.float32,
-           states=None):
-    """PARITY_STEPS train steps on ``engine``; returns the losses. With a
+           states=None, lrs=None):
+    """A train step on ``engine`` for each batch; returns the losses. With a
     list ``states``, appends the model's state_dict (on the host) before
-    each step."""
+    each step; with a list ``lrs``, the lr each step runs at."""
     losses = []
     for x, y in zip(xs, ys):
         if states is not None:
             states.append({k: v.detach().cpu().clone()
                            for k, v in engine.model.state_dict().items()})
+        if lrs is not None:
+            lrs.append(engine.optimizer.param_groups[0]["lr"])
         losses.append(float(engine.train_step(
             torch.from_numpy(x).to(device, dtype),
             torch.from_numpy(y).to(device, dtype))))
@@ -1374,7 +1462,7 @@ def _hold_term_gradients(method: str, seeded, x, y, step: int) -> None:
 
     @functools.cache
     def exact():
-        with _plain_recurrence(), _during(sel, "replay"):
+        with _plain_kernels(), _during(sel, "replay"):
             return _term_gradients(seeded(torch.float64), x, y, "cpu",
                                    torch.float64)
 
@@ -1386,8 +1474,21 @@ def _hold_term_gradients(method: str, seeded, x, y, step: int) -> None:
               card[term], cpu[term], lambda term=term: exact()[term])
 
 
+def _lrs(method: str, steps: int) -> list:
+    """The lr of each of a run's first ``steps`` optimizer steps: the bank's
+    lr, or for a method whose spec steps the per-batch MultiStepLR, the lr
+    at step t (0-based) times GAMMA for each milestone up to t."""
+    dataset, dataset_id = CELL[method]
+    lr = float(train_params(dataset, dataset_id, method)["learning_rate"])
+    multistep = get_algorithm_spec(method).per_batch_multistep
+    return [lr * GAMMA ** (sum(m <= t for m in MILESTONES) if multistep
+                           else 0) for t in range(steps)]
+
+
 def _train_parity(method: str) -> None:
-    """PARITY_STEPS steps at batch 100 on the card and on the CPU from the
+    """PARITY_STEPS steps (PARITY_STEPS_OF's where it names the method;
+    their lrs printed and held to the schedule's) at batch 100 on the card
+    and on the CPU from the
     same weights on the same batches, dropout off, cuDNN deterministic and
     without TF32 for this phase; a ranked method's CPU steps replay the
     card's top-k selections (:class:`_Replay`). Where the losses or the
@@ -1413,19 +1514,21 @@ def _train_parity(method: str) -> None:
                       device=device)
 
     engines = {device: engine(device) for device in ("cuda", "cpu")}
+    steps = PARITY_STEPS_OF.get(method, PARITY_STEPS)
     rng = np.random.default_rng(2)
-    xs = _windows(dataset, rng, PARITY_STEPS * SERVE_BATCH)
-    xs = xs.reshape(PARITY_STEPS, SERVE_BATCH, *xs.shape[1:])
-    ys = rng.uniform(size=(PARITY_STEPS, SERVE_BATCH, 1)).astype(np.float32)
+    xs = _windows(dataset, rng, steps * SERVE_BATCH)
+    xs = xs.reshape(steps, SERVE_BATCH, *xs.shape[1:])
+    ys = rng.uniform(size=(steps, SERVE_BATCH, 1)).astype(np.float32)
 
     path = _path(method)
     sel = _replayer(method)
     states = [] if method in GRADIENT_HELD else None
     cudnn_off = method in CUDNN_OFF
+    lrs = []
     _reset()
     with _during(sel, "record"), _cudnn(not cudnn_off):
         card = _steps(engines["cuda"], xs, ys, "cuda",
-                      states=None if cudnn_off else states)
+                      states=None if cudnn_off else states, lrs=lrs)
     if cudnn_off:
         # The steps as the card trains, on cuDNN: the weights at which the
         # gradient is held, and their distance from fp64, printed.
@@ -1435,15 +1538,18 @@ def _train_parity(method: str) -> None:
     fwd_launches, bwd_launches = _counts(path.kernel)
     _only_its_kernel(method, "train parity")
     # Dropout is off here, so every training forward takes the kernel.
-    want = (path.per_forward * PARITY_STEPS,
-            path.per_forward * path.bwd_per_call * PARITY_STEPS)
+    want = (path.per_forward * steps,
+            path.per_forward * path.bwd_per_call * steps)
     if (fwd_launches, bwd_launches) != want:
         raise AssertionError(f"expected (forward, backward) launches {want}, "
                              f"got {(fwd_launches, bwd_launches)}")
+    if lrs != _lrs(method, steps):
+        raise AssertionError(f"the steps ran at lrs {lrs}, not "
+                             f"{_lrs(method, steps)}")
     with _during(sel, "replay"):
         cpu = _steps(engines["cpu"], xs, ys, "cpu")
     if sel:
-        sel.report(method, f"{PARITY_STEPS} training steps")
+        sel.report(method, f"{steps} training steps")
     for i, state in enumerate((states or [])[:GRADIENT_HELD.get(method)]):
         def at_step(dtype=torch.float32, state=state):
             model = build_model(method, dataset, dataset_id)
@@ -1457,15 +1563,15 @@ def _train_parity(method: str) -> None:
               for dev in engines}
     param_diff = max((p - params["cpu"][k]).abs().max().item()
                      for k, p in params["cuda"].items())
-    print(f"train parity {method}: {PARITY_STEPS} steps at batch "
-          f"{SERVE_BATCH}, losses card {card.tolist()} cpu {cpu.tolist()}; "
-          f"max |param card - cpu| {param_diff:.3e}; launches forward "
-          f"{fwd_launches}, backward {bwd_launches}")
+    print(f"train parity {method}: {steps} steps at batch "
+          f"{SERVE_BATCH}, lrs {lrs}, losses card {card.tolist()} cpu "
+          f"{cpu.tolist()}; max |param card - cpu| {param_diff:.3e}; "
+          f"launches forward {fwd_launches}, backward {bwd_launches}")
 
     def exact():
         """The same steps in fp64 on the CPU: (losses, parameters)."""
         e64 = engine("cpu", torch.float64)
-        with _plain_recurrence(), _during(sel, "replay"):
+        with _plain_kernels(), _during(sel, "replay"):
             losses = _steps(e64, xs, ys, "cpu", torch.float64)
         return losses, {k: p.detach() for k, p in
                         e64.model.named_parameters()}
@@ -1502,7 +1608,7 @@ def _train_parity(method: str) -> None:
           f"{off['cuda'][1]:.3e}, the CPU's fp32 by {off['cpu'][0]:.3e} "
           f"and {off['cpu'][1]:.3e}")
     waived = method in GRADIENT_HELD and not off["cpu"][1] < PARAM_MAX_DIFF
-    every_step = GRADIENT_HELD.get(method) == PARITY_STEPS
+    every_step = GRADIENT_HELD.get(method) == steps
     if waived:
         print(f"train parity {method}: no fp32 run here holds the "
               f"parameters within {PARAM_MAX_DIFF} of fp64, so they are not "
@@ -1686,6 +1792,16 @@ def _train_entry_point(method: str, data: _Processed):
         _adjacency_margin("FD001 test windows", test_x)
     ckpt_path = os.path.join(run_dir, "checkpoint.pt")
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    # The lr after the epoch's last step: a per-batch MultiStepLR's last
+    # value, or the bank's lr.
+    lr = ckpt["optimizer"]["param_groups"][0]["lr"]
+    want_lr = _lrs(method, steps + 1)[-1]
+    print(f"train entry point {method}: the lr after {steps} steps {lr!r}"
+          + (f", every milestone {MILESTONES} crossed"
+             if get_algorithm_spec(method).per_batch_multistep else ""))
+    if lr != want_lr:
+        raise AssertionError(f"the lr after the epoch is {lr!r}, not "
+                             f"{want_lr!r}")
     on_card, on_cpu = (serving_model(method, dataset, dataset_id,
                                      ckpt["model_dict"],
                                      batch_size=SERVE_BATCH, device=dev)
@@ -2029,14 +2145,14 @@ def _kernel_times(name: str, shapes, kernel_fn, plain_fn, backward: bool):
     return times
 
 
-def _gat_bound_ms(b: int, n: int, d: int, batched: bool):
+def _gat_bound_ms(b: int, n: int, d: int, adj: str):
     """Least time for the graph attention on an H100 SXM, the larger of its
     bytes at the HBM rate and its fp32 operations at the fp32 peak: wh, f1,
     f2, adj (one (N, N) when shared) and bias read and out written;
     2*B*N^2*D for the product with wh and 6*B*N^2 for the logits, the
     leaky_relu, the exponent, the normalisation and the mask."""
-    nbytes = 4 * (2 * b * n * d + 2 * b * n + (b if batched else 1) * n * n
-                  + 1)
+    nbytes = 4 * (2 * b * n * d + 2 * b * n
+                  + (1 if adj in ("shared", "path") else b) * n * n + 1)
     flops = 2 * b * n * n * d + 6 * b * n * n
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -2050,14 +2166,14 @@ def _gat_times(cases):
     multiplicative mask and the product, so there is no library time."""
     times = {}
     for case in cases:
-        b, n, d, batched, bias, slope = case
-        args = _gat_inputs(b, n, d, batched, bias, seed=0)
+        b, n, d, adj, bias, slope = case
+        args = _gat_inputs(b, n, d, adj, bias, seed=0)
         times[case] = (
             _graph_ms(lambda: fused_gat.fused_gat.forward(*args, slope)),
             _graph_ms(lambda: fused_gat.fused_gat_plain(*args, slope)),
-            *_gat_bound_ms(b, n, d, batched))
-        print(f"times [{SMI}]: fused_gat B={b} N={n} D={d} adj="
-              f"{'per-graph' if batched else 'shared'}: " + "kernel {:.6f} "
+            *_gat_bound_ms(b, n, d, adj))
+        print(f"times [{SMI}]: fused_gat B={b} N={n} D={d} adj={adj}: "
+              + "kernel {:.6f} "
               "ms, plain {:.6f} ms, bound {:.6f} ms ({}); library none"
               .format(*times[case]))
     return times
@@ -2393,12 +2509,15 @@ def main() -> None:
             lstm = _lstm_times([(100, 70, 24), (100, 70, 48),
                                 (1000, 70, 48), (1400, 5, 60),
                                 (1400, 5, 120), (14000, 5, 120),
-                                (100, 544, 30)])
+                                (100, 544, 30), (100, 200, 30),
+                                (100, 200, 60)])
             _lstm_cluster_times()
             phases.mark("kernel times, LSTM")
-            # The serving and training shapes of both models, and the two
-            # check shapes of few large graphs.
-            gat = _gat_times([GAT_CASES[k] for k in (0, 1, 2, 3, 4, 7)])
+            # The serving and training shapes of STAGNN and STFA, the two
+            # check shapes of few large graphs, GAT_LSTM's and GDAGDL's
+            # first layers at batch 100.
+            gat = _gat_times([GAT_CASES[k] for k in (0, 1, 2, 3, 4, 7, 10,
+                                                     11)])
         phases.mark("kernel times, attention")
         for method in METHODS:
             _serve_times(method, *served[method][:4])
@@ -2407,7 +2526,7 @@ def main() -> None:
             _train_times(method, data[CELL[method][0]])
             phases.mark(f"times {method}")
         for tier, models in tiers.items():
-            _serve_times(tier, *models)
+            _serve_times(tier, *models[:4])
         phases.mark("times, tiers")
     phases.report()
 
@@ -2435,7 +2554,30 @@ def main() -> None:
                        **{f"{prefix}_library_ms": lstm[shape][part][4]})
         return out
 
+    def launches_of(method, backward=False):
+        """``method``'s launches on each of its main paths: serving, the
+        artifacts, its epoch and ``--eval_torch_checkpoint`` (the
+        backward's: its epoch only)."""
+        key = method.lower()
+        if backward:
+            return {f"launches_{key}_epoch": trained[method][1]}
+        return {f"launches_{key}_serve": served[method][4],
+                f"launches_{key}_artifact": artifacts[method][1],
+                f"launches_{key}_epoch": trained[method][0],
+                f"launches_{key}_eval": trained[method][3]}
+
+    def logo_bearing(part):
+        """LOGO_bearing's launches and the kernel's times at its trunk's
+        (T, B, H) at PHM2012, B = 200, H = 30 and 60."""
+        out = launches_of("LOGO_bearing", part == "bwd")
+        for h in (30, 60):
+            out.update(at(lstm[(100, 200, h)][part], f"logo_bearing_h{h}"),
+                       **{f"logo_bearing_h{h}_library_ms":
+                          lstm[(100, 200, h)][part][4]})
+        return out
+
     lstm_shape = (100, 70, 48)
+    tier5 = tiers["LOGO_bearing XJTU_SY/Condition_1"][4]
     print(json.dumps({"kernels": [
         entry("fused_dot_graph_spmm", fwd[KERNEL_CASES[0]], max_err,
               trained["FC_STGNN"][0],
@@ -2465,7 +2607,8 @@ def main() -> None:
               launches_eval=trained["LOGO"][3], **hagcn("fwd", 0),
               launches_hagcn_serve=served["HAGCN"][4],
               launches_hagcn_artifact=artifacts["HAGCN"][1],
-              launches_hagcn_eval=trained["HAGCN"][3]),
+              launches_hagcn_eval=trained["HAGCN"][3],
+              **logo_bearing("fwd"), launches_logo_bearing_tier5=tier5),
         entry("fused_lstm_bwd", lstm[lstm_shape]["bwd"], lstm_bwd_err,
               trained["LOGO"][1],
               source="gnn_rul_tpu_torch/csrc/fused_lstm_bwd.cu",
@@ -2473,7 +2616,7 @@ def main() -> None:
                        "(_bwd_kernel)",
               shape="T=100 B=70 H=48",
               library="torch.nn.LSTM forward+backward minus forward",
-              **hagcn("bwd", 1)),
+              **hagcn("bwd", 1), **logo_bearing("bwd")),
         entry("fused_gat", gat[GAT_CASES[0]], gat_err, trained["STAGNN"][0],
               source="gnn_rul_tpu_torch/csrc/fused_gat.cu",
               replaces="gnn_rul_tpu/ops/pallas/fused_gat.py:46 (_kernel)",
@@ -2486,7 +2629,9 @@ def main() -> None:
               stfa_ms=gat[GAT_CASES[2]][0],
               stfa_plain_ms=gat[GAT_CASES[2]][1],
               stfa_bound_ms=gat[GAT_CASES[2]][2],
-              **at(gat[GAT_CASES[3]], "stfa_b25000")),
+              **at(gat[GAT_CASES[3]], "stfa_b25000"),
+              **launches_of("GAT_LSTM"), **at(gat[GAT_CASES[10]], "gat_lstm"),
+              **launches_of("GDAGDL"), **at(gat[GAT_CASES[11]], "gdagdl")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,11 +8,12 @@ The reference CLI's flags (main.py:8-39) and the JAX package's:
 Trains on the card (``--device cuda``, the default; it raises where CUDA is
 absent) or on the CPU (``--device cpu``); with ``--eval_torch_checkpoint
 PT`` it evaluates the weights of a ``checkpoint.pt`` (the port's or the
-reference's) on the test set instead of training. The ported methods are
-``models.MODELS``: the twelve aero-engine methods (FC_STGNN, LOGO, HAGCN,
-RGCNU, STAGNN, STFA, GRU_CM, STGNN, DVGTformer, HierCorrPool, ASTGCNN,
-ST_Conv) and six bearing methods (HierCorrPool_bearing, ST_GCN, SAGCN,
-AGCN_TF, STMSGCN, STNet); any other ``--GNN_method`` raises. The
+reference's) on the test set instead of training. The methods are
+``models.MODELS``, all 21 of the reference: the twelve aero-engine methods
+(FC_STGNN, LOGO, HAGCN, RGCNU, STAGNN, STFA, GRU_CM, STGNN, DVGTformer,
+HierCorrPool, ASTGCNN, ST_Conv) and the nine bearing methods
+(HierCorrPool_bearing, ST_GCN, SAGCN, AGCN_TF, STMSGCN, STNet, GAT_LSTM,
+GDAGDL, LOGO_bearing); any other ``--GNN_method`` raises. The
 processed datasets come from ``python -m gnn_rul_tpu_torch.data.preprocess``.
 Flags that select
 what is not ported yet raise ``NotImplementedError``; the port's order of

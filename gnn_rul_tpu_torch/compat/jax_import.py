@@ -6,8 +6,9 @@ The inverse of the JAX package's torch-reference import
 ``_map_gru_cm``, ``_map_stgnn``, ``_map_dvgtformer``,
 ``_hiercorrpool_core`` for HierCorrPool and HierCorrPool_bearing,
 ``_map_astgcnn``, ``_map_st_conv``, ``_map_st_gcn``, ``_map_sagcn``,
-``_map_agcn_tf``, ``_map_stmsgcn``, ``_map_stnet``) for the ported
-methods: it takes the flax
+``_map_agcn_tf``, ``_map_stmsgcn``, ``_map_stnet``, ``_map_gat_lstm``,
+``_map_gdagdl``, ``_logo_core`` for LOGO_bearing) for every method: it
+takes the flax
 ``{"params", "batch_stats"}`` tree as numpy arrays and returns a
 ``state_dict`` under the original torch reference's keys, which the port's
 modules carry:
@@ -94,10 +95,10 @@ def _heads(tree: Dict[str, Any]) -> List[str]:
             for i in range(sum(k.startswith("attention_") for k in tree))]
 
 
-def _gat_rows(prefix: str, path: Tuple[str, ...], head: str) -> Layout:
-    return [(f"{prefix}.{head}.linear", "linear", path + (head, "linear",
-                                                          "Dense_0")),
-            (f"{prefix}.{head}.attention", "attention", path + (head,))]
+def _gat_rows(prefix: str, path: Tuple[str, ...]) -> Layout:
+    """A GraphAttentionLayer's rows: the torch prefix, the flax path."""
+    return [(f"{prefix}.linear", "linear", path + ("linear", "Dense_0")),
+            (f"{prefix}.attention", "attention", path)]
 
 
 def _tcn_rows(name: str, downsample: bool,
@@ -124,7 +125,7 @@ def _stagnn_layout(params: Dict[str, Any]) -> Layout:
             for i in (1, 2)]
     for gat in ("gat1", "gat2"):
         for head in _heads(params[gat]):
-            rows += _gat_rows(gat, (gat,), head)
+            rows += _gat_rows(f"{gat}.{head}", (gat, head))
     for tcn in ("tcn1", "tcn2"):
         rows += _tcn_rows(tcn, "downsample0" in params[tcn])
     for enc in ("temporal_encoder1", "temporal_encoder2"):
@@ -140,7 +141,7 @@ def _stfa_layout(params: Dict[str, Any]) -> Layout:
     sit at the top of the flax tree and under ``gat`` in the port."""
     rows = []
     for head in _heads(params):
-        rows += _gat_rows("gat", (), head)
+        rows += _gat_rows(f"gat.{head}", (head,))
     return rows + [("v", "linear", ("v", "Dense_0")),
                    ("lstm", "lstm", ("lstm",)),
                    ("fc", "linear", ("fc", "Dense_0"))]
@@ -337,6 +338,31 @@ def _stnet_layout(params: Dict[str, Any]) -> Layout:
                    ("linear", "linear", ("linear", "Dense_0"))]
 
 
+def _gat_lstm_layout(params: Dict[str, Any]) -> Layout:
+    """``(torch prefix, kind, flax path)`` for every GAT_LSTM layer; the GAT
+    and LSTM counts are read off the tree."""
+    rows = []
+    for i in range(sum(k.startswith("gat") for k in params)):
+        rows += _gat_rows(f"gat_layers.{i}", (f"gat{i}",))
+    rows += [(f"lstm_layers.{i}", "lstm", (f"lstm{i}",))
+             for i in range(sum(k.startswith("lstm") for k in params))]
+    return rows + [("fc", "linear", ("fc", "Dense_0"))]
+
+
+def _gdagdl_layout(params: Dict[str, Any]) -> Layout:
+    """``(torch prefix, kind, flax path)`` for every GDAGDL layer; the GAT
+    and MLP layer counts are read off the tree."""
+    rows = [("node_importance_linear", "linear",
+             ("node_importance_linear", "Dense_0"))]
+    for i in range(sum(k.startswith("gat") for k in params)):
+        rows += _gat_rows(f"gat_layers.{i}", (f"gat{i}",))
+    for mlp in ("encoder", "decoder"):
+        rows += [(f"{mlp}.{2 * i}", "linear", (mlp, f"Linear_{i}", "Dense_0"))
+                 for i in range(len(params[mlp]))]
+    return rows + [("lstm", "lstm", ("lstm",)),
+                   ("linear", "linear", ("linear", "Dense_0"))]
+
+
 # method -> its layout, from the flax params (head, block and layer counts
 # are read off the tree).
 _LAYOUTS = {"FC_STGNN": lambda params: _fc_stgnn_layout(),
@@ -354,7 +380,9 @@ _LAYOUTS = {"FC_STGNN": lambda params: _fc_stgnn_layout(),
             "ST_GCN": _st_gcn_layout,
             "SAGCN": lambda params: _sagcn_layout(),
             "AGCN_TF": _agcn_tf_layout, "STMSGCN": _stmsgcn_layout,
-            "STNet": _stnet_layout}
+            "STNet": _stnet_layout, "GAT_LSTM": _gat_lstm_layout,
+            "GDAGDL": _gdagdl_layout,
+            "LOGO_bearing": lambda params: _logo_layout()}
 
 
 def _get(tree: Dict[str, Any], path: Tuple[str, ...]) -> Dict[str, Any]:
@@ -373,9 +401,7 @@ def from_jax_variables(method: str,
     onto the port's ``state_dict`` (CPU tensors, for
     ``load_state_dict(strict=True)``)."""
     if method not in _LAYOUTS:
-        raise NotImplementedError(
-            f"from_jax_variables: {method} is not ported yet; the port's "
-            "order of work is in ROADMAP.md")
+        raise NotImplementedError(f"from_jax_variables: no method {method}")
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}

@@ -13,7 +13,8 @@ the hparam bank; :func:`save_artifact` writes it with its ``meta`` and
 :func:`load_artifact` reads it back as an :class:`ArtifactServingModel`.
 The program calls the port's kernels as the registered operators
 ``gnn_rul_tpu_torch::fused_dot_graph_spmm`` (FC_STGNN),
-``::lstm_recurrence`` (LOGO, HAGCN) and ``::fused_gat`` (STAGNN, STFA), whose
+``::lstm_recurrence`` (LOGO, HAGCN, LOGO_bearing) and ``::fused_gat``
+(STAGNN, STFA, GAT_LSTM, GDAGDL), whose
 implementation PyTorch's dispatcher picks when the program runs: the
 hand-written kernel on the card, the plain version on the CPU. So an
 artifact exported on the CPU and loaded with ``device="cuda"`` launches
@@ -39,16 +40,17 @@ CLI, from a ``checkpoint.pt`` of the port or of the reference:
         --GNN_method FC_STGNN --dataset CMAPSS --dataset_id FD001 \\
         --out fc_stgnn_fd001.pt2 [--batch_size 0] [--device cuda]
 
-The ported methods are ``models.MODELS``: FC_STGNN, LOGO, HAGCN, RGCNU,
+The methods are ``models.MODELS``, all 21: FC_STGNN, LOGO, HAGCN, RGCNU,
 STAGNN, STFA, GRU_CM, STGNN, DVGTformer, HierCorrPool, ASTGCNN, ST_Conv
 and the bearing methods HierCorrPool_bearing, ST_GCN, SAGCN, AGCN_TF,
-STMSGCN and STNet (RGCNU and the last twelve reach no port kernel; a
-bearing window is ``(batch, 1, L)``, the raw vibration signal). SAGCN's
-and AGCN_TF's spectral features pick a frequency bin and STNet's graph
-joins the nodes scoring above 0.7, step functions too. LOGO's recurrence
-runs along the batch axis and HAGCN's along the batch times the nodes, so
-the answer of either for a row depends on the other rows of the forward,
-padding rows included.
+STMSGCN, STNet, GAT_LSTM, GDAGDL and LOGO_bearing (thirteen of them reach
+no port kernel; a bearing window is ``(batch, 1, L)``, the raw vibration
+signal). SAGCN's and AGCN_TF's spectral features pick a frequency bin,
+STNet's graph joins the nodes scoring above 0.7 and GDAGDL's those of
+importance above 0, step functions too. LOGO's and LOGO_bearing's
+recurrences run along the batch axis and HAGCN's along the batch times the
+nodes, so the answer of any of them for a row depends on the other rows
+of the forward, padding rows included.
 STAGNN's adjacency is ``cov > 0`` per window, HAGCN's pooling keeps the
 nodes of top score and STGNN's graph the top similarities of each row:
 step functions, so a covariance within rounding of 0, or a score within
@@ -102,9 +104,7 @@ def build_model(method: str, dataset: str, dataset_id: Optional[str],
     """The ``method`` model on the CPU, at ``model_hparams`` or else the
     hparam bank's widths."""
     if method not in MODELS:
-        raise NotImplementedError(
-            f"{method} is not ported yet; the port's order of work is in "
-            "ROADMAP.md")
+        raise NotImplementedError(f"no method {method}")
     return MODELS[method](**(model_hparams or hparams_bank.model_hparams(
         dataset, dataset_id, method)))
 

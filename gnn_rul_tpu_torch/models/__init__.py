@@ -1,16 +1,19 @@
 """Models of the port. :data:`MODELS` maps each ported method to its
 class; the serving entry point and the algorithm registry both read it:
-the twelve aero-engine methods and six of the nine bearing methods."""
+the twelve aero-engine methods and the nine bearing methods."""
 
 from .agcn_tf import AGCNTF
 from .astgcnn import ASTGCNN
 from .dvgtformer import DVGTformer
 from .fc_stgnn import FCSTGNN
+from .gat_lstm import GATLSTM
+from .gdagdl import GDAGDL
 from .gru_cm import GRUCM
 from .hagcn import HAGCN
 from .hiercorrpool import HierCorrPool
 from .hiercorrpool_bearing import HierCorrPoolBearing
 from .logo import LOGO
+from .logo_bearing import LOGOBearing
 from .rgcnu import RGCNU
 from .sagcn import SAGCN
 from .st_conv import STConv
@@ -27,4 +30,5 @@ MODELS = {"FC_STGNN": FCSTGNN, "LOGO": LOGO, "HAGCN": HAGCN,
           "HierCorrPool": HierCorrPool, "ASTGCNN": ASTGCNN,
           "ST_Conv": STConv, "HierCorrPool_bearing": HierCorrPoolBearing,
           "ST_GCN": STGCN, "SAGCN": SAGCN, "AGCN_TF": AGCNTF,
-          "STMSGCN": STMSGCN, "STNet": STNet}
+          "STMSGCN": STMSGCN, "STNet": STNet, "GAT_LSTM": GATLSTM,
+          "GDAGDL": GDAGDL, "LOGO_bearing": LOGOBearing}

@@ -5,11 +5,9 @@ Every method trains with ``Adam(lr, weight_decay)`` and
 auxiliary output (graph regularization for LOGO, KL for HAGCN,
 reconstruction for STNet and GDAGDL; RGCNU's is unused, weight 0).
 LOGO_bearing also steps a MultiStepLR([5, 10, 20, 25], 0.5) per batch.
-The table names all 21 methods of the reference; the ported ones are
-``models.MODELS`` (the twelve aero-engine methods, FC_STGNN, LOGO, HAGCN,
-RGCNU, STAGNN, STFA, GRU_CM, STGNN, DVGTformer, HierCorrPool, ASTGCNN and
-ST_Conv, and six bearing methods, HierCorrPool_bearing, ST_GCN, SAGCN,
-AGCN_TF, STMSGCN and STNet), and every other name raises.
+The table names all 21 methods of the reference, each ported
+(``models.MODELS``: the twelve aero-engine methods and the nine bearing
+methods); any other name raises.
 """
 
 from __future__ import annotations
@@ -59,10 +57,6 @@ _TABLE: Dict[str, Dict[str, Any]] = {
 def get_algorithm_spec(name: str) -> AlgorithmSpec:
     if name not in _TABLE:
         raise NotImplementedError(f"Algorithm not found: {name}")
-    if name not in MODELS:
-        raise NotImplementedError(
-            f"{name} is not ported yet; the port's order of work is in "
-            "ROADMAP.md")
     return AlgorithmSpec(MODELS[name], **_TABLE[name])
 
 

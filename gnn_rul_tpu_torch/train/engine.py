@@ -9,7 +9,12 @@ host once per epoch.
 
 The optimizer is ``torch.optim.Adam(lr, weight_decay=wd)``, the reference's
 own: the decay is added into the gradient before the moments (not AdamW),
-which the JAX package rebuilds as ``make_optimizer``.
+which the JAX package rebuilds as ``make_optimizer``. A method whose spec
+sets ``per_batch_multistep`` (LOGO_bearing) also steps the reference's
+``MultiStepLR(milestones=[5, 10, 20, 25], gamma=0.5)`` after every optimizer
+step, so the lr of optimizer step t (0-based, counted across the epochs of
+one run) is ``lr * 0.5 ** |{m <= t}|``, the JAX package's
+``multistep_lr_schedule``; each run's engine starts again at t = 0.
 
 The permutation comes from a ``torch.Generator`` on the device seeded from
 ``(seed, epoch)``. JAX's ``jax.random.permutation`` cannot be reproduced in
@@ -29,6 +34,9 @@ from ..export import resolve_device
 from .algorithms import AlgorithmSpec, resolve_aux_weight
 
 
+MILESTONES, GAMMA = (5, 10, 20, 25), 0.5  # reference algorithms.py:618
+
+
 def mse(pred: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred - y) ** 2)
 
@@ -42,10 +50,6 @@ class Engine:
                  train_params: Dict, seed: int = 0,
                  eval_batch_size: Optional[int] = None,
                  device: str = "cuda"):
-        if spec.per_batch_multistep:
-            raise NotImplementedError(
-                "the per-batch MultiStepLR arrives with LOGO_bearing "
-                "(ROADMAP.md)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.spec = spec
@@ -58,6 +62,9 @@ class Engine:
             self.model.parameters(), lr=float(train_params["learning_rate"]),
             weight_decay=float(train_params.get("weight_decay", 0.0)),
             eps=1e-8)
+        self.scheduler = (torch.optim.lr_scheduler.MultiStepLR(
+            self.optimizer, list(MILESTONES), GAMMA)
+            if spec.per_batch_multistep else None)
         # The host arrays are kept beside their device copies, so that the
         # identity check cannot match a new array that reuses an old id.
         self._data: tuple = ()
@@ -77,6 +84,8 @@ class Engine:
         loss = self._loss(self.model(x), y)
         loss.backward()
         self.optimizer.step()
+        if self.scheduler is not None:
+            self.scheduler.step()
         return loss.detach()
 
     def _device_data(self, x_train: np.ndarray, y_train: np.ndarray):

@@ -23,7 +23,7 @@ BN_ROWS = {"HierCorrPool_bearing": 4 * 23, "ST_GCN": 4 * 40}
 UNUSED = {"STNet": ("cnn",)}
 
 
-@pytest.mark.parametrize("method", checks.BEARING)
+@pytest.mark.parametrize("method", checks.NO_KERNEL_BEARING)
 def test_five_adam_steps_match_jax(method, monkeypatch):
     """Dropout (ST_GCN's 0.2, HierCorrPool_bearing's 0.35) off on both
     sides; STNet's reconstruction loss at weight 1 on both, its node masks

@@ -11,7 +11,8 @@ import torch
 from gnn_rul_tpu.compat import import_torch_state_dict
 from gnn_rul_tpu.configs import hparams
 from gnn_rul_tpu.models.fc_stgnn import FCSTGNN as JaxFCSTGNN
-from gnn_rul_tpu_torch.compat import from_jax_variables
+from gnn_rul_tpu_torch.compat import from_jax_variables, jax_import
+from gnn_rul_tpu_torch.models import MODELS
 from gnn_rul_tpu_torch.models.fc_stgnn import FCSTGNN
 
 torch.set_num_threads(1)
@@ -80,5 +81,8 @@ def test_mask_and_pe_are_not_state():
 
 
 def test_other_methods_raise_naming_roadmap(variables):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        from_jax_variables("GAT_LSTM", variables)
+    """Every method of the reference has a layout; any other name raises."""
+    assert set(jax_import._LAYOUTS) == set(MODELS)
+    assert len(MODELS) == 21
+    with pytest.raises(NotImplementedError, match="no method NoSuchMethod"):
+        from_jax_variables("NoSuchMethod", variables)

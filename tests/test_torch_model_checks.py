@@ -1,7 +1,8 @@
 """Checks shared by the per-model port tests (tests/test_torch_hagcn.py,
 test_torch_rgcnu.py, test_torch_gru_models.py, test_torch_hiercorrpool.py,
 test_torch_dvgtformer.py, test_torch_tcn_models.py,
-test_torch_bearing_models.py): a port model against the JAX package's at
+test_torch_bearing_models.py, test_torch_gat_bearing.py,
+test_torch_logo_bearing.py): a port model against the JAX package's at
 full width on the CPU, CMAPSS/FD001 for an aero-engine method and
 PHM2012/Condition_1 for a bearing method (:func:`cell`), from the same
 weights (carried by from_jax_variables) on the same seeded inputs. This
@@ -15,10 +16,11 @@ rounding. The port replays the JAX package's bins, recorded inside its own
 computation (:func:`record_bins`, :func:`replay`), and its own may differ
 from them only where the two bins' power lies within the forward's
 relative tolerance. STNet joins the nodes whose
-score is above 0.7, a step function too: the port replays the JAX
-package's node masks, from its scores recorded inside its jitted steps
-(:func:`record_scores`), and its own may differ from them only where the
-threshold lies between the two packages' scores.
+score is above 0.7, and GDAGDL those whose importance is above 0, step
+functions too: the port replays the JAX package's node masks, from its
+scores recorded inside its jitted steps (:func:`record_scores`,
+:func:`record_importance`), and its own may differ from them only where
+the threshold lies between the two packages' scores.
 
 A forward that keeps the nodes of top score (HAGCN's SAGPool) is a step
 function of its scores: where the k-th and (k+1)-th scores lie within
@@ -30,7 +32,11 @@ k-th. Where the port's 5-step trajectory misses the JAX package's (Adam's
 normalised step on a gradient that cancels to rounding), both are held
 against the JAX package's own steps in fp64 (``jax.enable_x64``) at the
 same tolerance, and the port must be the closer of the two fp32 runs to
-it: the rule chip_smoke.py holds each kernel to."""
+it: the rule chip_smoke.py holds each kernel to. Where the JAX package's
+own fp32 run misses its fp64 run too (GAT_LSTM's), a test may ask for
+the gradient at each step's weights, port against JAX, to be held in the
+parameters' place (:func:`check_step_gradients`), as chip_smoke.py's
+GRADIENT_HELD does card against CPU."""
 
 import functools
 
@@ -41,6 +47,7 @@ import pytest
 import torch
 
 from gnn_rul_tpu.compat import import_torch_state_dict
+from gnn_rul_tpu.models import gdagdl as jax_gdagdl
 from gnn_rul_tpu.models import stnet as jax_stnet
 from gnn_rul_tpu.configs import hparams
 from gnn_rul_tpu.nn import basic as jax_basic
@@ -50,7 +57,7 @@ from gnn_rul_tpu.train import engine as jengine
 from gnn_rul_tpu_torch import export
 from gnn_rul_tpu_torch.compat import from_jax_variables
 from gnn_rul_tpu_torch.configs.data_configs import get_dataset_config
-from gnn_rul_tpu_torch.models import hagcn, stnet
+from gnn_rul_tpu_torch.models import gdagdl, hagcn, stnet
 from gnn_rul_tpu_torch.ops.kernels import WRAPPERS
 from gnn_rul_tpu_torch.signal import features
 from gnn_rul_tpu_torch.train import algorithms
@@ -62,16 +69,20 @@ FWD_ATOL, FWD_RTOL = 2e-4, 1e-4        # tests/test_parity_fc_stgnn.py:69
 # tests/test_parity_training.py:82-96
 LOSS_RTOL, LOSS_ATOL, PARAM_MAX_DIFF = 2e-4, 2e-5, 5e-4
 LIVE_ATOL, LIVE_RTOL = 1e-5, 1e-5      # tests/test_export.py:52
+GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4      # chip_smoke.py's kernel TOL
 STEPS, STEP_ROWS = 5, 4
 TRAIN_PARAMS = {"num_epochs": 1, "batch_size": STEP_ROWS,
                 "learning_rate": 1e-3, "weight_decay": 1e-4, "alpha": 100,
-                "lambda": 0.1}
-# The bearing methods, checked at PHM2012/Condition_1; those whose front
-# end is sagcn_features select frequency bins.
+                "lambda": 0.1, "theta": 0.001}
+# The bearing methods, checked at PHM2012/Condition_1, the six that reach
+# no port kernel first; those whose front end is sagcn_features select
+# frequency bins; those whose graph joins the nodes above a threshold, the
+# port module that holds it (THRESHOLD, high_nodes).
 BEARING = ("HierCorrPool_bearing", "ST_GCN", "SAGCN", "AGCN_TF", "STMSGCN",
-           "STNet")
+           "STNet", "GAT_LSTM", "GDAGDL", "LOGO_bearing")
+NO_KERNEL_BEARING = BEARING[:6]
 BINNING = ("SAGCN", "AGCN_TF")
-THRESHOLDED = ("STNet",)
+THRESHOLDED = {"STNet": stnet, "GDAGDL": gdagdl}
 
 
 def cell(method):
@@ -189,17 +200,43 @@ def record_scores(mp):
     return recorded
 
 
+class _ImportanceRecordingJnp:
+    """``jax.numpy`` for the JAX package's GDAGDL module, whose ``einsum``
+    of the node importance (``adj @ score``) records the importance it
+    gives, the input of GDAGDL's ``importance > 0``."""
+
+    def __init__(self, recorded):
+        self.recorded = recorded
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    def einsum(self, subscripts, *operands, **kwargs):
+        out = jnp.einsum(subscripts, *operands, **kwargs)
+        if subscripts == "...nm,...mo->...no":
+            _record(self.recorded["high_nodes"], out[..., 0])
+        return out
+
+
+def record_importance(mp):
+    """Records each JAX GDAGDL forward's node importance (``(B*T, N)``);
+    returns ``{"high_nodes": [...]}``."""
+    recorded = {"high_nodes": []}
+    mp.setattr(jax_gdagdl, "jnp", _ImportanceRecordingJnp(recorded))
+    return recorded
+
+
 def replayed_indices(theirs, x, *k):
     """A recorded top-k's or bin's indices as the port's selection."""
     assert theirs.shape == (*x.shape[:-1], *k)
     return torch.from_numpy(theirs.astype(np.int64))
 
 
-def replayed_mask(theirs, scores):
-    """STNet's node mask of the JAX package's recorded scores."""
+def replayed_mask(theirs, scores, threshold):
+    """The node mask of the JAX package's recorded scores."""
     assert theirs.shape == scores.shape
     return torch.from_numpy(
-        (theirs > stnet.THRESHOLD).astype(np.float32)).to(scores.dtype)
+        (theirs > threshold).astype(np.float32)).to(scores.dtype)
 
 
 def replay(mp, module, recorded, own, answer):
@@ -294,7 +331,7 @@ def swapped(own, rtol):
     return differ
 
 
-def differing_masks(own):
+def differing_masks(method, threshold, own):
     """The node-mask entries where the port's own mask would differ from
     the JAX package's. Fails unless the threshold lies between the two
     scores at each (their rounding, or the steps' drift, parts them there,
@@ -303,16 +340,16 @@ def differing_masks(own):
     differ, margin, apart = 0, np.inf, 0.0
     for mine, _, theirs in own:
         theirs = theirs.astype(np.float64)
-        margin = min(margin, float(np.abs(mine - stnet.THRESHOLD).min()))
-        flipped = (mine > stnet.THRESHOLD) != (theirs > stnet.THRESHOLD)
+        margin = min(margin, float(np.abs(mine - threshold).min()))
+        flipped = (mine > threshold) != (theirs > threshold)
         differ += int(flipped.sum())
         lo = np.minimum(mine, theirs)[flipped]
         hi = np.maximum(mine, theirs)[flipped]
-        assert np.all((lo <= stnet.THRESHOLD) & (stnet.THRESHOLD <= hi))
+        assert np.all((lo <= threshold) & (threshold <= hi))
         if flipped.any():
             apart = max(apart, float((hi - lo).max()))
-    print(f"STNet node masks: {sum(m.size for m, _, _ in own)} entries, "
-          f"smallest |score - {stnet.THRESHOLD}| {margin:.3e}; {differ} "
+    print(f"{method} node masks: {sum(m.size for m, _, _ in own)} entries, "
+          f"smallest |score - {threshold}| {margin:.3e}; {differ} "
           f"differ from JAX's" + (f", their scores at most {apart:.3e} "
                                   f"apart" if differ else ""))
     return differ
@@ -329,8 +366,11 @@ REPLAYED = {
     **{m: (features, record_bins, replayed_indices,
            functools.partial(differing_bins, rtol=FWD_RTOL))
        for m in BINNING},
-    **{m: (stnet, record_scores, replayed_mask, differing_masks)
-       for m in THRESHOLDED},
+    **{m: (module, {"STNet": record_scores,
+                    "GDAGDL": record_importance}[m],
+           functools.partial(replayed_mask, threshold=module.THRESHOLD),
+           functools.partial(differing_masks, m, module.THRESHOLD))
+       for m, module in THRESHOLDED.items()},
 }
 
 
@@ -402,19 +442,20 @@ def check_round_trip(method, variables):
         np.testing.assert_array_equal(got, want, err_msg=str(path))
 
 
-def step_trajectories(method, monkeypatch):
-    """STEPS Adam steps of each engine from the JAX engine's initial
+def step_trajectories(method, monkeypatch, steps=STEPS, states=None):
+    """``steps`` Adam steps of each engine from the JAX engine's initial
     weights and BatchNorm statistics, each on its own seeded batch of
     STEP_ROWS (an epoch of one batch, shuffle off), with dropout off on both
-    sides (the JAX package's Dropout patched to the identity). Returns (JAX
-    losses, port losses, initial params, JAX params after, port engine, the
-    batches, JAX batch_stats after)."""
+    sides (the JAX package's Dropout patched to the identity). With a list
+    ``states``, appends the JAX engine's (params, batch_stats) before each
+    step. Returns (JAX losses, port losses, initial params, JAX params
+    after, port engine, the batches, JAX batch_stats after)."""
     monkeypatch.setattr(jax_basic.Dropout, "__call__",
                         lambda self, x, train=False: x)
     rng = np.random.default_rng(7)
     batches = [(x_rows(STEP_ROWS, 100 + s, method),
                 rng.uniform(size=(STEP_ROWS, 1)).astype(np.float32))
-               for s in range(STEPS)]
+               for s in range(steps)]
     jax_engine = jengine.Engine(jax_model(method),
                                 jalgorithms.get_algorithm_spec(method),
                                 TRAIN_PARAMS, seed=0)
@@ -425,18 +466,20 @@ def step_trajectories(method, monkeypatch):
                   algorithms.get_algorithm_spec(method), TRAIN_PARAMS,
                   seed=0, device="cpu")
     own = []
-    if method in BINNING + THRESHOLDED:
+    if method in BINNING or method in THRESHOLDED:
         # Each JAX step records its choices before the port's step
         # replays them.
         module, record, answer, _ = REPLAYED[method]
         replay(monkeypatch, module, record(monkeypatch), own, answer)
     jax_losses, port_losses = [], []
     for step, (x, y) in enumerate(batches, start=1):
+        if states is not None:
+            states.append(numpy_tree((state.params, state.batch_stats)))
         state, loss = jax_engine.run_epoch(state, x, y, step, shuffle=False)
         jax_losses.append(loss)
         port_losses.append(port.run_epoch(x, y, step, shuffle=False))
     if method in THRESHOLDED:
-        differing_masks(own)
+        REPLAYED[method][3](own)
     return (np.array(jax_losses), np.array(port_losses), start,
             numpy_tree(state.params), port, batches,
             numpy_tree(state.batch_stats))
@@ -475,7 +518,7 @@ def check_running_statistics(method, port, jax_stats, smallest_rows):
 
 
 def _jax_fp64_trajectory(method, start, batches):
-    """The JAX engine's STEPS steps in fp64 (``jax.enable_x64``) from
+    """The JAX engine's steps in fp64 (``jax.enable_x64``) from
     ``start`` on the same batches: (losses, params as the tree's
     leaves)."""
     with jax.enable_x64(True):
@@ -500,8 +543,72 @@ def _jax_fp64_trajectory(method, start, batches):
     return np.array(losses), dict(leaves)
 
 
-def check_trajectory(method, monkeypatch, unused=(), bn_rows=None):
-    """The losses of STEPS steps at LOSS tolerance and every parameter
+def _jax_gradient_fn(method):
+    """``(params, batch_stats, x, y) -> the gradient`` of the JAX engine's
+    training loss (its aux term at TRAIN_PARAMS' weight), jitted; dropout
+    as the caller patched it before the first call."""
+    spec = jalgorithms.get_algorithm_spec(method)
+    weight = jalgorithms.resolve_aux_weight(spec, TRAIN_PARAMS)
+    model = jax_model(method)
+
+    def loss_fn(p, stats, x, y):
+        out, _ = model.apply({"params": p, "batch_stats": stats}, x,
+                             train=True, mutable=["batch_stats"],
+                             rngs={"dropout": jax.random.PRNGKey(0)})
+        pred, aux = out if isinstance(out, tuple) else (out, None)
+        loss = jnp.mean((pred - y) ** 2)
+        return loss + weight * aux if aux is not None and weight else loss
+    return jax.jit(jax.grad(loss_fn))
+
+
+def _flat(tree):
+    """(the leaves' paths, the leaves as one fp64 vector)."""
+    leaves = jax.tree_util.tree_leaves_with_path(tree)
+    return ([path for path, _ in leaves],
+            np.concatenate([np.asarray(leaf, np.float64).reshape(-1)
+                            for _, leaf in leaves]))
+
+
+def check_step_gradients(method, states, batches):
+    """The gradient of the training loss, the port's against the JAX
+    package's, at the JAX engine's weights before each step (``states``,
+    as :func:`step_trajectories` records them) on that step's batch, by
+    :func:`hold` at the kernels' tolerance (1e-5 + 1e-4 |g|, chip_smoke.py's
+    TOL) with the JAX package's gradient in fp64 as the witness: both
+    packages take one step from the same weights, whatever the weights'
+    drift between the free-running runs. Dropout off on both sides, as the
+    caller patched it."""
+    spec = algorithms.get_algorithm_spec(method)
+    gradient = _jax_gradient_fn(method)
+    for i, ((params, stats), (x, y)) in enumerate(zip(states, batches)):
+        model = no_dropout(port_model(method, {"params": params,
+                                               "batch_stats": stats}))
+        engine = Engine(model, spec, TRAIN_PARAMS, device="cpu")
+        model.train()
+        engine._loss(model(torch.from_numpy(x)), torch.from_numpy(y)) \
+            .backward()
+        sd = model.state_dict()
+        sd.update({k: p.grad if p.grad is not None else torch.zeros_like(p)
+                   for k, p in model.named_parameters()})
+        paths, got = _flat(numpy_tree(import_torch_state_dict(
+            method, sd, hp(method))["params"]))
+        want_paths, want = _flat(numpy_tree(gradient(params, stats, x, y)))
+        assert paths == want_paths
+
+        def exact(params=params, stats=stats, x=x, y=y):
+            with jax.enable_x64(True):
+                to64 = functools.partial(jax.tree_util.tree_map,
+                                         lambda a: np.asarray(a, np.float64))
+                return _flat(numpy_tree(_jax_gradient_fn(method)(
+                    to64(params), to64(stats), x.astype(np.float64),
+                    y.astype(np.float64))))[1]
+        hold(f"{method} step {i + 1}'s gradient", got, want, exact,
+             GRAD_ATOL, GRAD_RTOL)
+
+
+def check_trajectory(method, monkeypatch, unused=(), bn_rows=None,
+                     steps=STEPS, gradient_held=False):
+    """The losses of ``steps`` steps at LOSS tolerance and every parameter
     within PARAM_MAX_DIFF after them, each by :func:`hold`; the steps moved
     the weights. ``unused`` names the top-level flax modules outside the
     loss: torch's Adam skips a parameter without a gradient, so the port
@@ -510,10 +617,15 @@ def check_trajectory(method, monkeypatch, unused=(), bn_rows=None):
     their start instead. A model with BatchNorm gives ``bn_rows``, the
     fewest rows any of its BN layers normalizes at STEP_ROWS, and its
     running statistics are held by :func:`check_running_statistics`.
-    Returns the references that held (losses, parameters) and the JAX
-    parameters' largest move in ``unused``."""
+    With ``gradient_held``, parameters that miss JAX and JAX in fp64 are
+    held instead by :func:`check_step_gradients` at every step, and only
+    where the JAX package's own fp32 run misses its fp64 run by
+    PARAM_MAX_DIFF too (chip_smoke.py's GRADIENT_HELD rule). Returns the
+    references that held (losses, parameters: "jax", "jax_fp64" or
+    "gradients") and the JAX parameters' largest move in ``unused``."""
+    states = [] if gradient_held else None
     jax_losses, port_losses, start, params, port, batches, jax_stats = \
-        step_trajectories(method, monkeypatch)
+        step_trajectories(method, monkeypatch, steps, states)
     if bn_rows is None:
         assert not jax_stats
     else:
@@ -540,6 +652,12 @@ def check_trajectory(method, monkeypatch, unused=(), bn_rows=None):
         e = exact()[1]
         port_err = max(float(np.max(np.abs(got[p] - e[p]))) for p in live)
         jax_err = max(float(np.max(np.abs(want[p] - e[p]))) for p in live)
+        if gradient_held and not jax_err < PARAM_MAX_DIFF:
+            print(f"{method}: parameters {worst} from JAX, {port_err} from "
+                  f"JAX in fp64, JAX's fp32 {jax_err}: held by the gradient "
+                  f"at each step")
+            check_step_gradients(method, states, batches)
+            return loss_ref, "gradients", jax_moved
         assert port_err < PARAM_MAX_DIFF, (
             f"parameters diverge from JAX by {worst}, from JAX in fp64 by "
             f"{port_err}")

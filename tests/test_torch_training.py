@@ -184,8 +184,10 @@ def test_calc_metrics_matches_jax():
 
 
 def test_other_methods_raise_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        algorithms.get_algorithm_spec("GAT_LSTM")
+    """All 21 methods resolve to their model; an unknown name raises."""
+    for name in algorithms._TABLE:
+        assert algorithms.get_algorithm_spec(name).model_cls is \
+            algorithms.MODELS[name]
     with pytest.raises(NotImplementedError, match="not found"):
         algorithms.get_algorithm_spec("NoSuchMethod")
     assert len(algorithms._TABLE) == len(jalgorithms._TABLE) == 21
