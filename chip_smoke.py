@@ -96,10 +96,28 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    samples/s (the four tier configurations too), the same requests through
    the symbolic-batch artifact and the live model in turns, the training
    step and epoch of each model, and torch.profiler breakdowns of one
-   request and one training step.
+   request and one training step;
+10. vectorized (seed-parallel runs, ``train/vectorized.py``, SEEDS = 5):
+   each kernel with the seed axis folded in (the dot-graph mask (5, N, N),
+   W_hh (5, 2, H, 4H), the attention's bias (5,) and adjacency) at the
+   five seeds' shapes, against its plain version, one launch a call, and
+   each group's answer bit for bit against the ungrouped kernel's on its
+   slice where both take one plan (:func:`_grouped_vs_plain`), and timed;
+   for FC_STGNN, LOGO, STAGNN, STFA, HAGCN, LOGO_bearing and GRU_CM a
+   VectorizedEngine of 5 seeds against 5 sequential Engines from the same
+   seeds, 5 steps at batch 100 (each seed its own permutation, dropout
+   off): the launches of the steps and of an eval forward counted after a
+   reset (one a call for all seeds; cuDNN's LSTM and GRU a call a seed),
+   each seed's losses and parameters held (HAGCN: each term of its first
+   gradient and its losses, the vectorized run's top-k selections
+   replayed in the sequential ones); one vectorized epoch of FD001's
+   (FEMTO's) real size against 5 sequential epochs, samples/s over all
+   seeds, and the card's busy share of a traced vectorized step.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (five
-entries); the last line is ``{"ok": true, "device": {...}}``.
+entries; the grouped kernels' times and the vectorized launches beside
+each), the one before it ``{"vectorized": {...}}`` (phase 10's epochs);
+the last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 -c "import chip_smoke as c; c._turns('build/parent')"`` times
 the dot-graph forward and backward and the attention of an earlier commit
@@ -133,7 +151,7 @@ from gnn_rul_tpu_torch.data import phm2012
 from gnn_rul_tpu_torch.data.io import load_processed, save_processed
 from gnn_rul_tpu_torch import export
 from gnn_rul_tpu_torch.export import build_model, serving_model
-from gnn_rul_tpu_torch.models import gdagdl, hagcn, stgnn, stnet
+from gnn_rul_tpu_torch.models import fc_stgnn, gdagdl, hagcn, stgnn, stnet
 from gnn_rul_tpu_torch.models.gat_lstm import path_graph
 from gnn_rul_tpu_torch.models.stfa import prior_knowledge_graph
 from gnn_rul_tpu_torch.nn import attention, recurrent
@@ -144,6 +162,7 @@ from gnn_rul_tpu_torch.ops.windows import decay_mask
 from gnn_rul_tpu_torch.signal import features
 from gnn_rul_tpu_torch.train.algorithms import get_algorithm_spec
 from gnn_rul_tpu_torch.train.engine import GAMMA, MILESTONES, Engine
+from gnn_rul_tpu_torch.train.vectorized import VectorizedEngine
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
@@ -809,16 +828,19 @@ def _adjacency_margin(what: str, x: np.ndarray) -> int:
 
 @contextlib.contextmanager
 def _plain_kernels():
-    """The models' Bi-LSTM recurrence and graph attention on their plain
-    versions, differentiable by autograd at any dtype, for an fp64
-    reference run (the registered operators take fp32 only)."""
-    kept = recurrent.lstm_recurrence, attention.fused_gat
+    """The models' dot-graph chain, Bi-LSTM recurrence and graph attention
+    on their plain versions, differentiable by autograd at any dtype, for
+    an fp64 reference run (the registered operators take fp32 only)."""
+    kept = (fc_stgnn.fused_dot_graph_spmm, recurrent.lstm_recurrence,
+            attention.fused_gat)
+    fc_stgnn.fused_dot_graph_spmm = fused_gnn.fused_dot_graph_spmm_plain
     recurrent.lstm_recurrence = fused_lstm.lstm_recurrence_plain
     attention.fused_gat = fused_gat.fused_gat_plain
     try:
         yield
     finally:
-        recurrent.lstm_recurrence, attention.fused_gat = kept
+        (fc_stgnn.fused_dot_graph_spmm, recurrent.lstm_recurrence,
+         attention.fused_gat) = kept
 
 
 # The methods whose forward selects by top-k, and the function it selects
@@ -2108,19 +2130,21 @@ def _profile(name: str, fn, untraced_ms: float, unit: str,
     for e in on_card[:16]:
         print(f"  {e.device_time_total / reps:9.1f} us  "
               f"x{e.count / reps:g}  {e.key[:72]}")
+    return busy_us, traced_us
 
 
-def _bound_ms(b: int, n: int, d: int, f: int, backward: bool = False):
+def _bound_ms(b: int, n: int, d: int, f: int, backward: bool = False,
+              groups: int = 1):
     """Least time for the chain on an H100 SXM, the larger of its bytes at
     the HBM rate and its fp32 operations at the fp32 peak. Forward: h, x,
-    mask read and out written; 2*B*N^2*(D+F) operations. Backward without
-    dmask: h, x, g, mask read and dh, dx written; 2*B*N^2*(3D+2F)
-    operations (S, dA, dx, dS h, dS^T h)."""
+    the ``groups`` masks read and out written; 2*B*N^2*(D+F) operations.
+    Backward without dmask: h, x, g, the masks read and dh, dx written;
+    2*B*N^2*(3D+2F) operations (S, dA, dx, dS h, dS^T h)."""
     if backward:
-        nbytes = 4 * (2 * b * n * d + 3 * b * n * f + n * n)
+        nbytes = 4 * (2 * b * n * d + 3 * b * n * f + groups * n * n)
         flops = 2 * b * n * n * (3 * d + 2 * f)
     else:
-        nbytes = 4 * (b * n * d + 2 * b * n * f + n * n)
+        nbytes = 4 * (b * n * d + 2 * b * n * f + groups * n * n)
         flops = 2 * b * n * n * (d + f)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -2145,14 +2169,15 @@ def _kernel_times(name: str, shapes, kernel_fn, plain_fn, backward: bool):
     return times
 
 
-def _gat_bound_ms(b: int, n: int, d: int, adj: str):
+def _gat_bound_ms(b: int, n: int, d: int, adj: str, groups: int = 1):
     """Least time for the graph attention on an H100 SXM, the larger of its
     bytes at the HBM rate and its fp32 operations at the fp32 peak: wh, f1,
-    f2, adj (one (N, N) when shared) and bias read and out written;
-    2*B*N^2*D for the product with wh and 6*B*N^2 for the logits, the
-    leaky_relu, the exponent, the normalisation and the mask."""
-    nbytes = 4 * (2 * b * n * d + 2 * b * n
-                  + (1 if adj in ("shared", "path") else b) * n * n + 1)
+    f2, adj (one (N, N) when shared, one a group when "grouped") and the
+    ``groups`` biases read and out written; 2*B*N^2*D for the product with
+    wh and 6*B*N^2 for the logits, the leaky_relu, the exponent, the
+    normalisation and the mask."""
+    adjs = {"shared": 1, "path": 1, "grouped": groups}.get(adj, b)
+    nbytes = 4 * (2 * b * n * d + 2 * b * n + adjs * n * n + groups)
     flops = 2 * b * n * n * d + 6 * b * n * n
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -2193,21 +2218,23 @@ def _step_ms(engine: Engine, x, y, warmup: int = 5, reps: int = 30) -> float:
     return statistics.median(times)
 
 
-def _lstm_bound_ms(t: int, b: int, h: int, backward: bool = False):
+def _lstm_bound_ms(t: int, b: int, h: int, backward: bool = False,
+                   groups: int = 1):
     """Least time for the recurrence on an H100 SXM, the larger of its bytes
     at the HBM rate and its fp32 operations at the fp32 peak, per (step,
     direction, column). Forward: xg and w_hh read, ys and the c trajectory
     written; 8H^2 for the recurrent product, 4H gate additions, 5H
     activations and 5H for the cell. Backward: xg, w_hh, ys, cs, dys and
     dc_fin read, dxg and dw_hh written; three recurrent products (the
-    recomputed gates, dh, dW: 24H^2) and 4H + 5H + 5H + 16H elementwise."""
+    recomputed gates, dh, dW: 24H^2) and 4H + 5H + 5H + 16H elementwise.
+    ``groups`` W_hh and dW_hh where the columns are in groups."""
     rows = t * 2 * b
     if backward:
-        nbytes = 4 * (rows * (4 * h + 3 * h + 4 * h) + 2 * 2 * h * 4 * h
-                      + 2 * b * h)
+        nbytes = 4 * (rows * (4 * h + 3 * h + 4 * h)
+                      + 2 * groups * 2 * h * 4 * h + 2 * b * h)
         flops = rows * (24 * h * h + 30 * h)
     else:
-        nbytes = 4 * (rows * (4 * h + 2 * h) + 2 * h * 4 * h)
+        nbytes = 4 * (rows * (4 * h + 2 * h) + groups * 2 * h * 4 * h)
         flops = rows * (8 * h * h + 14 * h)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -2447,6 +2474,598 @@ def _train_times(method: str, data: _Processed) -> None:
              step_ms, "step")
 
 
+# Seed-parallel runs (train/vectorized.py), phase 10: the reference's five
+# runs, seed = run index, at once; the methods on each kernel, HAGCN (the
+# recurrence at B = 5 x its patches), LOGO_bearing (its trunk at B = 5 x
+# 200) and one method on no kernel (GRU_CM: cuDNN's GRU, a call a seed).
+SEEDS = 5
+VECTORIZED_METHODS = ("FC_STGNN", "LOGO", "STAGNN", "STFA", "HAGCN",
+                      "LOGO_bearing", "GRU_CM")
+
+
+def _library_rnn_layers(model) -> int:
+    """The layers of ``model`` that run cuDNN's LSTM or GRU, which under
+    vmap call ``library_rnn`` once a seed."""
+    return sum(isinstance(m, (recurrent.LSTMLayer, recurrent.GRULayer))
+               or (isinstance(m, (recurrent.LSTM, recurrent.GRU))
+                   and not m.bidirectional)
+               for m in model.modules())
+
+
+def _seed_slices(t: torch.Tensor, groups: int, axis: int = 0):
+    """Each group's contiguous slice of ``t`` along ``axis``."""
+    return [c.contiguous() for c in t.chunk(groups, dim=axis)]
+
+
+def _bitwise(what: str, got, want) -> bool:
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    print(f"{what}: each group's slice {'equals' if same else 'DIFFERS from'}"
+          f" the ungrouped call's, bit for bit")
+    return same
+
+
+def _grouped_gnn_vs_plain(b: int, n: int, d: int, f: int, groups: int,
+                          seed: int):
+    """The dot-graph kernels with a (G, N, N) mask: out, dh, dx and each
+    group's dmask against the grouped plain versions by :func:`_hold`; one
+    launch each way; each group's out, dh, dx and per-sample dmask equal
+    the ungrouped kernels' on its graphs, bit for bit (a graph's arithmetic
+    is the same at every grouping on the whole-graph plans)."""
+    kernel = fused_gnn.fused_dot_graph_spmm
+    h, x, _ = _fused_inputs(b, n, d, f, seed)
+    rng = np.random.default_rng(seed)
+    mask = torch.as_tensor(rng.uniform(size=(groups, n, n)),
+                           dtype=torch.float32).cuda()
+    g = torch.randn(x.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
+    before = kernel.launches, kernel.bwd_launches
+    out = kernel.forward(h, x, mask)
+    dh, dx, dm = kernel.backward(h, x, mask, g, need_dmask=True)
+    launches = (kernel.launches - before[0], kernel.bwd_launches - before[1])
+    per = b // groups
+    what = f"grouped dot graph B={b} N={n} D={d} F={f} G={groups}"
+    if launches != (1, fused_gnn.bwd_launches_per_call(n, d, f)):
+        raise AssertionError(f"{what}: launched {launches}")
+    p_out = fused_gnn.fused_dot_graph_spmm_plain(h, x, mask)
+    pdh, pdx, pdm = fused_gnn.fused_dot_graph_spmm_bwd_plain(h, x, mask, g)
+    torch.cuda.synchronize()
+    exact = functools.cache(lambda: (
+        fused_gnn.fused_dot_graph_spmm_plain(h.double(), x.double(),
+                                             mask.double()),
+        *fused_gnn.fused_dot_graph_spmm_bwd_plain(
+            h.double(), x.double(), mask.double(), g.double())))
+
+    def by_group(t):
+        return t.unflatten(0, (groups, per)).sum(dim=1)
+
+    worst = max(_hold(f"{what} out", out, p_out, lambda: exact()[0]),
+                *(_hold(f"{what} {name}", got, want, lambda k=k: exact()[k])
+                  for k, (name, got, want) in enumerate(
+                      (("dh", dh, pdh), ("dx", dx, pdx)), start=1)),
+                _hold(f"{what} dmask", by_group(dm), by_group(pdm),
+                      lambda: by_group(exact()[3])))
+    own = [(kernel.forward(hs, xs, ms),
+            *kernel.backward(hs, xs, ms, gs, need_dmask=True))
+           for hs, xs, ms, gs in zip(_seed_slices(h, groups),
+                                     _seed_slices(x, groups),
+                                     _seed_slices(mask, groups),
+                                     _seed_slices(g, groups))]
+    same = _bitwise(what, [torch.cat(parts) for parts in zip(*own)],
+                    (out, dh, dx, dm))
+    if fused_gnn.fwd_plan(b, n, d, f)["whole"] \
+            and fused_gnn.fwd_plan(per, n, d, f)["whole"] and not same:
+        raise AssertionError(f"{what}: a group differs from its ungrouped "
+                             f"call on the same per-graph arithmetic")
+    return worst
+
+
+def _grouped_lstm_vs_plain(t: int, b: int, h: int, groups: int, seed: int):
+    """The recurrence kernels with w_hh (G, 2, H, 4H): ys, cs, c_fin, dxg and
+    each group's dW_hh against the grouped plain versions by :func:`_hold`;
+    one forward launch and four backward; each group's outputs equal the
+    ungrouped kernels' on its columns, bit for bit, where both take the
+    same plan (the plan reads the whole B: at HAGCN's B = 25 a cluster of
+    2, at its B = 5 of 8)."""
+    kernel = fused_lstm.lstm_recurrence
+    xg, _, dys, dcf = _lstm_inputs(t, b, h, seed)
+    rng = np.random.default_rng(seed + 1)
+    w = torch.as_tensor(rng.uniform(-1, 1, size=(groups, 2, h, 4 * h))
+                        / np.sqrt(h), dtype=torch.float32).cuda()
+    before = kernel.launches, kernel.bwd_launches
+    ys, cs, c_fin = kernel.forward(xg, w)
+    dxg, dw = kernel.backward(xg, w, ys, cs, dys, dcf)
+    launches = (kernel.launches - before[0], kernel.bwd_launches - before[1])
+    per = b // groups
+    plans = [(kernel.plan(h, cols), kernel.plan(h, cols, backward=True))
+             for cols in (b, per)]
+    what = (f"grouped lstm T={t} B={b} H={h} G={groups} (cluster of "
+            f"{plans[0][0]['cluster']}; ungrouped B={per}: cluster of "
+            f"{plans[1][0]['cluster']})")
+    if launches != (1, fused_lstm.BWD_LAUNCHES_PER_CALL):
+        raise AssertionError(f"{what}: launched {launches}")
+    p_ys, p_cs = fused_lstm.lstm_trajectory_plain(xg, w)
+    p_dxg, p_dw = fused_lstm.lstm_recurrence_bwd_plain(xg, w, ys, cs, dys,
+                                                       dcf)
+    torch.cuda.synchronize()
+    fwd64 = functools.cache(lambda: fused_lstm.lstm_trajectory_plain(
+        xg.double(), w.double()))
+    bwd64 = functools.cache(lambda: fused_lstm.lstm_recurrence_bwd_plain(
+        *(a.double() for a in (xg, w, ys, cs, dys, dcf))))
+    worst_fwd = max(
+        _hold(f"{what} ys", ys, p_ys, lambda: fwd64()[0]),
+        _hold(f"{what} cs", cs, p_cs, lambda: fwd64()[1]),
+        _hold(f"{what} c_fin", c_fin, p_cs[-1], lambda: fwd64()[1][-1]))
+    worst_bwd = max(_hold(f"{what} dxg", dxg, p_dxg, lambda: bwd64()[0]),
+                    _hold(f"{what} dw", dw, p_dw, lambda: bwd64()[1]))
+    own = []
+    for xs, ws, ds, cf in zip(_seed_slices(xg, groups, 2),
+                              _seed_slices(w, groups),
+                              _seed_slices(dys, groups, 2),
+                              _seed_slices(dcf, groups, 1)):
+        ws = ws[0]
+        y1, c1, f1 = kernel.forward(xs, ws)
+        own.append((y1, c1, f1, *kernel.backward(xs, ws, y1, c1, ds, cf)))
+    cat = [torch.cat(parts, dim=axis) for parts, axis in
+           zip(zip(*own), (2, 2, 1, 2))] + [torch.stack([o[4] for o in own])]
+    same = _bitwise(what, cat, (ys, cs, c_fin, dxg, dw))
+    if plans[0] == plans[1] and not same:
+        raise AssertionError(f"{what}: a group differs from its ungrouped "
+                             f"call on the same plan")
+    return worst_fwd, worst_bwd
+
+
+def _grouped_gat_vs_plain(b: int, n: int, d: int, adj: str, groups: int,
+                          seed: int):
+    """The attention kernel with one bias a group and the adjacency
+    ``adj``: "per-graph" (B, N, N), "grouped" (G, N, N) or "path" (one
+    (N, N)): against the grouped plain version by :func:`_hold`, one launch;
+    each group's answer equals the ungrouped kernel's on its graphs, bit
+    for bit (a graph's arithmetic is the same at every plan)."""
+    kernel = fused_gat.fused_gat
+    wh, f1, f2, a, _ = _gat_inputs(b, n, d, "path" if adj == "path"
+                                   else "per-graph", 0.3, seed)
+    rng = np.random.default_rng(seed)
+    if adj == "grouped":
+        a = a[::b // groups].contiguous()  # each group's first graph's
+    bias = torch.as_tensor(rng.normal(size=groups) * 0.3,
+                           dtype=torch.float32).cuda()
+    before = kernel.launches
+    out = kernel.forward(wh, f1, f2, a, bias, 0.1)
+    if kernel.launches - before != 1:
+        raise AssertionError("the grouped attention launched "
+                             f"{kernel.launches - before}")
+    want = fused_gat.fused_gat_plain(wh, f1, f2, a, bias, 0.1)
+    torch.cuda.synchronize()
+    what = f"grouped gat B={b} N={n} D={d} adj={adj} G={groups}"
+    worst = _hold(what, out, want, lambda: fused_gat.fused_gat_plain(
+        *(t.double() for t in (wh, f1, f2, a, bias)), 0.1))
+    adjs = {"per-graph": _seed_slices(a, groups),
+            "grouped": [a[k].contiguous() for k in range(groups)],
+            "path": [a] * groups}[adj]
+    own = [kernel.forward(*parts, adj_g, bias[k:k + 1].contiguous(), 0.1)
+           for k, (adj_g, *parts) in enumerate(zip(
+               adjs, *(_seed_slices(t, groups) for t in (wh, f1, f2))))]
+    if not _bitwise(what, [torch.cat(own)], [out]):
+        raise AssertionError(f"{what}: a group differs from its ungrouped "
+                             f"call")
+    return worst
+
+
+# The grouped shapes of the five seeds at each method's batch of 100.
+GROUPED_GNN = ((SEEDS * SERVE_BATCH, *FC_STGNN_NDF),)
+GROUPED_LSTM = ((100, SEEDS * 70, 48),      # LOGO
+                (1400, SEEDS * 5, 60),      # HAGCN
+                (1400, SEEDS * 5, 120),     # HAGCN, widest layer
+                (1400, 5, 120),             # a column a group: cluster of 8
+                (100, SEEDS * 200, 30))     # LOGO_bearing
+GROUPED_GAT = ((SEEDS * SERVE_BATCH, 14, 64, "per-graph"),      # STAGNN
+               (SEEDS * SERVE_BATCH * 25, 14, 5, "grouped"),    # STFA
+               (SEEDS * SERVE_BATCH, 40, 300, "path"))          # GAT_LSTM
+
+
+def _grouped_vs_plain():
+    """Every kernel with the seed axis folded in, at the vectorized
+    phase's shapes. Returns the largest errors (dot graph, LSTM forward,
+    LSTM backward, attention)."""
+    gnn = max(_grouped_gnn_vs_plain(*shape, SEEDS, seed=600 + i)
+              for i, shape in enumerate(GROUPED_GNN))
+    lstm = [_grouped_lstm_vs_plain(t, b, h, SEEDS, seed=610 + i)
+            for i, (t, b, h) in enumerate(GROUPED_LSTM)]
+    gat = max(_grouped_gat_vs_plain(*case, SEEDS, seed=620 + i)
+              for i, case in enumerate(GROUPED_GAT))
+    return gnn, max(e[0] for e in lstm), max(e[1] for e in lstm), gat
+
+
+def _grouped_times():
+    """{name: (kernel ms, plain ms, bound ms, bound by)} of the grouped
+    kernels at the five seeds' shapes, CUDA graphs as :func:`_graph_ms`."""
+    times = {}
+    b, n, d, f = GROUPED_GNN[0]
+    h, x, _ = _fused_inputs(b, n, d, f, 0)
+    mask = torch.rand((SEEDS, n, n), device="cuda")
+    g = torch.randn(x.shape, device="cuda")
+    kernel = fused_gnn.fused_dot_graph_spmm
+    times["dot graph"] = (
+        _graph_ms(lambda: kernel.forward(h, x, mask)),
+        _graph_ms(lambda: fused_gnn.fused_dot_graph_spmm_plain(h, x, mask)),
+        *_bound_ms(b, n, d, f, groups=SEEDS))
+    times["dot graph bwd"] = (
+        _graph_ms(lambda: kernel.backward(h, x, mask, g)),
+        _graph_ms(lambda: fused_gnn.fused_dot_graph_spmm_bwd_plain(
+            h, x, mask, g)),
+        *_bound_ms(b, n, d, f, backward=True, groups=SEEDS))
+    lstm = fused_lstm.lstm_recurrence
+    for t, b, h in (GROUPED_LSTM[0], GROUPED_LSTM[-1]):
+        xg, _, dys, dcf = _lstm_inputs(t, b, h, 0)
+        w = torch.rand((SEEDS, 2, h, 4 * h), device="cuda") / h
+        ys, cs, _ = lstm.forward(xg, w)
+        times[f"lstm {t}x{b}x{h}"] = (
+            _graph_ms(lambda: lstm.forward(xg, w)),
+            _graph_ms(lambda: fused_lstm.lstm_trajectory_plain(xg, w),
+                      inner=5),
+            *_lstm_bound_ms(t, b, h, groups=SEEDS))
+        times[f"lstm bwd {t}x{b}x{h}"] = (
+            _graph_ms(lambda: lstm.backward(xg, w, ys, cs, dys, dcf)),
+            _graph_ms(lambda: fused_lstm.lstm_recurrence_bwd_plain(
+                xg, w, ys, cs, dys, dcf), inner=2),
+            *_lstm_bound_ms(t, b, h, backward=True, groups=SEEDS))
+    for b, n, d, adj in GROUPED_GAT[:2]:
+        wh, f1, f2, a, _ = _gat_inputs(b, n, d, "per-graph", 0.3, 0)
+        if adj == "grouped":
+            a = a[::b // SEEDS].contiguous()
+        bias = torch.rand(SEEDS, device="cuda")
+        times[f"gat {b}x{n}x{d}"] = (
+            _graph_ms(lambda: fused_gat.fused_gat.forward(wh, f1, f2, a,
+                                                          bias, 0.1)),
+            _graph_ms(lambda: fused_gat.fused_gat_plain(wh, f1, f2, a, bias,
+                                                        0.1)),
+            *_gat_bound_ms(b, n, d, adj, groups=SEEDS))
+    for name, row in times.items():
+        print(f"times [{SMI}]: grouped {name} G={SEEDS}: kernel {row[0]:.6f} "
+              f"ms, plain {row[1]:.6f} ms, bound {row[2]:.6f} ms ({row[3]})")
+    return times
+
+
+@contextlib.contextmanager
+def _record_seeds(module, name: str, calls: list):
+    """Records ``module.<name>``'s choices in a vectorized forward: appends
+    each call's ``(signature, choices (S, ...))``, the seeds' choices
+    first, on the host."""
+    from torch._C import _functorch  # torch.func has no public unwrap
+    kept = getattr(module, name)
+
+    def recorded(*args):
+        out = kept(*args)
+        seeds = _functorch.get_unwrapped(out).movedim(
+            _functorch.maybe_get_bdim(out), 0)
+        calls.append((_signature(args), seeds.detach().cpu()))
+        return out
+
+    setattr(module, name, recorded)
+    try:
+        yield
+    finally:
+        setattr(module, name, kept)
+
+
+def _seed_replay(method: str, recorded: list, s: int):
+    """A :class:`_Replay` of ``method``'s top-k selections that replays seed
+    ``s``'s choices of a vectorized run (recorded by :func:`_record_seeds`)
+    in that seed's sequential run; None for a method without top-k."""
+    if method not in RANKED:
+        return None
+    module, name = RANKED[method]
+    sel = _Replay(module, (name,), _report_ranks)
+    sel.card = [(name, sig, choices[s], None) for sig, choices in recorded]
+    return sel
+
+
+def _recording(method: str, recorded: list):
+    return (_record_seeds(*RANKED[method], recorded) if method in RANKED
+            else contextlib.nullcontext())
+
+
+def _vectorized_term_gradients(engine: VectorizedEngine, x, y):
+    """``[{term: gradient as one flat fp64 vector}]`` a seed, as
+    :func:`_term_gradients` for each seed's model, at the engine's state on
+    one batch a seed; the BatchNorm statistics are left as they were."""
+    kept = {k: v.clone() for k, v in engine.buffers.items()}
+    engine.model.train()
+
+    def terms(params, buffers, xs, ys):
+        out = engine._forward(params, buffers, xs)
+        pred, aux = out if isinstance(out, tuple) else (out, None)
+        mse = torch.mean((pred - ys) ** 2)
+        return (mse,) if aux is None else (mse, aux)
+
+    values = torch.func.vmap(terms, randomness="different")(
+        engine.params, engine.buffers, x, y)
+    for k, v in kept.items():
+        engine.buffers[k].copy_(v)
+    params = list(engine.params.values())
+    out = [{} for _ in engine.seeds]
+    for term, value in zip(("squared error", "auxiliary"), values):
+        grads = torch.autograd.grad(value.sum(), params, retain_graph=True,
+                                    allow_unused=True)
+        for s in range(len(engine.seeds)):
+            out[s][term] = torch.cat([
+                (g[s] if g is not None else torch.zeros_like(p[s]))
+                .detach().double().cpu().reshape(-1)
+                for g, p in zip(grads, params)])
+    return out
+
+
+# The methods whose vectorized run holds each term of its gradient at the
+# weights of every one of its steps, against each seed's sequential model
+# at the same weights (replaying the vectorized forward's top-k
+# selections), in place of its free-running losses and parameters:
+# HAGCN's, whose first step's gradient terms meet TOL seed by seed (H100
+# 80GB HBM3, 700 W) while Adam's normalised step on its cancelling entries
+# (ROADMAP Queue 3 entry 6) carries 5 free-running steps 3.6e-3 from the
+# sequential runs' parameters (each fp32 run ~3e-3 from fp64) and its
+# losses 29 times the tolerance from fp64 where a sequential run lies at
+# 0.46 times.
+VECTORIZED_GRADIENT_HELD = {"HAGCN": PARITY_STEPS}
+
+
+def _hold_vectorized_gradients(method, engine, model_fn, x, y, idx,
+                               step: int) -> None:
+    """Each term of each seed's gradient at the engine's state on its batch
+    ``idx[s]``, vectorized against the seed's sequential model at the same
+    weights on the card, the vectorized forward's top-k selections
+    replayed, by :func:`_hold` (the fp64 witness on the CPU, replaying
+    them too)."""
+    ranked = []
+    with _recording(method, ranked):
+        vec_terms = _vectorized_term_gradients(engine, x[idx], y[idx])
+    for s in range(len(engine.seeds)):
+        sel = _seed_replay(method, ranked, s)
+        xs, ys = (t[idx[s]].cpu().numpy() for t in (x, y))
+        state = engine.slice_state(s)
+
+        def seeded(dtype=torch.float32, state=state):
+            model = model_fn()
+            model.load_state_dict(state)
+            return model.to(dtype)
+
+        with _during(sel, "replay"):
+            seq = _term_gradients(seeded(), xs, ys, "cuda")
+        if sel:
+            sel.report(method, f"seed {s}'s step {step} (the vectorized "
+                               f"run's selections as the card's, the "
+                               f"sequential model's as the CPU's)")
+
+        @functools.cache
+        def exact(sel=sel, seeded=seeded, xs=xs, ys=ys):
+            with _plain_kernels(), _during(sel, "replay"):
+                return _term_gradients(seeded(torch.float64), xs, ys, "cpu",
+                                       torch.float64)
+
+        for term in seq:
+            _hold(f"vectorized {method}: seed {s}'s step {step} gradient of "
+                  f"the {term} term, vectorized vs sequential on the card "
+                  f"({seq[term].numel()} values)", vec_terms[s][term],
+                  seq[term], lambda term=term, exact=exact: exact()[term])
+
+
+def _vectorized(method: str) -> dict:
+    """The main path of seed-parallel runs for ``method``: a
+    VectorizedEngine of SEEDS seeds at the bank's train params against
+    SEEDS sequential Engines from the same seeds, PARITY_STEPS steps at
+    batch 100 on the card, each seed its own permutation of the same
+    windows, dropout off, cuDNN deterministic. Every kernel launches once a
+    call for all seeds: the launches of the vectorized steps and of one
+    eval forward counted after :func:`_reset` (cuDNN's LSTM and GRU a call
+    a seed, counted by ``library_rnn.calls``). Each seed's losses at every
+    step and its parameters after the steps are held against its
+    sequential run's at the 5-step tolerance (where they miss, both
+    against the same steps in fp64 on the CPU, the vectorized run within
+    the tolerance of them); a method of VECTORIZED_GRADIENT_HELD holds each
+    term of its gradient at every step's weights instead. A ranked
+    method's sequential runs replay the vectorized run's top-k selections.
+    Returns the launches."""
+    torch.backends.cudnn.deterministic = True
+    dataset, dataset_id = CELL[method]
+    spec = get_algorithm_spec(method)
+    tp = train_params(dataset, dataset_id, method)
+    seeds = list(range(SEEDS))
+    steps = PARITY_STEPS
+    rng = np.random.default_rng(12)
+    n = steps * SERVE_BATCH
+    x = torch.from_numpy(_windows(dataset, rng, n)).cuda()
+    y = torch.from_numpy(rng.uniform(size=(n, 1)).astype(np.float32)).cuda()
+
+    def model_fn():
+        return _no_dropout(build_model(method, dataset, dataset_id))
+
+    veng = VectorizedEngine(model_fn, spec, tp, seeds)
+    perm = veng.permutations(n, 1, shuffle=True)
+    batches = [perm[:, k * SERVE_BATCH:(k + 1) * SERVE_BATCH]
+               for k in range(steps)]
+    sequential = []
+    for s in seeds:
+        torch.manual_seed(s)
+        sequential.append(Engine(model_fn(), spec, tp, seed=s))
+
+    path = _path(method)
+    rnn_layers = _library_rnn_layers(veng.model)
+    held = method not in VECTORIZED_GRADIENT_HELD
+    # The stacked state before each step, where the gradient is held.
+    snapshots = []
+    ranked = []
+    _reset()
+    calls = recurrent.library_rnn.calls
+    v_losses = []
+    with _recording(method, ranked):
+        for idx in batches:
+            if not held:
+                snapshots.append({k: t.detach().clone() for k, t in
+                                  {**veng.params, **veng.buffers}.items()})
+            v_losses.append(veng.train_step(x[idx], y[idx]).cpu().numpy())
+    torch.cuda.synchronize()
+    launches = {"steps": _counts(path.kernel),
+                "library_rnn_steps": recurrent.library_rnn.calls - calls}
+    _only_its_kernel(method, "vectorized steps")
+    _reset()
+    calls = recurrent.library_rnn.calls
+    preds = veng.evaluate(x[:SERVE_BATCH].cpu().numpy())
+    torch.cuda.synchronize()
+    launches["eval"] = _counts(path.kernel)[0]
+    launches["library_rnn_eval"] = recurrent.library_rnn.calls - calls
+    _only_its_kernel(method, "vectorized evaluation")
+    want = {"steps": (path.per_forward * steps,
+                      path.per_forward * path.bwd_per_call * steps),
+            "library_rnn_steps": SEEDS * rnn_layers * steps,
+            "eval": path.per_forward,
+            "library_rnn_eval": SEEDS * rnn_layers}
+    print(f"vectorized {method}: {SEEDS} seeds, launches per {steps} steps "
+          f"(forward, backward) {launches['steps']}, per eval forward "
+          f"{launches['eval']}; library_rnn calls "
+          f"{launches['library_rnn_steps']} in the steps, "
+          f"{launches['library_rnn_eval']} in the eval forward")
+    if launches != want:
+        raise AssertionError(f"vectorized {method}: launches {launches}, "
+                             f"expected {want}")
+    if preds.shape != (SEEDS, SERVE_BATCH) or not np.isfinite(preds).all():
+        raise AssertionError(f"vectorized {method}: predictions {preds.shape}")
+
+    if snapshots:
+        def load(state):
+            with torch.no_grad():
+                for name, t in {**veng.params, **veng.buffers}.items():
+                    t.copy_(state[name])
+
+        final = {k: t.detach().clone() for k, t in
+                 {**veng.params, **veng.buffers}.items()}
+        for k, snapshot in enumerate(snapshots):
+            load(snapshot)
+            _hold_vectorized_gradients(method, veng, model_fn, x, y,
+                                       batches[k], step=k + 1)
+        load(final)
+
+    s_losses = []
+    for s in seeds:
+        sel = _seed_replay(method, ranked, s)
+        with _during(sel, "replay"):
+            s_losses.append([float(sequential[s].train_step(x[idx[s]],
+                                                            y[idx[s]]))
+                             for idx in batches])
+        if sel:
+            sel.report(method, f"seed {s}'s {steps} steps (the vectorized "
+                               f"run's as the card's, the sequential run's "
+                               f"as the CPU's)")
+    s_losses = np.array(s_losses)
+    v_losses = np.array(v_losses).T  # (S, steps)
+    loss_ok = np.all(np.abs(v_losses - s_losses)
+                     <= LOSS_ATOL + LOSS_RTOL * np.abs(s_losses))
+    param_diff = 0.0
+    for s in seeds:
+        state = veng.slice_state(s)
+        param_diff = max(param_diff, *(
+            (state[k].double() - v.detach().cpu().double()).abs().max().item()
+            for k, v in sequential[s].model.named_parameters()))
+    print(f"vectorized {method}: {steps} steps at batch {SERVE_BATCH}, "
+          f"largest |loss vectorized - sequential| "
+          f"{np.abs(v_losses - s_losses).max():.3e} (losses "
+          f"{v_losses[0].tolist()} for seed 0), max |param vectorized - "
+          f"sequential| {param_diff:.3e}"
+          + ("" if held else "; not held: the gradient at every step is"))
+    torch.backends.cudnn.deterministic = False
+    if not held or (loss_ok and param_diff < PARAM_MAX_DIFF):
+        return launches
+    # Where the vectorized run misses the sequential one, both against the
+    # same steps in fp64 on the CPU: the vectorized run within the same
+    # tolerance of them.
+    off = {"vectorized": [0.0, 0.0], "sequential": [0.0, 0.0]}
+    for s in seeds:
+        torch.manual_seed(s)
+        e64 = Engine(model_fn().double(), spec, tp, seed=s, device="cpu")
+        with _plain_kernels(), _during(_seed_replay(method, ranked, s),
+                                       "replay"):
+            losses64 = np.array([float(e64.train_step(
+                x[idx[s]].cpu().double(), y[idx[s]].cpu().double()))
+                for idx in batches])
+        state = veng.slice_state(s)
+        for run, losses, params in (
+                ("vectorized", v_losses[s], state),
+                ("sequential", s_losses[s],
+                 {k: v.detach().cpu() for k, v in
+                  sequential[s].model.named_parameters()})):
+            off[run][0] = max(off[run][0], float(np.max(
+                np.abs(losses - losses64)
+                / (LOSS_ATOL + LOSS_RTOL * np.abs(losses64)))))
+            off[run][1] = max(off[run][1], *(
+                (params[k].double() - p.detach()).abs().max().item()
+                for k, p in e64.model.named_parameters()))
+    print(f"vectorized {method}: missed the sequential runs; against the "
+          f"same steps in fp64 on the CPU, the vectorized losses at "
+          f"{off['vectorized'][0]:.3f} of the tolerance and its parameters "
+          f"{off['vectorized'][1]:.3e} off, the sequential "
+          f"{off['sequential'][0]:.3f} and {off['sequential'][1]:.3e}")
+    if off["vectorized"][0] > 1 or not off["vectorized"][1] < PARAM_MAX_DIFF:
+        raise AssertionError(f"vectorized {method}: misses the sequential "
+                             f"runs and the same steps in fp64")
+    return launches
+
+
+def _vectorized_times(method: str, data: _Processed) -> dict:
+    """One vectorized epoch of SEEDS seeds against SEEDS sequential epochs,
+    one a seed, of the same windows, host clock, after each engine's
+    warm-up steps (a full batch and the remainder batch); samples/s over
+    all seeds; the card's busy share of a traced vectorized step."""
+    dataset, dataset_id = CELL[method]
+    spec = get_algorithm_spec(method)
+    tp = train_params(dataset, dataset_id, method)
+    shuffle = get_dataset_config(dataset).shuffle
+    n = len(data.train_x)
+    rem = n % SERVE_BATCH
+
+    def model_fn():
+        return build_model(method, dataset, dataset_id)
+
+    seq_s = []
+    for s in range(SEEDS):
+        torch.manual_seed(s)
+        engine = Engine(model_fn(), spec, tp, seed=s)
+        xd, yd = engine._device_data(data.train_x, data.train_y)
+        engine.train_step(xd[:SERVE_BATCH], yd[:SERVE_BATCH])
+        if rem:
+            engine.train_step(xd[:rem], yd[:rem])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_epoch(data.train_x, data.train_y, 1, shuffle=shuffle)
+        seq_s.append(time.perf_counter() - t0)
+    veng = VectorizedEngine(model_fn, spec, tp, list(range(SEEDS)))
+    xd, yd = veng._device_data(data.train_x, data.train_y)
+    idx = veng.permutations(n, 1, shuffle=False)
+    xb, yb = xd[idx[:, :SERVE_BATCH]], yd[idx[:, :SERVE_BATCH]]
+    step_ms = _step_ms(veng, xb, yb, warmup=2, reps=10)
+    if rem:
+        veng.train_step(xd[idx[:, :rem]], yd[idx[:, :rem]])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    veng.run_epoch(data.train_x, data.train_y, 1, shuffle=shuffle)
+    vec_s = time.perf_counter() - t0
+    busy_us, traced_us = _profile(f"vectorized step {method} ({SEEDS} seeds)",
+                                  lambda: veng.train_step(xb, yb), step_ms,
+                                  "step", reps=5)
+    out = {"vectorized_epoch_s": vec_s, "sequential_epochs_s": sum(seq_s),
+           "vectorized_samples_per_s": SEEDS * n / vec_s,
+           "sequential_samples_per_s": SEEDS * n / sum(seq_s),
+           "vectorized_step_ms": step_ms,
+           "vectorized_step_busy_share": busy_us / traced_us}
+    print(f"vectorized times {method} [{SMI}]: {SEEDS} seeds x {n} windows; "
+          f"one vectorized epoch {vec_s:.4f} s, "
+          f"{out['vectorized_samples_per_s']:.1f} samples/s all seeds; "
+          f"{SEEDS} sequential epochs {sum(seq_s):.4f} s ("
+          + ", ".join(f"{t:.4f}" for t in seq_s) + "), "
+          f"{out['sequential_samples_per_s']:.1f} samples/s; "
+          f"{sum(seq_s) / vec_s:.3f}x; a vectorized step {step_ms:.4f} ms "
+          f"(median of 10), the card busy {busy_us:.1f} us of a traced "
+          f"step's {traced_us:.1f} ({100 * busy_us / traced_us:.1f}%)")
+    return out
+
+
 class _Phases:
     """The wall time of each phase of :func:`main`, printed at its end."""
 
@@ -2528,6 +3147,12 @@ def main() -> None:
         for tier, models in tiers.items():
             _serve_times(tier, *models[:4])
         phases.mark("times, tiers")
+        grouped_err = _grouped_vs_plain()
+        grouped = _grouped_times()
+        vectorized = {m: _vectorized(m) for m in VECTORIZED_METHODS}
+        vec_times = {m: _vectorized_times(m, data[CELL[m][0]])
+                     for m in VECTORIZED_METHODS}
+        phases.mark("vectorized")
     phases.report()
 
     def entry(name, times, max_abs_err, launches, **extra):
@@ -2576,8 +3201,25 @@ def main() -> None:
                           lstm[(100, 200, h)][part][4]})
         return out
 
+    def seeds(methods, part, key, times):
+        """The vectorized phase's launches of ``methods`` (``part`` 0
+        forward, 1 backward) and the grouped kernel's times at ``key``."""
+        out = {"grouped_max_abs_err": grouped_err[times],
+               **at(grouped[key], "grouped_g5")}
+        for m in methods:
+            out[f"launches_vectorized_{m.lower()}_steps"] = \
+                vectorized[m]["steps"][part]
+            if part == 0:
+                out[f"launches_vectorized_{m.lower()}_eval"] = \
+                    vectorized[m]["eval"]
+        return out
+
     lstm_shape = (100, 70, 48)
     tier5 = tiers["LOGO_bearing XJTU_SY/Condition_1"][4]
+    logo5 = f"lstm {GROUPED_LSTM[0][0]}x{GROUPED_LSTM[0][1]}x" \
+            f"{GROUPED_LSTM[0][2]}"
+    lstm_methods = ("LOGO", "HAGCN", "LOGO_bearing")
+    print(json.dumps({"vectorized": vec_times}))
     print(json.dumps({"kernels": [
         entry("fused_dot_graph_spmm", fwd[KERNEL_CASES[0]], max_err,
               trained["FC_STGNN"][0],
@@ -2589,7 +3231,8 @@ def main() -> None:
               launches_artifact=artifacts["FC_STGNN"][1],
               plan=fused_gnn.fwd_plan(*KERNEL_CASES[0]),
               plan_b1000=fused_gnn.fwd_plan(*KERNEL_CASES[1]),
-              **at(fwd[KERNEL_CASES[1]], "b1000")),
+              **at(fwd[KERNEL_CASES[1]], "b1000"),
+              **seeds(["FC_STGNN"], 0, "dot graph", 0)),
         entry("fused_dot_graph_spmm_bwd", bwd[KERNEL_CASES[0]], bwd_max_err,
               trained["FC_STGNN"][1],
               source="gnn_rul_tpu_torch/csrc/fused_gnn_bwd.cu",
@@ -2597,7 +3240,8 @@ def main() -> None:
                        "(_bwd_kernel)",
               launches_per_call=trained["FC_STGNN"][1]
               / trained["FC_STGNN"][2],
-              **at(bwd[KERNEL_CASES[1]], "b1000")),
+              **at(bwd[KERNEL_CASES[1]], "b1000"),
+              **seeds(["FC_STGNN"], 1, "dot graph bwd", 0)),
         entry("fused_lstm", lstm[lstm_shape]["fwd"], lstm_err,
               trained["LOGO"][0], source="gnn_rul_tpu_torch/csrc/fused_lstm.cu",
               replaces="gnn_rul_tpu/ops/pallas/fused_lstm.py:77 (_fwd_kernel)",
@@ -2608,7 +3252,8 @@ def main() -> None:
               launches_hagcn_serve=served["HAGCN"][4],
               launches_hagcn_artifact=artifacts["HAGCN"][1],
               launches_hagcn_eval=trained["HAGCN"][3],
-              **logo_bearing("fwd"), launches_logo_bearing_tier5=tier5),
+              **logo_bearing("fwd"), launches_logo_bearing_tier5=tier5,
+              **seeds(lstm_methods, 0, logo5, 1)),
         entry("fused_lstm_bwd", lstm[lstm_shape]["bwd"], lstm_bwd_err,
               trained["LOGO"][1],
               source="gnn_rul_tpu_torch/csrc/fused_lstm_bwd.cu",
@@ -2616,7 +3261,9 @@ def main() -> None:
                        "(_bwd_kernel)",
               shape="T=100 B=70 H=48",
               library="torch.nn.LSTM forward+backward minus forward",
-              **hagcn("bwd", 1), **logo_bearing("bwd")),
+              **hagcn("bwd", 1), **logo_bearing("bwd"),
+              **seeds(lstm_methods, 1, logo5.replace("lstm", "lstm bwd"),
+                      2)),
         entry("fused_gat", gat[GAT_CASES[0]], gat_err, trained["STAGNN"][0],
               source="gnn_rul_tpu_torch/csrc/fused_gat.cu",
               replaces="gnn_rul_tpu/ops/pallas/fused_gat.py:46 (_kernel)",
@@ -2631,7 +3278,10 @@ def main() -> None:
               stfa_bound_ms=gat[GAT_CASES[2]][2],
               **at(gat[GAT_CASES[3]], "stfa_b25000"),
               **launches_of("GAT_LSTM"), **at(gat[GAT_CASES[10]], "gat_lstm"),
-              **launches_of("GDAGDL"), **at(gat[GAT_CASES[11]], "gdagdl")),
+              **launches_of("GDAGDL"), **at(gat[GAT_CASES[11]], "gdagdl"),
+              **seeds(["STAGNN", "STFA"], 0,
+                      f"gat {GROUPED_GAT[0][0]}x{GROUPED_GAT[0][1]}x"
+                      f"{GROUPED_GAT[0][2]}", 3)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,7 +8,9 @@ The reference CLI's flags (main.py:8-39) and the JAX package's:
 Trains on the card (``--device cuda``, the default; it raises where CUDA is
 absent) or on the CPU (``--device cpu``); with ``--eval_torch_checkpoint
 PT`` it evaluates the weights of a ``checkpoint.pt`` (the port's or the
-reference's) on the test set instead of training. The methods are
+reference's) on the test set instead of training; with ``--vectorized_runs``
+it trains all ``--num_runs`` seeds at once (``train/vectorized.py``), each
+run's artifacts as a sequential run writes them. The methods are
 ``models.MODELS``, all 21 of the reference: the twelve aero-engine methods
 (FC_STGNN, LOGO, HAGCN, RGCNU, STAGNN, STFA, GRU_CM, STGNN, DVGTformer,
 HierCorrPool, ASTGCNN, ST_Conv) and the nine bearing methods
@@ -60,7 +62,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=0,
                    help="override the hparam bank's num_epochs (0 = keep)")
     p.add_argument("--vectorized_runs", action="store_true",
-                   help="seed-parallel runs: not ported yet")
+                   help="train all --num_runs seeds at once, one vmapped "
+                        "step for every seed (seed = run index, the "
+                        "sequential runs' per-seed semantics but dropout "
+                        "masks; each run's artifacts as a sequential run's)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="profiler trace of an epoch: not ported yet")
     p.add_argument("--eval_torch_checkpoint", default=None, metavar="PT",
@@ -71,10 +76,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
+    if args.vectorized_runs and args.resume:
+        raise ValueError("--vectorized_runs does not support --resume (the "
+                         "runs advance in lockstep; resume a run on the "
+                         "sequential path)")
     unported = {
         "--mesh": args.mesh is not None,
         "--precision bf16": args.precision == "bf16",
-        "--vectorized_runs": args.vectorized_runs,
         "--resume": args.resume,
         "--checkpoint_every": args.checkpoint_every > 0,
         "--profile": args.profile is not None,
@@ -104,6 +112,7 @@ def main(argv=None):
         num_runs=args.num_runs,
         num_epochs_override=args.epochs or None,
         device=args.device,
+        vectorized_runs=args.vectorized_runs,
     )
     if args.eval_torch_checkpoint:
         state_dict, _ = load_checkpoint(args.eval_torch_checkpoint)

@@ -7,6 +7,15 @@
 //   graph, bias one float in device memory, slope a float; out (B, N, D); all
 //   fp32, contiguous.
 //
+//   Or groups (seed-parallel runs, all seeds in one launch): adj (A, N, N),
+//   graph b on adj[b / (B/A)], and bias G floats, graph b with
+//   bias[b / (B/G)], A and G dividing B (A = B is the per-graph adj, A = 1
+//   the shared one). A block of whole graphs holds graphs of one part only:
+//   the consecutive graphs that share a bias and, for 1 < A < B, an adj
+//   (the caller's `part`, B at A = G = 1): the plan takes the most graphs
+//   a block, up to the ungrouped plan's, that divide a part's. The
+//   arithmetic of a graph is the same at every grouping.
+//
 // Replaces gnn_rul_tpu/ops/pallas/fused_gat.py::_kernel. The TPU kernel pads N
 // and D to 128 lanes and materialises the (Np, Np) panel in VMEM, one graph per
 // grid step; the padding does not carry over, the one panel per graph does.
@@ -94,14 +103,15 @@ long long floats(int n, int g, int r, int c) {
           static_cast<long long>(round4(n)) * c);
 }
 
-bool make_plan(long long b, int n, int d, Plan* p) {
-  if (b <= 0 || n <= 0 || d <= 0) return false;
+bool make_plan(long long b, int n, int d, long long part, Plan* p) {
+  if (b <= 0 || n <= 0 || d <= 0 || part <= 0 || b % part != 0) return false;
   const long long work = static_cast<long long>(n) * (n > d ? n : d);
   if (b >= kTargetBlocks && floats(n, 1, n, d) <= kBudget) {
     long long g = kWorkPerBlock / work;
     if (g > kBudget / floats(n, 1, n, d)) g = kBudget / floats(n, 1, n, d);
     if (g > b / kTargetBlocks) g = b / kTargetBlocks;
     if (g < 1) g = 1;
+    while (part < b && part % g != 0) --g;  // no block straddles parts
     *p = {static_cast<int>(g), n, d, 1, (b + g - 1) / g,
           4 * floats(n, static_cast<int>(g), n, d)};
     return true;
@@ -134,7 +144,9 @@ struct Args {
   long long b;
   int n;
   int d;
-  long long adj_stride;  // N * N, or 0 for the shared (N, N)
+  long long adj_stride;  // N * N per graph, or 0 for a shared (N, N)
+  int adj_group;         // graphs on one shared (N, N): B / A
+  int bias_group;        // graphs on one bias: B / G
   Plan plan;
 };
 
@@ -216,10 +228,16 @@ __global__ void __launch_bounds__(kThreads) fused_gat_kernel(const Args a) {
   stage::rows(f2s, gn * n, a.f2 + gb0 * n, gn * n, 1, gn * n);
   stage::rows(f1s, rows, a.f1 + gb0 * n + i0, rows, 1, rows);
   const int adj_rows = shared_adj ? rn : rows;
-  stage::rows(adjs, adj_rows * n,
-              a.adj + gb0 * a.adj_stride + static_cast<long long>(i0) * n,
+  // One group (the call of before) reads the first adj and bias.
+  const int g0 = static_cast<int>(gb0);
+  const float* adj =
+      a.adj + (!shared_adj ? gb0 * a.adj_stride
+               : a.adj_group == a.b
+                   ? 0LL
+                   : static_cast<long long>(g0 / a.adj_group) * n * n);
+  stage::rows(adjs, adj_rows * n, adj + static_cast<long long>(i0) * n,
               adj_rows * n, 1, adj_rows * n);
-  const float bias = *a.bias;
+  const float bias = a.bias[a.bias_group == a.b ? 0 : g0 / a.bias_group];
   const float slope = a.slope;
   stage::wait_all();
   __syncthreads();
@@ -354,13 +372,15 @@ int launch(const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// The plan for (B, N, D) into out[0..5]: graphs a block, rows a block,
-// columns of wh a chunk, blocks a graph, blocks, shared bytes a block.
-// Returns 0, or cudaErrorInvalidValue where no plan exists (N > 3069: one
-// row's weights and one column of wh no longer fit kBudget).
-int fused_gat_plan(int b, int n, int d, long long* out) {
+// The plan for (B, N, D) with blocks of whole graphs kept within parts of
+// `part` graphs into out[0..5]: graphs a block, rows a block, columns of wh
+// a chunk, blocks a graph, blocks, shared bytes a block. Returns 0, or
+// cudaErrorInvalidValue where no plan exists (N > 3069: one row's weights
+// and one column of wh no longer fit kBudget; part not dividing B).
+int fused_gat_plan(int b, int n, int d, int part, long long* out) {
   Plan p;
-  if (!make_plan(b, n, d, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!make_plan(b, n, d, part, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
   out[0] = p.graphs;
   out[1] = p.rows;
   out[2] = p.cols;
@@ -370,16 +390,37 @@ int fused_gat_plan(int b, int n, int d, long long* out) {
   return 0;
 }
 
+long long gcd(long long x, long long y) {
+  while (y != 0) {
+    const long long r = x % y;
+    x = y;
+    y = r;
+  }
+  return x;
+}
+
 // Launches on `stream` and returns cudaGetLastError(): nonzero when the launch
-// was refused. `shared_adj` nonzero: adj is one (N, N) for every graph. Does
-// not synchronise and allocates nothing.
+// was refused. adj holds `adj_groups` (N, N) (A: 1 shared by every graph, B
+// one a graph), bias `bias_groups` floats (G); A and G divide B. Does not
+// synchronise and allocates nothing.
 int fused_gat_fwd(const float* wh, const float* f1, const float* f2,
                   const float* adj, const float* bias, float slope, float* out,
-                  int b, int n, int d, int shared_adj, void* stream) {
+                  int b, int n, int d, int adj_groups, int bias_groups,
+                  void* stream) {
+  if (b <= 0 || adj_groups <= 0 || bias_groups <= 0 || b % adj_groups != 0 ||
+      b % bias_groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool per_graph = adj_groups == b && b > 1;
+  const int bias_group = b / bias_groups, adj_group = b / adj_groups;
+  const int part = adj_groups > 1 && !per_graph
+                       ? static_cast<int>(gcd(bias_group, adj_group))
+                       : bias_group;
   Plan p;
-  if (!make_plan(b, n, d, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!make_plan(b, n, d, part, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{wh, f1, f2, adj, bias, slope, out, b, n, d,
-               shared_adj ? 0LL : static_cast<long long>(n) * n, p};
+               per_graph ? static_cast<long long>(n) * n : 0LL, adj_group,
+               bias_group, p};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // A row's segment: the power of 2 that covers N, up to a warp.
   if (n <= 1) return launch<1>(a, s);

@@ -4,6 +4,10 @@
 //
 //   h (B, N, D), x (B, N, F), mask (N, N), out (B, N, F); all fp32, contiguous.
 //
+//   Or G groups: mask (G, N, N) with B a multiple of G, group g = graphs
+//   [g*B/G, (g+1)*B/G) masked by mask[g] (seed-parallel runs: each seed's
+//   graphs a group, all seeds in one launch). G = 1 is the one shared mask.
+//
 // Replaces gnn_rul_tpu/ops/pallas/fused_gnn.py::_kernel (one graph per grid
 // step) and ::_packed_kernel (small graphs packed block-diagonally into one
 // step). Like them it keeps S, P and A out of device memory; the TPU's
@@ -47,6 +51,14 @@
 //   warps takes 8 rows of one graph, a warp a row, streaming 32-column
 //   tiles of h and x through shared memory with an online softmax, so no
 //   (N, N) tile is held and any N works (N = 384 at D = F = 128).
+//
+// Groups: a whole-graph block holds graphs of one group only, so it stages
+// one mask, at its group's offset: in groups the plan takes the most
+// graphs a block, up to the ungrouped plan's, that divide a group's. A
+// row-tile block holds one graph, and the stream reads the mask of its
+// graph's group. Per graph the arithmetic is the same at every
+// G, so a group's outputs equal those of an ungrouped call on its graphs
+// wherever both take the whole-graph plans.
 //
 // Why S keeps the backward's order: fused_gnn_bwd.cu recomputes P from h
 // and assumes it is the P of this forward. Both form S_ij as
@@ -154,8 +166,9 @@ long long stream_smem_bytes(int d, int f) {
                                 kWarp * f);
 }
 
-bool make_plan(int b, int n, int d, int f, Plan* p) {
-  if (b <= 0 || n <= 0 || d <= 0 || f <= 0 || d > kMaxFeat || f > kMaxFeat)
+bool make_plan(int b, int n, int d, int f, int groups, Plan* p) {
+  if (b <= 0 || n <= 0 || d <= 0 || f <= 0 || d > kMaxFeat || f > kMaxFeat ||
+      groups <= 0 || b % groups != 0)
     return false;
   const long long one = graph_floats(n, d, f, 1, n);
   if (4 * one > kMaxSmem) {
@@ -172,6 +185,9 @@ bool make_plan(int b, int n, int d, int f, Plan* p) {
       g = (kMaxSmem / 4 - mask) / (one - mask);
     if (g > b / kTargetBlocks) g = b / kTargetBlocks;
     if (g < 1) g = 1;
+    // In groups, the most graphs up to g that divide a group's: no block
+    // straddles two groups.
+    while (groups > 1 && (b / groups) % g != 0) --g;
     *p = {1, static_cast<int>(g), n, 1, (b + g - 1) / g,
           4 * graph_floats(n, d, f, g, n)};
     return true;
@@ -193,6 +209,7 @@ struct Args {
   const float* mask;
   float* out;
   long long b;
+  int per;  // graphs a group: B / G
   int n;
   int d;
   int f;
@@ -221,6 +238,11 @@ __global__ void __launch_bounds__(kThreads) fwd_graph_kernel(const Args a) {
     i0 = (blockIdx.x % p.row_tiles) * p.rows;
     rn = min(p.rows, n - i0);
   }
+  // The group's mask; one group (the call of before) reads the first.
+  const float* mask =
+      a.mask + (a.per == a.b ? 0LL
+                             : static_cast<long long>(
+                                   static_cast<int>(gb0) / a.per) * n * n);
   float* hs = smem;                          // [graphs][n][hst], zero past d
   float* at = hs + p.graphs * n * hst;       // [graphs][rows][ts]: A
   float* xs = at + p.graphs * p.rows * ts;   // [graphs][n4][f], zero past n
@@ -233,7 +255,7 @@ __global__ void __launch_bounds__(kThreads) fwd_graph_kernel(const Args a) {
     for (int g = 0; g < gn; ++g)
       stage::rows(xs + g * n4 * f, f, a.x + (gb0 + g) * n * f, f, n, f);
   }
-  stage::rows(ms, n, a.mask + static_cast<long long>(i0) * n, n, rn, n);
+  stage::rows(ms, n, mask + static_cast<long long>(i0) * n, n, rn, n);
   const int pad = hst - d;
   for (int e = threadIdx.x; e < gn * n * pad; e += kThreads)
     hs[(e / pad) * hst + d + e % pad] = 0.f;
@@ -379,8 +401,8 @@ __global__ void __launch_bounds__(kThreads) fwd_graph_kernel(const Args a) {
 
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 fwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
-                const float* __restrict__ mask, float* __restrict__ out,
-                int n, int d, int f) {
+                const float* __restrict__ masks, float* __restrict__ out,
+                int n, int d, int f, int per) {
   // Shared memory: the block's rows of h, then one column tile of h (odd row
   // stride, so lanes reading different rows hit different banks) and of x.
   extern __shared__ float smem[];
@@ -398,6 +420,7 @@ fwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
 
   const float* hb = h + static_cast<size_t>(b) * n * d;
   const float* xb = x + static_cast<size_t>(b) * n * f;
+  const float* mask = masks + static_cast<size_t>(b / per) * n * n;
 
   for (int idx = threadIdx.x; idx < kRowsPerBlock * d; idx += blockDim.x) {
     const int row = row0 + idx / d;
@@ -502,14 +525,15 @@ extern "C" {
 
 int fused_dot_graph_spmm_max_feat() { return kMaxFeat; }
 
-// The plan for (B, N, D, F) into out[0..5]: whole graphs (1) or the row-tile
-// stream (0), graphs a block, rows of a graph a block, blocks a graph,
-// blocks, shared bytes a block. Returns 0, or cudaErrorInvalidValue where
-// no plan exists (a bad shape, or more than 65,535 row tiles a graph).
-int fused_dot_graph_spmm_fwd_plan(int b, int n, int d, int f,
+// The plan for (B, N, D, F) in G groups into out[0..5]: whole graphs (1) or
+// the row-tile stream (0), graphs a block, rows of a graph a block, blocks a
+// graph, blocks, shared bytes a block. Returns 0, or cudaErrorInvalidValue
+// where no plan exists (a bad shape, G not dividing B, or more than 65,535
+// row tiles a graph).
+int fused_dot_graph_spmm_fwd_plan(int b, int n, int d, int f, int groups,
                                   long long* out) {
   Plan p;
-  if (!make_plan(b, n, d, f, &p))
+  if (!make_plan(b, n, d, f, groups, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   out[0] = p.whole;
   out[1] = p.graphs;
@@ -520,21 +544,21 @@ int fused_dot_graph_spmm_fwd_plan(int b, int n, int d, int f,
   return 0;
 }
 
-// Launches the plan for (B, N, D, F) on `stream` and returns
-// cudaGetLastError(): nonzero when the launch was refused. *launched is set
-// to the number of kernels this call launched (1 when it returns 0). Does
-// not synchronise and allocates nothing.
+// Launches the plan for (B, N, D, F) in G groups (mask (G, N, N)) on
+// `stream` and returns cudaGetLastError(): nonzero when the launch was
+// refused. *launched is set to the number of kernels this call launched (1
+// when it returns 0). Does not synchronise and allocates nothing.
 int fused_dot_graph_spmm_fwd(const float* h, const float* x, const float* mask,
                              float* out, int b, int n, int d, int f,
-                             void* stream, int* launched) {
+                             int groups, void* stream, int* launched) {
   *launched = 0;
   Plan p;
-  if (!make_plan(b, n, d, f, &p))
+  if (!make_plan(b, n, d, f, groups, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (p.whole) {
-    const Args a{h, x, mask, out, b, n, d, f, p};
+    const Args a{h, x, mask, out, b, b / groups, n, d, f, p};
     if (n <= kWarp)
       err = launch_graph<1>(a, s);
     else if (n <= 2 * kWarp)
@@ -549,7 +573,7 @@ int fused_dot_graph_spmm_fwd(const float* h, const float* x, const float* mask,
     const dim3 grid(b, p.row_tiles);
     fwd_rows_kernel<<<grid, kWarp * kRowsPerBlock,
                       static_cast<size_t>(p.smem), s>>>(h, x, mask, out, n, d,
-                                                        f);
+                                                        f, b / groups);
     err = static_cast<int>(cudaGetLastError());
   }
   if (err == 0) *launched = 1;

@@ -12,7 +12,9 @@
 //
 //   h (B, N, D), x (B, N, F), mask (N, N), g (B, N, F); dh (B, N, D),
 //   dx (B, N, F), dmask per sample (B, N, N) when asked for; all fp32,
-//   contiguous.
+//   contiguous. Or G groups: mask (G, N, N) with B a multiple of G, graph b
+//   masked by mask[b / (B/G)] (seed-parallel runs, all seeds in one
+//   launch); the caller sums dmask over each group's graphs.
 //
 // Replaces gnn_rul_tpu/ops/pallas/fused_gnn.py::_bwd_kernel, which recomputes
 // S/P/A for one graph in VMEM and runs the whole chain there.
@@ -146,9 +148,9 @@ __device__ __forceinline__ void zero_pad(float* dst, int rows, int width,
 
 __global__ void __launch_bounds__(kGraphThreads)
 bwd_graph_kernel(const float* __restrict__ h, const float* __restrict__ x,
-                 const float* __restrict__ mask, const float* __restrict__ g,
+                 const float* __restrict__ masks, const float* __restrict__ g,
                  float* __restrict__ dh, float* __restrict__ dx,
-                 float* __restrict__ dmask, int n, int d, int f) {
+                 float* __restrict__ dmask, int n, int d, int f, int per) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int hst = quad_stride(d), xst = quad_stride(f), ts = n | 1;
@@ -160,6 +162,11 @@ bwd_graph_kernel(const float* __restrict__ h, const float* __restrict__ x,
   float* dt = et + n * ts;             // [n][ts]: dA, then dS
 
   const size_t b = blockIdx.x;
+  // The graph's group's mask (32-bit division: B fits an int); one group,
+  // the call of before, skips the division.
+  const float* mask = masks;
+  if (per < static_cast<int>(gridDim.x))
+    mask += static_cast<size_t>(static_cast<int>(blockIdx.x) / per) * n * n;
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   stage::rows(hs, hst, h + b * n * d, d, n, d);
@@ -285,9 +292,9 @@ bwd_graph_kernel(const float* __restrict__ h, const float* __restrict__ x,
 
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
-                const float* __restrict__ mask, const float* __restrict__ g,
+                const float* __restrict__ masks, const float* __restrict__ g,
                 float* __restrict__ dh, float* __restrict__ dmask,
-                float* __restrict__ stats, int n, int d, int f) {
+                float* __restrict__ stats, int n, int d, int f, int per) {
   // The block's rows of h and g, then one column tile of h and of x (odd
   // row strides, so lanes reading different rows hit different banks).
   extern __shared__ float smem[];
@@ -311,7 +318,8 @@ bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
             f);
   const float* hrow = hi + warp * d;
   const float* grow = gi + warp * f;
-  const float* mrow = mask + static_cast<size_t>(i) * n;
+  const int grp = per < static_cast<int>(gridDim.x) ? b / per : 0;
+  const float* mrow = masks + (static_cast<size_t>(grp) * n + i) * n;
 
   // Sweep 1: online softmax statistics and rowsum(dP * P).
   float run_max = -INFINITY, run_sum = 0.f, run_t = 0.f;
@@ -391,9 +399,9 @@ bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
 
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ x,
-                const float* __restrict__ mask, const float* __restrict__ g,
+                const float* __restrict__ masks, const float* __restrict__ g,
                 const float* __restrict__ stats, float* __restrict__ dh,
-                float* __restrict__ dx, int n, int d, int f) {
+                float* __restrict__ dx, int n, int d, int f, int per) {
   // The block's columns of h and x, then one row tile of h, of g and of the
   // row statistics.
   extern __shared__ float smem[];
@@ -414,6 +422,8 @@ bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ x,
   const float* hb = h + static_cast<size_t>(b) * n * d;
   const float* gb = g + static_cast<size_t>(b) * n * f;
   const float* sb = stats + static_cast<size_t>(b) * n * 3;
+  const int grp = per < static_cast<int>(gridDim.x) ? b / per : 0;
+  const float* mask = masks + static_cast<size_t>(grp) * n * n;
   load_rows(hj, hb, col0, kRowsPerBlock, n, d, d);
   load_rows(xj, x + static_cast<size_t>(b) * n * f, col0, kRowsPerBlock, n, f,
             f);
@@ -527,8 +537,9 @@ int fused_dot_graph_spmm_bwd_plan(int n, int d, int f, long long* smem) {
   return one ? 1 : 2;
 }
 
-// Launches the plan for (N, D, F) on `stream` and returns cudaGetLastError():
-// nonzero when a launch was refused. *launched is set to the number of
+// Launches the plan for (N, D, F) on `stream`, for B graphs in G groups
+// (mask (G, N, N)), and returns cudaGetLastError(): nonzero when a launch
+// was refused. *launched is set to the number of
 // kernels this call launched (1 or 2 when it returns 0). Neither synchronises
 // nor allocates. `dmask` may be null (no mask gradient). `stats` is the
 // two-launch plan's (B, N, 3) scratch, written by the row pass and read by the
@@ -536,10 +547,12 @@ int fused_dot_graph_spmm_bwd_plan(int n, int d, int f, long long* smem) {
 int fused_dot_graph_spmm_bwd(const float* h, const float* x,
                              const float* mask, const float* g, float* dh,
                              float* dx, float* dmask, float* stats, int b,
-                             int n, int d, int f, void* stream,
+                             int n, int d, int f, int groups, void* stream,
                              int* launched) {
   *launched = 0;
-  if (bad_shape(b, n, d, f)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(b, n, d, f) || groups <= 0 || b % groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per = b / groups;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (one_launch(n, d, f)) {
@@ -549,7 +562,7 @@ int fused_dot_graph_spmm_bwd(const float* h, const float* x,
       if (code != 0) return code;
     }
     bwd_graph_kernel<<<b, kGraphThreads, smem, s>>>(h, x, mask, g, dh, dx,
-                                                    dmask, n, d, f);
+                                                    dmask, n, d, f, per);
     err = cudaGetLastError();
     if (err == cudaSuccess) *launched = 1;
     return static_cast<int>(err);
@@ -558,12 +571,12 @@ int fused_dot_graph_spmm_bwd(const float* h, const float* x,
   const dim3 grid(b, (n + kRowsPerBlock - 1) / kRowsPerBlock);
   const size_t smem = pass_smem_bytes(d, f);
   bwd_rows_kernel<<<grid, kWarp * kRowsPerBlock, smem, s>>>(
-      h, x, mask, g, dh, dmask, stats, n, d, f);
+      h, x, mask, g, dh, dmask, stats, n, d, f, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   *launched = 1;
   bwd_cols_kernel<<<grid, kWarp * kRowsPerBlock, smem, s>>>(
-      h, x, mask, g, stats, dh, dx, n, d, f);
+      h, x, mask, g, stats, dh, dx, n, d, f, per);
   err = cudaGetLastError();
   if (err == cudaSuccess) *launched = 2;
   return static_cast<int>(err);

@@ -9,6 +9,10 @@
 //   xg (T, 2, B, 4H) the projected gate inputs, direction 1 already flipped
 //   in time; w_hh (2, H, 4H); ys and the whole c trajectory cs (T, 2, B, H);
 //   c_fin (2, B, H) = cs[T-1]. h and c start at zero. All fp32, contiguous.
+//   Or G groups (seed-parallel runs, all seeds in one launch): w_hh (G, 2,
+//   H, 4H), batch column b run with w_hh[b / (B/G)]; each CTA (or cluster)
+//   serves one column, so it reads its group's W_hh and nothing else
+//   changes. The plan is chosen from H and the whole B.
 //
 // Replaces gnn_rul_tpu/ops/pallas/fused_lstm.py::_fwd_kernel, which walks
 // time on the TPU's sequential grid with h, c and W_hh resident in VMEM,
@@ -95,7 +99,7 @@ __global__ void __launch_bounds__(kW > 0 ? kRegThreads : kMaxThreads)
 lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w,
                 float* __restrict__ ys, float* __restrict__ cs,
                 float* __restrict__ c_fin, int t_len, int b_len, int h,
-                Plan p) {
+                int per, Plan p) {
   extern __shared__ float4 smem[];
   const int g = 4 * h, tid = threadIdx.x, sl = p.lanes;
   const int rank =
@@ -113,7 +117,8 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w,
       smem + (kW == 0 ? static_cast<size_t>(p.iters) * p.threads : 0));
   float* gate = hbuf + 2 * nv;
   float* xin = gate + 4 * stride;
-  const float* wk = w + static_cast<size_t>(dir) * h * g;
+  // This column's group's W_hh, this direction's.
+  const float* wk = w + (static_cast<size_t>(col / per) * 2 + dir) * h * g;
   float4 wr[kW > 0 ? kW : 1];
   if constexpr (kW > 0)
     load_w_regs(wr, wk, h, p, u0, u, s, false);
@@ -241,18 +246,22 @@ int fused_lstm_fwd_plan(int h, int b, int* out) {
 // Launches on `stream` and returns the launch's error or
 // cudaGetLastError(): nonzero when the launch was refused. Neither
 // synchronises nor allocates. Writes ys, cs (the c trajectory) and c_fin,
-// on the plan of fused_lstm_fwd_plan.
+// on the plan of fused_lstm_fwd_plan, for B columns in G groups (w_hh (G, 2,
+// H, 4H)).
 int fused_lstm_fwd(const float* xg, const float* w_hh, float* ys, float* cs,
-                   float* c_fin, int t, int b, int h, void* stream) {
+                   float* c_fin, int t, int b, int h, int groups,
+                   void* stream) {
   Plan p;
-  if (bad_shape(t, b) || !pick_plan(h, b, kVec, &p))
+  if (bad_shape(t, b) || bad_groups(b, groups) || !pick_plan(h, b, kVec, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(b * p.cluster, 2);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int per = b / groups;
   return p.cluster > 1
-             ? dispatch<true>(p, grid, s, xg, w_hh, ys, cs, c_fin, t, b, h, p)
+             ? dispatch<true>(p, grid, s, xg, w_hh, ys, cs, c_fin, t, b, h,
+                              per, p)
              : dispatch<false>(p, grid, s, xg, w_hh, ys, cs, c_fin, t, b, h,
-                               p);
+                               per, p);
 }
 
 const char* fused_lstm_error_string(int code) { return error_string(code); }

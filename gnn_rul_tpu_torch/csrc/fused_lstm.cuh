@@ -144,6 +144,11 @@ inline bool bad_shape(int t, int b) {
          static_cast<long long>(t) * b > (1LL << 30);
 }
 
+// G groups of batch columns (w_hh (G, 2, H, 4H)) must divide B.
+inline bool bad_groups(int b, int groups) {
+  return groups <= 0 || b % groups != 0;
+}
+
 inline int smem_optin_limit() {
   int dev = 0, limit = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;

@@ -13,7 +13,9 @@
 //
 //   xg (T, 2, B, 4H), w_hh (2, H, 4H), ys and cs (T, 2, B, H), dys
 //   (T, 2, B, H), dc_fin (2, B, H) -> dxg (T, 2, B, 4H), dw_hh (2, H, 4H).
-//   All fp32, contiguous.
+//   All fp32, contiguous. Or G groups (seed-parallel runs, all seeds in one
+//   launch of each kernel): w_hh and dw_hh (G, 2, H, 4H), batch column b
+//   run with w_hh[b / (B/G)] and summed into dw_hh[b / (B/G)].
 //
 // Replaces gnn_rul_tpu/ops/pallas/fused_lstm.py::_bwd_kernel, which walks
 // the TPU's sequential grid in reverse with dh, dc and dW_hh in VMEM scratch,
@@ -44,6 +46,14 @@
 //     allows.
 //   dW reduce: one thread per dW element adds the chunks' partials in chunk
 //     order, in fp64, and rounds once to fp32.
+//
+// Groups. The sweep serves one column a CTA, so it reads its column's
+// group's W_hh. The two row passes take each group's rows apart: the grid's
+// z is (group, direction), and a block's rows are rows of its group only,
+// r = t * (B/G) + (b mod B/G) in the group's order, so no tile straddles
+// two groups' W_hh or dW. At G = 1 that is the one call of before; a
+// group's dW is cut into the chunks an ungrouped call on its columns takes
+// (rows_per_chunk of (T, B/G, H)), so both sum in the same order.
 //
 // No atomics: every output element has one writer, and the partials are
 // added in a fixed order, so the gradients are deterministic.
@@ -87,16 +97,17 @@ constexpr int kTargetBlocks = 132;  // dW blocks per direction: one per SM
 __global__ void __launch_bounds__(kGateThreads)
 lstm_gates_kernel(const float* __restrict__ xg, const float* __restrict__ w,
                   const float* __restrict__ ys, float* __restrict__ gates,
-                  int t_len, int b_len, int h) {
+                  int t_len, int b_len, int h, int per) {
   // h_prev transposed, [k][row], padded so that its stores spread over the
   // banks and each 4-row read stays 16-byte aligned; W, [k][column].
   __shared__ __align__(16) float as[kGateK][kGateTile + 4];
   __shared__ __align__(16) float bs[kGateK][kGateTile];
-  const int g = 4 * h, rows = t_len * b_len;
+  // The rows of one group: r = t * per + bl is column grp * per + bl.
+  const int g = 4 * h, rows = t_len * per;
   const int r0 = blockIdx.x * kGateTile, c0 = blockIdx.y * kGateTile;
-  const int dir = blockIdx.z;
+  const int grp = blockIdx.z / 2, dir = blockIdx.z % 2, b_off = grp * per;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* wk = w + static_cast<size_t>(dir) * h * g;
+  const float* wk = w + (static_cast<size_t>(grp) * 2 + dir) * h * g;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < h; k0 += kGateK) {
     __syncthreads();  // the previous tiles have been consumed
@@ -105,7 +116,7 @@ lstm_gates_kernel(const float* __restrict__ xg, const float* __restrict__ w,
       const int r = r0 + rr, k = k0 + ka;
       float v = 0.f;
       if (r < rows && k < h) {
-        const int t = r / b_len, b = r - t * b_len;
+        const int t = r / per, b = b_off + r - t * per;
         if (t > 0)
           v = ys[((static_cast<size_t>(t - 1) * 2 + dir) * b_len + b) * h + k];
       }
@@ -132,7 +143,7 @@ lstm_gates_kernel(const float* __restrict__ xg, const float* __restrict__ w,
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + ty * 4 + i;
     if (r >= rows) continue;
-    const int t = r / b_len, b = r - t * b_len;
+    const int t = r / per, b = b_off + r - t * per;
     const size_t o = ((static_cast<size_t>(t) * 2 + dir) * b_len + b) * g;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -152,7 +163,7 @@ __global__ void __launch_bounds__(kW > 0 ? kRegThreads : kMaxThreads)
 lstm_sweep_kernel(const float* __restrict__ w, const float* __restrict__ cs,
                   const float* __restrict__ dys,
                   const float* __restrict__ dc_fin, float* __restrict__ dxg,
-                  int t_len, int b_len, int h, Plan p) {
+                  int t_len, int b_len, int h, int per, Plan p) {
   extern __shared__ float4 smem[];
   const int g = 4 * h, tid = threadIdx.x, sl = p.lanes;
   const int rank =
@@ -171,7 +182,8 @@ lstm_sweep_kernel(const float* __restrict__ w, const float* __restrict__ cs,
       smem + (kW == 0 ? static_cast<size_t>(p.iters) * p.threads : 0);
   float* dhsum = reinterpret_cast<float*>(dbuf + nbuf * nv);
   float* in = dhsum + p.units;
-  const float* wk = w + static_cast<size_t>(dir) * h * g;
+  // This column's group's W_hh, this direction's.
+  const float* wk = w + (static_cast<size_t>(col / per) * 2 + dir) * h * g;
   float4 wr[kW > 0 ? kW : 1];
   if constexpr (kW > 0)
     load_w_regs(wr, wk, h, p, u0, u, s, true);
@@ -285,16 +297,16 @@ __global__ void __launch_bounds__(kDwThreads)
 lstm_dw_partial_kernel(const float* __restrict__ ys,
                        const float* __restrict__ dxg,
                        double* __restrict__ partial, int t_len, int b_len,
-                       int h, int rows_per_chunk, int chunks) {
+                       int h, int per, int rows_per_chunk, int chunks) {
   __shared__ __align__(16) float hs[kRowTile][kDwTile];  // [row][h]
   __shared__ __align__(16) float gs[kRowTile][kDwTile];  // [row][gate]
   const int g = 4 * h;
   const int g_tiles = (g + kDwTile - 1) / kDwTile;
   const int h0 = (blockIdx.x / g_tiles) * kDwTile;
   const int g0 = (blockIdx.x % g_tiles) * kDwTile;
-  const int chunk = blockIdx.y, dir = blockIdx.z;
+  const int chunk = blockIdx.y, grp = blockIdx.z / 2, dir = blockIdx.z % 2;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int rows = t_len * b_len;
+  const int rows = t_len * per, b_off = grp * per;  // the group's rows
   const int r_begin = chunk * rows_per_chunk;
   const int r_end = min(rows, r_begin + rows_per_chunk);
 
@@ -303,7 +315,7 @@ lstm_dw_partial_kernel(const float* __restrict__ ys,
     __syncthreads();  // the previous tile has been consumed
     for (int e = threadIdx.x; e < kRowTile * kDwTile; e += kDwThreads) {
       const int rr = e / kDwTile, cc = e % kDwTile;
-      const int r = r0 + rr, t = r / b_len, b = r - t * b_len;
+      const int r = r0 + rr, t = r / per, b = b_off + r - t * per;
       float hv = 0.f, gv = 0.f;
       if (r < r_end) {
         if (t > 0 && h0 + cc < h)
@@ -339,7 +351,8 @@ lstm_dw_partial_kernel(const float* __restrict__ ys,
     const int hh = h0 + ty * 4 + i;
     if (hh >= h) continue;
     double* out =
-        partial + ((static_cast<size_t>(dir) * chunks + chunk) * h + hh) * g;
+        partial +
+        (((static_cast<size_t>(grp) * 2 + dir) * chunks + chunk) * h + hh) * g;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int gg = g0 + tx * 4 + q;
@@ -350,10 +363,10 @@ lstm_dw_partial_kernel(const float* __restrict__ ys,
 
 __global__ void lstm_dw_reduce_kernel(const double* __restrict__ partial,
                                       float* __restrict__ dw, int h,
-                                      int chunks) {
+                                      int chunks, int groups) {
   const size_t per_dir = static_cast<size_t>(h) * 4 * h;
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= 2 * per_dir) return;
+  if (idx >= 2 * groups * per_dir) return;  // dir indexes (group, direction)
   const size_t dir = idx / per_dir, o = idx % per_dir;
   const double* p = partial + dir * chunks * per_dir + o;
   double s = 0.0;
@@ -406,61 +419,71 @@ int fused_lstm_bwd_dw_chunks(int t, int b, int h) {
   return (t * b + per - 1) / per;
 }
 
-// All launch on `stream` and return the launch's error or
-// cudaGetLastError(): nonzero when the launch was refused. None
-// synchronises or allocates. In stream order: the gate pass writes the
+// All launch on `stream`, for B columns in G groups (w_hh (G, 2, H, 4H)),
+// and return the launch's error or cudaGetLastError(): nonzero when the
+// launch was refused. None synchronises or allocates. In stream order: the gate pass writes the
 // activated gates into dxg; the sweep overwrites them with the dgates; the
 // dW pass reads ys and dxg, writes its partials to `partial` and reduces
 // them into dw.
 int fused_lstm_bwd_gates(const float* xg, const float* w_hh, const float* ys,
-                         float* dxg, int t, int b, int h, void* stream) {
-  if (bad_args(t, b, h)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((t * b + kGateTile - 1) / kGateTile,
-                  (4 * h + kGateTile - 1) / kGateTile, 2);
+                         float* dxg, int t, int b, int h, int groups,
+                         void* stream) {
+  if (bad_args(t, b, h) || bad_groups(b, groups))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per = b / groups;
+  const dim3 grid((t * per + kGateTile - 1) / kGateTile,
+                  (4 * h + kGateTile - 1) / kGateTile, 2 * groups);
   lstm_gates_kernel<<<grid, kGateThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(xg, w_hh, ys, dxg,
-                                                           t, b, h);
+                                                           t, b, h, per);
   return static_cast<int>(cudaGetLastError());
 }
 
 // On the plan of fused_lstm_bwd_plan.
 int fused_lstm_bwd_sweep(const float* w_hh, const float* cs, const float* dys,
                          const float* dc_fin, float* dxg, int t, int b, int h,
-                         void* stream) {
+                         int groups, void* stream) {
   Plan p;
-  if (bad_args(t, b, h) || !pick_plan(h, b, kVec, &p))
+  if (bad_args(t, b, h) || bad_groups(b, groups) ||
+      !pick_plan(h, b, kVec, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(b * p.cluster, 2);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int per = b / groups;
   return p.cluster > 1
              ? dispatch<true>(p, grid, s, w_hh, cs, dys, dc_fin, dxg, t, b, h,
-                              p)
+                              per, p)
              : dispatch<false>(p, grid, s, w_hh, cs, dys, dc_fin, dxg, t, b,
-                               h, p);
+                               h, per, p);
 }
 
+// The partials of G groups: the scratch is (G, 2, chunks, H, 4H) doubles,
+// chunks = fused_lstm_bwd_dw_chunks(T, B / G, H).
 int fused_lstm_bwd_dw_partial(const float* ys, const float* dxg,
                               double* partial, int t, int b, int h,
-                              void* stream) {
-  if (bad_args(t, b, h)) return static_cast<int>(cudaErrorInvalidValue);
-  const int per = rows_per_chunk(t, b, h);
-  const int chunks = (t * b + per - 1) / per;
-  const dim3 grid(tiles(h), chunks, 2);
+                              int groups, void* stream) {
+  if (bad_args(t, b, h) || bad_groups(b, groups))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cols = b / groups;
+  const int chunk_rows = rows_per_chunk(t, cols, h);
+  const int chunks = (t * cols + chunk_rows - 1) / chunk_rows;
+  const dim3 grid(tiles(h), chunks, 2 * groups);
   lstm_dw_partial_kernel<<<grid, kDwThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      ys, dxg, partial, t, b, h, per, chunks);
+      ys, dxg, partial, t, b, h, cols, chunk_rows, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
 int fused_lstm_bwd_dw_reduce(const double* partial, float* dw, int t, int b,
-                             int h, void* stream) {
-  if (bad_args(t, b, h)) return static_cast<int>(cudaErrorInvalidValue);
-  const int chunks = fused_lstm_bwd_dw_chunks(t, b, h);
-  const long long n = 2LL * h * 4 * h;
+                             int h, int groups, void* stream) {
+  if (bad_args(t, b, h) || bad_groups(b, groups))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = fused_lstm_bwd_dw_chunks(t, b / groups, h);
+  const long long n = 2LL * groups * h * 4 * h;
   const int threads = 256;
   lstm_dw_reduce_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
                           threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      partial, dw, h, chunks);
+      partial, dw, h, chunks, groups);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,8 +5,6 @@ temporal (T x T) adjacencies, two MPNN branches and self-attention
 Reference AGCN_TF_model (models/AGCN_TF/Model.py:104-189), under its keys.
 The attention is the reference's plain scaled dot product, written out.
 No kernel of the port runs in this model (nor a Pallas kernel in JAX).
-The JAX package's ``record_edges`` counter comes with
-``ops/edge_count.py`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,6 +15,7 @@ import torch
 from torch import nn
 
 from ..nn.gnn_blocks import MPNNmk
+from ..ops.edge_count import record_edges
 from ..signal.features import sagcn_features
 
 _FEATURES = 40  # sagcn_features a patch
@@ -76,6 +75,8 @@ class AGCNTF(nn.Module):
         feats = sagcn_features(
             x.reshape(b, self.num_patch, self.patch_size))  # (B, T, 40)
         feats_t = feats.transpose(-1, -2)                   # (B, 40, T)
+        record_edges(x.shape[:-2] + (_FEATURES, _FEATURES))
+        record_edges(x.shape[:-2] + (self.num_patch, self.num_patch))
         h_s = self.spatial_gnn(feats_t, self.attention_spa_adj(feats_t))
         h_t = self.temporal_gnn(feats, self.attention_tem_adj(feats))
         h = self.self_attention(torch.cat([h_s, h_t], dim=1))

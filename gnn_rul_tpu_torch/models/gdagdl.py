@@ -18,8 +18,7 @@ graph-attention kernel, a graph a patch, where the dropout is inactive
 the JAX package. An MLP autoencoder over each patch's code, its
 reconstruction error the auxiliary loss (weight 1 in the algorithm
 table), then an LSTM over the patches (cuDNN's on the card) and the
-``linear`` head. The JAX package's ``record_edges`` counter comes with
-``ops/edge_count.py`` (ROADMAP.md).
+``linear`` head.
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ from torch import nn
 from ..nn.attention import GraphAttentionLayer
 from ..nn.basic import MLP
 from ..nn.recurrent import LSTMLayer
+from ..ops.edge_count import record_edges
 from ..signal.stft import stft_magnitude
 
 THRESHOLD = 0.0  # the reference joins the nodes of importance > 0
@@ -46,6 +46,7 @@ def gdagdl_pcc(mag: torch.Tensor) -> torch.Tensor:
     transposed, and the norms divide unguarded. Kept as the reference
     computes it, since the importance threshold reads these values."""
     b, n, f = mag.shape
+    record_edges((b, n, n))
     c = mag - mag.mean(dim=-1, keepdim=True)
     dot = torch.matmul(c, c.reshape(b, f, n))
     norms = torch.sqrt(torch.sum(c * c, dim=-1))

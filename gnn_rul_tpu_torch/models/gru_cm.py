@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..nn.recurrent import GRULayer
+from ..ops.edge_count import record_edges
 
 
 class GNNLayer(nn.Module):
@@ -36,6 +37,7 @@ class GNNLayer(nn.Module):
         edge = self.edge_mlp[0]
         p1 = torch.matmul(x, edge.weight[:, :f].t())    # (B, L, N, out)
         p2 = torch.matmul(x, edge.weight[:, f:].t())
+        record_edges(x.shape[:-1] + (x.shape[-2],))
         panel = torch.relu(p1[..., :, None, :] + p2[..., None, :, :]
                            + edge.bias)                # (B, L, N, N, out)
         node = torch.cat([x, panel.sum(dim=3)], dim=-1)

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..nn.gnn_blocks import GCNLayer
 from ..nn.recurrent import LSTMLayer
+from ..ops.edge_count import record_edges
 
 
 class AdjConstruction(nn.Module):
@@ -37,6 +38,7 @@ class AdjConstruction(nn.Module):
         a2 = torch.tanh(self.alpha * self.trainable_theta2(x))
         skew = (torch.einsum("bnd,bmd->bnm", a1, a2)
                 - torch.einsum("bnd,bmd->bnm", a2, a1))
+        record_edges(skew.shape)
         return torch.relu(torch.tanh(self.alpha * skew))
 
 

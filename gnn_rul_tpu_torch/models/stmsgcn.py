@@ -8,8 +8,7 @@ output is kept, and all scales side by side go through a GRU per node
 over the patches (``gru_layer.gru``, cuDNN's on the card); the mean over
 the nodes; a Linear head. The adjacency is not normalised before the
 GCN's own ``D^-1/2 (A + I) D^-1/2``, as in the reference. No kernel of the
-port runs in this model. The JAX package's ``record_edges`` counter comes
-with ``ops/edge_count.py`` (ROADMAP.md).
+port runs in this model.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ from torch import nn
 
 from ..nn.gnn_blocks import GCNLayer
 from ..nn.recurrent import GRULayer
+from ..ops.edge_count import record_edges
 from ..signal.features import sed_features
 
 
@@ -47,6 +47,7 @@ class STMSGCN(nn.Module):
         n = h.shape[1]
         outputs = [h]
         for gcn in self.gcn_layers:
+            record_edges(h.shape[:-1] + (h.shape[-2],))
             h = gcn(h, torch.matmul(h, h.transpose(-1, -2)))
             outputs.append(h)
         cat = torch.cat(outputs, dim=-1).reshape(b, t, n, -1)

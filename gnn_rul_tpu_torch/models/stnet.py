@@ -10,8 +10,7 @@ function so that a caller can replay another run's choices). Three
 ``ChebNet`` layers (K = 3), an MLP autoencoder over each patch's code with
 its reconstruction error as the auxiliary loss (weight 1 in the algorithm
 table), and an LSTM over the patch codes (cuDNN's on the card). No kernel
-of the port runs in this model. The JAX package's ``record_edges``
-counter comes with ``ops/edge_count.py`` (ROADMAP.md).
+of the port runs in this model.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ from torch import nn
 from ..nn.basic import MLP
 from ..nn.gnn_blocks import ChebNet
 from ..nn.recurrent import LSTMLayer
+from ..ops.edge_count import record_edges
 from ..signal.stft import stft_magnitude
 
 THRESHOLD = 0.7  # models/STNet/Model.py:133
@@ -69,6 +69,7 @@ class STNet(nn.Module):
                                 xg.amax(dim=-1, keepdim=True)], dim=-1)
         weights = self.cnn(node_feats.permute(0, 3, 1, 2))[:, 0]  # (B,T,N)
         high = high_nodes(weights)
+        record_edges(high.shape + (high.shape[-1],))
         adj = torch.clamp(high[..., :, None] * high[..., None, :], max=1.0)
 
         h = xg.reshape(b * t, n, f)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.edge_count import record_edges
 from ..ops.graphs import leaky_relu
 from ..ops.kernels.fused_gat import fused_gat
 
@@ -49,6 +50,7 @@ class GraphAttentionLayer(nn.Module):
         f1 = wh @ a[:d]
         f2 = wh @ a[d:]
         bias = self.attention.bias[0]
+        record_edges(wh.shape[:-1] + (wh.shape[-2],))
         if not self.training or self.attn_drop.p == 0.0:
             out = fused_gat(wh, f1, f2, adj, bias, self.negative_slope)
         else:

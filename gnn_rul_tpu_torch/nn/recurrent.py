@@ -19,12 +19,22 @@ replaces them. The multi-layer :class:`LSTM` runs a bidirectional layer
 through :func:`bilstm_fused` (the kernels), as the JAX ``LSTM`` runs it
 through its fused path, and a unidirectional one through cuDNN;
 :class:`GRU` is ``torch.nn.GRU``.
+
+Under ``torch.func.vmap`` (seed-parallel runs, ``train/vectorized.py``)
+the library's LSTM and GRU have no batching rule, so these layers then call
+the registered operator ``gnn_rul_tpu_torch::library_rnn``
+(:data:`library_rnn`): plumbing around the same library call, not a
+kernel. Its vmap rule runs each seed's call in turn, since each seed has
+its own weights; its backward recomputes the call and differentiates it.
+Outside vmap the layers run ``torch.nn.LSTM``'s and ``torch.nn.GRU``'s own
+forward, as before.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+import warnings
+from typing import List, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -92,6 +102,101 @@ def bilstm_fused(x: torch.Tensor, params_fwd: Params, params_bwd: Params):
     return ys_f, ys_b, ((ys_f[:, -1], c_fin[0]), (ys_b[:, 0], c_fin[1]))
 
 
+def _rnn(x: torch.Tensor, weights: Sequence[torch.Tensor], mode: str,
+         num_layers: int, training: bool
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``torch.nn.LSTM``'s or ``torch.nn.GRU``'s own call (batch_first,
+    unidirectional, biased, from zero states) on the flat weights in
+    torch's order: ``(ys, h_n, c_n)``, c_n zeros for the GRU."""
+    h0 = x.new_zeros((num_layers, x.shape[0], weights[1].shape[1]))
+    with warnings.catch_warnings():
+        # A seed's weights are slices of the stacked ones, so cuDNN copies
+        # them into one buffer each call, and says so.
+        warnings.filterwarnings("ignore", message="RNN module weights are "
+                                "not part of single contiguous chunk")
+        if mode == "LSTM":
+            return torch._VF.lstm(x, (h0, h0), weights, True, num_layers, 0.0,
+                                  training, False, True)
+        ys, h = torch._VF.gru(x, h0, weights, True, num_layers, 0.0,
+                              training, False, True)
+    return ys, h, torch.zeros_like(h)
+
+
+class LibraryRnn:
+    """The wrapper around ``gnn_rul_tpu_torch::library_rnn``, the library's
+    RNN call as a registered operator for the layers under vmap. ``calls``
+    counts its calls, one per seed: it launches no kernel of the port."""
+
+    def __init__(self) -> None:
+        self.calls = 0
+
+    def __call__(self, x: torch.Tensor, weights: Sequence[torch.Tensor],
+                 mode: str, num_layers: int, training: bool):
+        return _rnn_op(x, list(weights), mode, num_layers, training)
+
+
+library_rnn = LibraryRnn()
+
+
+@torch.library.custom_op("gnn_rul_tpu_torch::library_rnn", mutates_args=())
+def _rnn_op(x: torch.Tensor, weights: List[torch.Tensor], mode: str,
+            num_layers: int, training: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    library_rnn.calls += 1
+    return _rnn(x, weights, mode, num_layers, training)
+
+
+@_rnn_op.register_fake
+def _rnn_fake(x, weights, mode, num_layers, training):
+    hid = weights[1].shape[1]
+    h = x.new_empty((num_layers, x.shape[0], hid))
+    return x.new_empty((*x.shape[:2], hid)), h, torch.empty_like(h)
+
+
+@_rnn_op.register_vmap
+def _rnn_vmap(info, in_dims, x, weights, mode, num_layers, training):
+    x_dim, w_dims = in_dims[0], in_dims[1]
+    outs = [_rnn_op(x if x_dim is None else x.select(x_dim, i),
+                    [w if d is None else w.select(d, i)
+                     for w, d in zip(weights, w_dims)],
+                    mode, num_layers, training)
+            for i in range(info.batch_size)]
+    return tuple(torch.stack(t) for t in zip(*outs)), (0, 0, 0)
+
+
+def _rnn_setup(ctx, inputs, output) -> None:
+    x, weights, ctx.mode, ctx.num_layers, _ = inputs
+    ctx.save_for_backward(x, *weights)
+
+
+def _rnn_backward(ctx, d_ys, d_h, d_c):
+    x, *weights = ctx.saved_tensors
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (x, *weights)]
+        ys, h, c = _rnn(inputs[0], inputs[1:], ctx.mode, ctx.num_layers,
+                        True)
+        outs, grads = [ys, h], [d_ys, d_h]
+        if ctx.mode == "LSTM":
+            outs.append(c)
+            grads.append(d_c)
+        dx, *dw = torch.autograd.grad(outs, inputs, grads)
+    return dx, dw, None, None, None
+
+
+_rnn_op.register_autograd(_rnn_backward, setup_context=_rnn_setup)
+
+
+def _vmapped(module: nn.RNNBase, x: torch.Tensor) -> List[torch.Tensor]:
+    """The module's flat weights by name (``torch.func.functional_call``
+    sets them by name, not in ``_flat_weights``) where it runs under
+    ``torch.func.vmap``, else an empty list."""
+    weights = [getattr(module, n) for n in module._flat_weights_names]
+    # torch.func has no public test for a tensor batched by vmap.
+    if any(torch._C._functorch.is_batchedtensor(t) for t in (x, *weights)):
+        return weights
+    return []
+
+
 class LSTMLayer(nn.LSTM):
     """Single-direction, single-layer LSTM over ``x (B, T, D)``: returns
     ``ys (B, T, H)`` and ``(h_n, c_n)``, each ``(B, H)``, from zero initial
@@ -103,7 +208,11 @@ class LSTMLayer(nn.LSTM):
         super().__init__(input_size, hidden_size, batch_first=True)
 
     def forward(self, x: torch.Tensor):
-        ys, (h, c) = super().forward(x)
+        weights = _vmapped(self, x)
+        if weights:
+            ys, h, c = library_rnn(x, weights, "LSTM", 1, self.training)
+        else:
+            ys, (h, c) = super().forward(x)
         return ys, (h[0], c[0])
 
 
@@ -131,6 +240,11 @@ class LSTM(nn.LSTM):
 
     def forward(self, x: torch.Tensor):
         if not self.bidirectional:
+            weights = _vmapped(self, x)
+            if weights:
+                ys, h, c = library_rnn(x, weights, "LSTM", self.num_layers,
+                                       self.training)
+                return ys, (h, c)
             return super().forward(x)
         h_last, c_last = [], []
         for layer in range(self.num_layers):
@@ -154,7 +268,11 @@ class GRULayer(nn.GRU):
         super().__init__(input_size, hidden_size, batch_first=True)
 
     def forward(self, x: torch.Tensor):
-        ys, h = super().forward(x)
+        weights = _vmapped(self, x)
+        if weights:
+            ys, h, _ = library_rnn(x, weights, "GRU", 1, self.training)
+        else:
+            ys, h = super().forward(x)
         return ys, h[0]
 
 
@@ -167,3 +285,11 @@ class GRU(nn.GRU):
                  num_layers: int = 1):
         super().__init__(input_size, hidden_size, num_layers=num_layers,
                          batch_first=True)
+
+    def forward(self, x: torch.Tensor):
+        weights = _vmapped(self, x)
+        if weights:
+            ys, h, _ = library_rnn(x, weights, "GRU", self.num_layers,
+                                   self.training)
+            return ys, h
+        return super().forward(x)

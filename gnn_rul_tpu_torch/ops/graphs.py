@@ -1,11 +1,13 @@
 """Dense adjacency construction (counterpart of ``gnn_rul_tpu/ops/graphs.py``,
-every function of it). ``record_edges`` waits for ``ops/edge_count.py``
-(ROADMAP.md)."""
+every function of it). Each constructor of an ``(..., N, N)`` panel records
+its edges (``ops/edge_count.py``) where the JAX package's does."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .edge_count import record_edges
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
@@ -20,6 +22,7 @@ def dot_graph_from_mapped(h: torch.Tensor) -> torch.Tensor:
     added back (reference models/FC_STGNN/Model_Base.py:49-67).
     """
     n = h.shape[-2]
+    record_edges(h.shape[:-1] + (n,))
     eye = torch.eye(n, dtype=h.dtype, device=h.device)
     sim = torch.einsum("...nd,...md->...nm", h, h)
     sim = leaky_relu(sim - eye * 1e8)
@@ -41,6 +44,7 @@ def pearson_graph(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     ``eps`` is added to the denominator as the JAX package adds it, so a
     row of zero variance gives 0 where ``torch.corrcoef`` gives nan.
     """
+    record_edges(x.shape[:-1] + (x.shape[-2],))
     xc = x - x.mean(dim=-1, keepdim=True)
     cov = torch.einsum("...nl,...ml->...nm", xc, xc)
     var = torch.sqrt(torch.clamp(torch.einsum("...nl,...nl->...n", xc, xc),
@@ -54,6 +58,7 @@ def cosine_graph(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     (..., N, N)``, each norm clamped below at ``eps`` as
     ``F.cosine_similarity`` clamps it (reference models/HAGCN/Model.py:
     122-127)."""
+    record_edges(x.shape[:-1] + (x.shape[-2],))
     norm = torch.clamp(torch.sqrt(torch.sum(x * x, dim=-1)), min=eps)
     sim = torch.einsum("...nd,...md->...nm", x, x)
     return sim / (norm[..., :, None] * norm[..., None, :])
@@ -63,6 +68,7 @@ def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
     """Squared euclidean distances between the rows of ``x``: ``(..., N, D)
     -> (..., N, N)``, by the JAX package's ``a^2 + b^2 - 2ab`` expansion,
     clipped at 0."""
+    record_edges(x.shape[:-1] + (x.shape[-2],))
     sq = torch.sum(x * x, dim=-1)
     inner = torch.einsum("...nd,...md->...nm", x, x)
     return torch.clamp(sq[..., :, None] + sq[..., None, :] - 2.0 * inner,
@@ -80,6 +86,7 @@ def gaussian_graph(x: torch.Tensor) -> torch.Tensor:
     taken through a double ``where``, so that the gradient on the diagonal
     (distance 0, where the root's derivative is infinite) is 0, the
     subgradient ``torch.cdist`` gives, and not nan."""
+    record_edges(x.shape[:-1] + (x.shape[-2],))
     diff = x[..., :, None, :] - x[..., None, :, :]
     s = torch.sum(diff * diff, dim=-1)
     positive = s > 0
@@ -122,6 +129,7 @@ def covariance_threshold_graph(x: torch.Tensor,
     ``L - 1``, compare. A step function: an entry whose covariance lies
     within rounding of the threshold can flip between two summation
     orders."""
+    record_edges(x.shape[:-1] + (x.shape[-2],))
     xc = x - x.mean(dim=-1, keepdim=True)
     cov = torch.einsum("...nl,...ml->...nm", xc, xc) / (x.shape[-1] - 1)
     return (cov > threshold).to(x.dtype)

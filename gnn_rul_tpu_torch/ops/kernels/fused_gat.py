@@ -6,7 +6,14 @@ version.
 
 wh ``(B, N, D)``, f1 and f2 ``(B, N)``, adj ``(B, N, N)`` or one ``(N, N)``
 shared by every graph, bias a one-element tensor, slope a float ->
-``(B, N, D)``, fp32.
+``(B, N, D)``, fp32. For seed-parallel runs (``train/vectorized.py``) adj
+may also be ``(A, N, N)`` and bias ``(G,)``, with A and G dividing B: the
+batch is then A (or G) equal groups of graphs, group a's graphs on
+``adj[a]`` (group g's with ``bias[g]``). adj ``(B, N, N)`` is the case A =
+B; one bias and an ``(N, N)`` adj are the one call of before, on the same
+plans. Under ``torch.func.vmap`` the operator's rule folds the seeds into
+B and a mapped bias or shared adj into their groups, so all seeds run in
+one launch (``batching.py``).
 
 Counterpart of ``gnn_rul_tpu/ops/pallas/fused_gat.py``. :data:`fused_gat`
 is the wrapper ``nn/attention.py`` calls. It calls the registered operator
@@ -35,6 +42,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .batching import fold, groups, unfold
 from .build import build_libraries
 
 _TARGET_BLOCKS = 132  # kTargetBlocks in the source: an H100's SMs
@@ -53,19 +61,25 @@ def _floats(n: int, g: int, r: int, c: int) -> int:
     return g * (n + r + r * (4 * ((n + 3) // 4 | 1) + n) + _round4(n) * c)
 
 
-def gat_plan(b: int, n: int, d: int) -> dict:
+def gat_plan(b: int, n: int, d: int, part: Optional[int] = None) -> dict:
     """The kernel's plan for (B, N, D), as ``csrc/fused_gat.cu`` chooses
     it: whole graphs a block (``graphs``) from B = 132 on, else a tile of
     ``rows`` of one graph a block, spread over ``row_tiles`` blocks a
     graph; wh in chunks of ``cols`` columns; ``blocks`` and ``smem`` (bytes
-    a block)."""
-    if min(b, n, d) <= 0 or n > MAX_N:
+    a block). A block of whole graphs holds graphs of one ``part`` only
+    (the consecutive graphs that share one bias and, for a grouped adj,
+    one adj, as ``csrc/fused_gat.cu`` cuts them; all B when None): the
+    most graphs, up to the ungrouped plan's, that divide a part's."""
+    part = b if part is None else part
+    if min(b, n, d, part) <= 0 or n > MAX_N or b % part:
         raise ValueError(f"fused_gat: no plan for B={b}, N={n}, D={d}")
     work = n * max(n, d)
     whole = _floats(n, 1, n, d)
     if b >= _TARGET_BLOCKS and whole <= _BUDGET:
         g = max(1, min(_WORK_PER_BLOCK // work, _BUDGET // whole,
                        b // _TARGET_BLOCKS))
+        while part < b and part % g:
+            g -= 1
         return {"graphs": g, "rows": n, "cols": d, "row_tiles": 1,
                 "blocks": -(-b // g), "smem": 4 * _floats(n, g, n, d)}
     tiles = min(n, -(-_TARGET_BLOCKS // b))
@@ -81,11 +95,36 @@ def gat_plan(b: int, n: int, d: int) -> dict:
             "blocks": b * row_tiles, "smem": 4 * _floats(n, 1, rows, cols)}
 
 
+def adj_groups(adj: torch.Tensor) -> int:
+    """A in adj ``(A, N, N)``; 1 for one ``(N, N)`` shared by every graph."""
+    return 1 if adj.dim() == 2 else adj.shape[0]
+
+
+def _per_graph(t: torch.Tensor, b: int) -> torch.Tensor:
+    """A grouped ``(K, ...)`` repeated for each graph of its group."""
+    return t.repeat_interleave(b // t.shape[0], dim=0)
+
+
 def fused_gat_plain(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
                     adj: torch.Tensor, bias: torch.Tensor,
                     slope: float) -> torch.Tensor:
     """Plain PyTorch version, in the order of the JAX
-    ``fused_gat_reference``."""
+    ``fused_gat_reference``; a grouped bias or adj applies to each graph of
+    its group."""
+    b = wh.shape[0]
+    if adj.dim() == 3 and adj.shape[0] != b:
+        adj = _per_graph(adj, b)
+    if bias.numel() == 1:
+        return _attend(wh, f1, f2, adj, bias, slope)
+    g = bias.shape[0]
+    grouped = (t.unflatten(0, (g, -1)) for t in (wh, f1, f2))
+    if adj.dim() == 3:
+        adj = adj.unflatten(0, (g, -1))
+    return _attend(*grouped, adj, bias[:, None, None, None],
+                   slope).flatten(0, 1)
+
+
+def _attend(wh, f1, f2, adj, bias, slope):
     e = f1[..., :, None] + f2[..., None, :] + bias
     e = F.leaky_relu(e, slope)
     attn = torch.softmax(e, dim=-1) * adj
@@ -112,17 +151,21 @@ def _check(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
         raise ValueError(f"fused_gat: f1 {tuple(f1.shape)} and f2 "
                          f"{tuple(f2.shape)} must be (B, N) = ({b}, {n})")
     # The rank first: comparing a (B, N, N) shape with (N, N) element by
-    # element would compare a symbolic B with N and pin it.
+    # element would compare a symbolic B with N and pin it; and a per-graph
+    # adj before the groups, so a symbolic B is not divided.
     if not ((adj.dim() == 2 and adj.shape == (n, n))
-            or (adj.dim() == 3 and adj.shape == (b, n, n))):
-        raise ValueError(f"fused_gat: adj must be (N, N) or (B, N, N) with "
-                         f"B={b}, N={n}, got {tuple(adj.shape)}")
-    if bias.numel() != 1:
-        raise ValueError(f"fused_gat: bias must hold one value, got "
-                         f"{tuple(bias.shape)}")
+            or (adj.dim() == 3 and adj.shape == (b, n, n))
+            or (adj.dim() == 3 and adj.shape[1:] == (n, n)
+                and adj.shape[0] > 0 and b % adj.shape[0] == 0)):
+        raise ValueError(f"fused_gat: adj must be (N, N), (B, N, N) or (A, N, "
+                         f"N) with A dividing B={b}, N={n}, got "
+                         f"{tuple(adj.shape)}")
+    if bias.numel() != 1 and (bias.dim() != 1 or b % bias.shape[0]):
+        raise ValueError(f"fused_gat: bias must hold one value or be (G,) "
+                         f"with G dividing B={b}, got {tuple(bias.shape)}")
     if min(n, d) == 0:
         raise ValueError("fused_gat: N and D must be nonzero")
-    if wh.device.type not in ("cpu", "cuda"):
+    if wh.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"fused_gat: no kernel for {wh.device}")
 
 
@@ -148,6 +191,15 @@ def _op_fake(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
              slope: float) -> torch.Tensor:
     _check(wh, f1, f2, adj, bias)
     return torch.empty_like(wh)
+
+
+@_op.register_vmap
+def _op_vmap(info, in_dims, wh, f1, f2, adj, bias, slope):
+    s = info.batch_size
+    folded = (fold(t, dim, s) for t, dim in zip((wh, f1, f2), in_dims))
+    out = _op(*folded, groups(adj, in_dims[3], s, 2),
+              groups(bias, in_dims[4], s, 0), slope)
+    return unfold(out, s), 0
 
 
 def _setup_context(ctx, inputs, output) -> None:
@@ -186,22 +238,24 @@ class FusedGat:
         lib = ctypes.CDLL(str(built["fused_gat"][0]))
         lib.fused_gat_fwd.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.fused_gat_fwd.restype = ctypes.c_int
         lib.fused_gat_error_string.argtypes = [ctypes.c_int]
         lib.fused_gat_error_string.restype = ctypes.c_char_p
         lib.fused_gat_plan.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)])
+            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)])
         lib.fused_gat_plan.restype = ctypes.c_int
         self._lib = lib
         return "".join(log for _, log in built.values())
 
-    def kernel_plan(self, b: int, n: int, d: int) -> dict:
+    def kernel_plan(self, b: int, n: int, d: int,
+                    part: Optional[int] = None) -> dict:
         """The plan as the built library chooses it (the keys of
         :func:`gat_plan`)."""
         self.load()
         out = (ctypes.c_longlong * 6)()
-        err = self._lib.fused_gat_plan(b, n, d, out)
+        err = self._lib.fused_gat_plan(b, n, d, b if part is None else part,
+                                       out)
         if err != 0:
             raise ValueError(f"fused_gat: no plan for B={b}, N={n}, D={d}")
         return dict(zip(("graphs", "rows", "cols", "row_tiles", "blocks",
@@ -222,7 +276,7 @@ class FusedGat:
                 adj: torch.Tensor, bias: torch.Tensor,
                 slope: float) -> torch.Tensor:
         """The kernel alone, on CUDA tensors that :func:`_check` accepts:
-        one launch, without autograd."""
+        one launch for all the groups, without autograd."""
         if wh.device.type != "cuda":
             raise ValueError(f"fused_gat: the kernel runs on CUDA tensors, "
                              f"got {wh.device}")
@@ -238,7 +292,7 @@ class FusedGat:
             err = self._lib.fused_gat_fwd(
                 wh.data_ptr(), f1.data_ptr(), f2.data_ptr(), adj.data_ptr(),
                 bias.data_ptr(), slope, out.data_ptr(), b, n, d,
-                int(adj.dim() == 2), stream)
+                adj_groups(adj), bias.numel(), stream)
         if err != 0:
             msg = self._lib.fused_gat_error_string(err).decode()
             raise RuntimeError(f"fused_gat launch failed (B={b}, N={n}, "

@@ -2,7 +2,11 @@
 
     out = ((softmax(leaky_relu(h h^T - 1e8 I, 0.01)) + I) * mask) @ x
 
-h ``(B, N, D)``, x ``(B, N, F)``, mask ``(N, N)`` -> ``(B, N, F)``, fp32.
+h ``(B, N, D)``, x ``(B, N, F)``, mask ``(N, N)`` -> ``(B, N, F)``, fp32. The
+mask may also be ``(G, N, N)`` with B a multiple of G: the batch is then G
+equal groups of graphs, group g masked by ``mask[g]`` (seed-parallel runs,
+``train/vectorized.py``: a seed's graphs are one group). G = 1, or a
+``(N, N)`` mask, is the one call of before, on the same plans.
 
 Counterpart of ``gnn_rul_tpu/ops/pallas/fused_gnn.py``, forward and
 backward. :data:`fused_dot_graph_spmm` is the wrapper the model calls. It
@@ -21,7 +25,9 @@ on CUDA the plan of ``csrc/fused_gnn_bwd.cu`` for (N, D, F) (one launch
 where a graph fits a block's shared memory, else two), on the CPU
 :func:`fused_dot_graph_spmm_bwd_plain`. Each C entry chooses its plan and
 reports the launches it made; :func:`fwd_plan` and :func:`bwd_plan`
-mirror the choices.
+mirror the choices. Under ``torch.func.vmap`` the operator's rule folds the
+seeds into B and a mapped mask into G, so all seeds run in one launch of
+each kernel (``batching.py``).
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at their first
 launch (``ops/kernels/build.py``), never at import, and called through
@@ -36,6 +42,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..edge_count import record_edges
+from .batching import fold, groups, unfold
 from .build import build_libraries
 
 MAX_FEAT = 128  # kMaxFeat in the sources: the limit on D and on F
@@ -59,7 +67,7 @@ def _graph_floats(n: int, d: int, f: int, g: int, r: int) -> int:
                 + (n + 3) // 4 * 4 * f) + r * n
 
 
-def fwd_plan(b: int, n: int, d: int, f: int) -> dict:
+def fwd_plan(b: int, n: int, d: int, f: int, groups: int = 1) -> dict:
     """The forward's plan for (B, N, D, F) as ``csrc/fused_gnn.cu`` chooses
     it, computed here without the library: ``{"whole", "graphs", "rows",
     "row_tiles", "blocks", "smem"}``. ``whole``: a block holds
@@ -68,8 +76,11 @@ def fwd_plan(b: int, n: int, d: int, f: int) -> dict:
     ``rows`` rows of one staged graph over ``row_tiles`` blocks a graph;
     wherever one graph's h, x, A tile and the mask fit a block's shared
     memory. Else the row-tile stream: 8 rows of a graph a block. One launch
-    either way; ``smem`` is a block's shared memory in bytes."""
-    if min(b, n, d, f) <= 0 or max(d, f) > MAX_FEAT:
+    either way; ``smem`` is a block's shared memory in bytes. With
+    ``groups`` G > 1 a block of whole graphs holds graphs of one group
+    only: the most graphs, up to the ungrouped plan's, that divide B / G."""
+    if min(b, n, d, f, groups) <= 0 or max(d, f) > MAX_FEAT \
+            or b % groups:
         raise ValueError(f"fused_dot_graph_spmm: no plan for B={b}, N={n}, "
                          f"D={d}, F={f}")
     one = _graph_floats(n, d, f, 1, n)
@@ -85,6 +96,8 @@ def fwd_plan(b: int, n: int, d: int, f: int) -> dict:
         g = max(1, min(_WORK_PER_BLOCK // (n * max(n, f)),
                        (SMEM_LIMIT // 4 - n * n) // (one - n * n),
                        b // _TARGET_BLOCKS))
+        while groups > 1 and (b // groups) % g:
+            g -= 1
         return {"whole": True, "graphs": g, "rows": n, "row_tiles": 1,
                 "blocks": -(-b // g),
                 "smem": 4 * _graph_floats(n, d, f, g, n)}
@@ -115,10 +128,21 @@ def bwd_launches_per_call(n: int, d: int, f: int) -> int:
     return bwd_plan(n, d, f)["launches"]
 
 
+def _grouped(*tensors: torch.Tensor, mask: torch.Tensor):
+    """A grouped call's tensors as ``(G, B / G, ...)`` and its mask as
+    ``(G, 1, N, N)``, to broadcast per group."""
+    g = mask.shape[0]
+    return (*(t.unflatten(0, (g, -1)) for t in tensors), mask[:, None])
+
+
 def fused_dot_graph_spmm_plain(h: torch.Tensor, x: torch.Tensor,
                                mask: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the chain, in the order of the JAX
-    ``fused_dot_graph_spmm_reference``."""
+    ``fused_dot_graph_spmm_reference``; a grouped mask broadcasts over its
+    group's graphs."""
+    if mask.dim() == 3:
+        return fused_dot_graph_spmm_plain(*_grouped(h, x, mask=mask)
+                                          ).flatten(0, 1)
     n = h.shape[-2]
     eye = torch.eye(n, dtype=h.dtype, device=h.device)
     s = torch.einsum("...nd,...md->...nm", h, h)
@@ -133,8 +157,12 @@ def fused_dot_graph_spmm_bwd_plain(
         g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward, step by step as the JAX
     ``_bwd_kernel`` writes it. Returns ``(dh, dx, dmask_per_sample)``; the
-    last is ``(B, N, N)``, to be summed over the batch for the mask's
-    gradient."""
+    last is ``(B, N, N)``, to be summed over the batch (over each group's
+    graphs for a grouped mask) for the mask's gradient."""
+    if mask.dim() == 3:
+        h, x, g, mask = _grouped(h, x, g, mask=mask)
+        return tuple(t.flatten(0, 1)
+                     for t in fused_dot_graph_spmm_bwd_plain(h, x, mask, g))
     n = h.shape[-2]
     eye = torch.eye(n, dtype=h.dtype, device=h.device)
     s = torch.einsum("...nd,...md->...nm", h, h) - eye * 1e8
@@ -176,9 +204,12 @@ def _check(h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     if g is not None and g.shape != x.shape:
         raise ValueError(f"fused_dot_graph_spmm: g {tuple(g.shape)} does not "
                          f"match x {tuple(x.shape)}")
-    if mask.shape != (n, n):
-        raise ValueError(f"fused_dot_graph_spmm: mask must be one shared (N, N) "
-                         f"= ({n}, {n}), got {tuple(mask.shape)}")
+    if not ((mask.dim() == 2 and mask.shape == (n, n))
+            or (mask.dim() == 3 and mask.shape[1:] == (n, n)
+                and mask.shape[0] > 0 and b % mask.shape[0] == 0)):
+        raise ValueError(f"fused_dot_graph_spmm: mask must be (N, N) = ({n}, "
+                         f"{n}) or (G, N, N) with G dividing B={b}, got "
+                         f"{tuple(mask.shape)}")
     if min(n, d, x.shape[2]) == 0:
         raise ValueError("fused_dot_graph_spmm: N, D and F must be nonzero")
     if d > MAX_FEAT or x.shape[2] > MAX_FEAT:
@@ -190,8 +221,12 @@ def _check(h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     if -(-n // _ROWS_PER_BLOCK) > _MAX_GRID_Y:
         raise ValueError(f"fused_dot_graph_spmm: N={n} exceeds the grid "
                          f"limit of the row-tile plans")
-    if h.device.type not in ("cpu", "cuda"):
+    if h.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"fused_dot_graph_spmm: no kernel for {h.device}")
+
+
+def _groups(mask: torch.Tensor) -> int:
+    return 1 if mask.dim() == 2 else mask.shape[0]
 
 
 @torch.library.custom_op("gnn_rul_tpu_torch::fused_dot_graph_spmm",
@@ -215,6 +250,14 @@ def _op_fake(h: torch.Tensor, x: torch.Tensor,
     return h.new_empty((h.shape[0], h.shape[1], x.shape[2]))
 
 
+@_op.register_vmap
+def _op_vmap(info, in_dims, h, x, mask):
+    s = info.batch_size
+    out = _op(fold(h, in_dims[0], s), fold(x, in_dims[1], s),
+              groups(mask, in_dims[2], s, 2))
+    return unfold(out, s), 0
+
+
 def _setup_context(ctx, inputs, output) -> None:
     ctx.save_for_backward(*inputs)
 
@@ -225,8 +268,11 @@ def _backward(ctx, g):
     # Autograd does not promise a contiguous cotangent.
     dh, dx, dmask = fused_dot_graph_spmm.backward(h, x, mask, g.contiguous(),
                                                   need_dmask=need_mask)
+    if need_mask:
+        dmask = (dmask.sum(dim=0) if mask.dim() == 2 else
+                 dmask.unflatten(0, (mask.shape[0], -1)).sum(dim=1))
     return (dh if need_h else None, dx if need_x else None,
-            dmask.sum(dim=0) if need_mask else None)
+            dmask if need_mask else None)
 
 
 _op.register_autograd(_backward, setup_context=_setup_context)
@@ -254,17 +300,17 @@ class FusedDotGraphSpmm:
         built = build_libraries()
         fwd = ctypes.CDLL(str(built["fused_gnn"][0]))
         fwd.fused_dot_graph_spmm_fwd.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
             + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fwd.fused_dot_graph_spmm_fwd.restype = ctypes.c_int
         fwd.fused_dot_graph_spmm_fwd_plan.argtypes = (
-            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)])
+            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)])
         fwd.fused_dot_graph_spmm_fwd_plan.restype = ctypes.c_int
         fwd.fused_dot_graph_spmm_error_string.argtypes = [ctypes.c_int]
         fwd.fused_dot_graph_spmm_error_string.restype = ctypes.c_char_p
         bwd = ctypes.CDLL(str(built["fused_gnn_bwd"][0]))
         bwd.fused_dot_graph_spmm_bwd.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
             + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         bwd.fused_dot_graph_spmm_bwd.restype = ctypes.c_int
         bwd.fused_dot_graph_spmm_bwd_plan.argtypes = (
@@ -283,12 +329,13 @@ class FusedDotGraphSpmm:
 
     def __call__(self, h: torch.Tensor, x: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
+        record_edges(h.shape[:-1] + (h.shape[-2],))
         return _op(h, x, mask)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
         """The kernel alone, on CUDA tensors that :func:`_check` accepts:
-        one launch, without autograd."""
+        one launch for all the groups, without autograd."""
         if h.device.type != "cuda":
             raise ValueError(f"fused_dot_graph_spmm: the kernel runs on CUDA "
                              f"tensors, got {h.device}")
@@ -303,7 +350,7 @@ class FusedDotGraphSpmm:
             stream = torch.cuda.current_stream(h.device).cuda_stream
             err = self._fwd.fused_dot_graph_spmm_fwd(
                 h.data_ptr(), x.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                b, n, d, f, stream, ctypes.byref(launched))
+                b, n, d, f, _groups(mask), stream, ctypes.byref(launched))
         self.launches += launched.value
         if err != 0:
             msg = self._fwd.fused_dot_graph_spmm_error_string(err).decode()
@@ -311,12 +358,13 @@ class FusedDotGraphSpmm:
                                f"(B={b}, N={n}, D={d}, F={f}): {msg}")
         return out
 
-    def kernel_fwd_plan(self, b: int, n: int, d: int, f: int) -> dict:
+    def kernel_fwd_plan(self, b: int, n: int, d: int, f: int,
+                        groups: int = 1) -> dict:
         """The forward's plan as the built library chooses it (the keys of
         :func:`fwd_plan`)."""
         self.load()
         out = (ctypes.c_longlong * 6)()
-        err = self._fwd.fused_dot_graph_spmm_fwd_plan(b, n, d, f, out)
+        err = self._fwd.fused_dot_graph_spmm_fwd_plan(b, n, d, f, groups, out)
         if err != 0:
             raise ValueError(f"fused_dot_graph_spmm: no plan for B={b}, "
                              f"N={n}, D={d}, F={f}")
@@ -340,8 +388,9 @@ class FusedDotGraphSpmm:
                  g: torch.Tensor, need_dmask: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """``(dh, dx, dmask_per_sample)`` for the cotangent ``g``: the
-        kernels on CUDA, plain on the CPU. ``dmask_per_sample`` is
-        ``(B, N, N)`` when ``need_dmask``, else None."""
+        kernels on CUDA (one launch for all the groups where a graph fits a
+        block), plain on the CPU. ``dmask_per_sample`` is ``(B, N, N)`` when
+        ``need_dmask``, else None."""
         _check(h, x, mask, g)
         if h.device.type == "cpu":
             dh, dx, dmask = fused_dot_graph_spmm_bwd_plain(h, x, mask, g)
@@ -365,7 +414,7 @@ class FusedDotGraphSpmm:
                 dh.data_ptr(), dx.data_ptr(),
                 dmask.data_ptr() if need_dmask else None,
                 stats.data_ptr() if stats is not None else None,
-                b, n, d, f, stream, ctypes.byref(launched))
+                b, n, d, f, _groups(mask), stream, ctypes.byref(launched))
         self.bwd_launches += launched.value
         if err != 0:
             msg = self._bwd.fused_dot_graph_spmm_bwd_error_string(err).decode()

@@ -7,6 +7,14 @@ plain versions.
 xg holds the projected gate inputs ``x @ w_ih + b_ih + b_hh`` of both
 directions, direction 1 already flipped in time; w_hh is in the JAX layout
 (rows h, columns the gates [i, f, g, o]); h and c start at zero; fp32.
+w_hh may also be ``(G, 2, H, 4H)`` with B a multiple of G: the batch
+columns are then G equal groups, group g run with ``w_hh[g]``
+(seed-parallel runs, ``train/vectorized.py``: a seed's columns are one
+group), and dw_hh is per group too. G = 1, or a ``(2, H, 4H)`` w_hh, is the
+one call of before, on the same plans. Under ``torch.func.vmap`` the
+operator's rule folds the seeds into B (``(S, T, 2, B, 4H) -> (T, 2, S*B,
+4H)``, one copy) and a mapped w_hh into G, so all seeds run in one launch
+of each kernel (``batching.py``).
 
 Counterpart of ``gnn_rul_tpu/ops/pallas/fused_lstm.py``, forward and
 backward. :data:`lstm_recurrence` is the wrapper ``nn/recurrent.py`` calls.
@@ -40,6 +48,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .batching import fold, groups, unfold
 from .build import build_libraries
 
 MAX_HIDDEN = 1024  # kMaxHidden in the sources
@@ -55,16 +64,25 @@ def _gates(gates: torch.Tensor):
     return torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
 
 
+def _times_w(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``v (..., 2, B, H) @ w (2, H, K)``, or for a grouped ``w (G, 2, H,
+    K)`` each group's columns of v by its own w."""
+    if w.dim() == 3:
+        return torch.matmul(v, w)
+    v = v.unflatten(-2, (w.shape[0], -1)).transpose(-4, -3)
+    return torch.matmul(v, w).transpose(-4, -3).flatten(-3, -2)
+
+
 def lstm_trajectory_plain(xg: torch.Tensor, w_hh: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(ys, cs)``, both ``(T, 2, B, H)``: the time loop of the JAX
     ``lstm_recurrence_reference``, keeping every step's c."""
     _, _, b, _ = xg.shape
-    h = xg.new_zeros((2, b, w_hh.shape[1]))
+    h = xg.new_zeros((2, b, w_hh.shape[-2]))
     c = torch.zeros_like(h)
     ys, cs = [], []
     for xt in xg:
-        i, f, g, o = _gates(xt + torch.bmm(h, w_hh))
+        i, f, g, o = _gates(xt + _times_w(h, w_hh))
         c = f * c + i * g
         h = o * torch.tanh(c)
         ys.append(h)
@@ -90,7 +108,7 @@ def lstm_gates_plain(xg: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor
     gates ``act(xg[t] + ys[t-1] @ w_hh)`` of every step, (T, 2, B, 4H), with
     zero in place of ``ys[-1]``; they depend on the saved trajectory alone,
     not on the backward's carry."""
-    i, f, g, o = _gates(xg + torch.matmul(_h_prev(ys), w_hh))
+    i, f, g, o = _gates(xg + _times_w(_h_prev(ys), w_hh))
     return torch.cat([i, f, g, o], dim=-1)
 
 
@@ -101,7 +119,8 @@ def lstm_sweep_plain(
     """Plain PyTorch version of the backward's reverse sweep and dW pass, on
     the activated gates of :func:`lstm_gates_plain`: the carry's recurrence
     as the JAX ``_bwd_kernel`` writes it, dc seeded from ``dc_fin``, then
-    dW_hh as one product over the T*B rows. Returns ``(dxg, dw_hh)``."""
+    dW_hh as one product over the T*B rows (of each group's columns for a
+    grouped w_hh). Returns ``(dxg, dw_hh)``."""
     zeros = torch.zeros_like(ys[0])
     dh, dc = zeros, dc_fin
     dxg = torch.empty_like(gates)
@@ -116,10 +135,13 @@ def lstm_sweep_plain(
                             dc * i * (1.0 - g * g),
                             dh * tc * o * (1.0 - o)], dim=-1)
         dxg[t] = dgates
-        dh = torch.bmm(dgates, w_hh.transpose(1, 2))
+        dh = _times_w(dgates, w_hh.transpose(-1, -2))
         dc = dc * f
-    dw = torch.einsum("tdbh,tdbg->dhg", _h_prev(ys), dxg)
-    return dxg, dw
+    if w_hh.dim() == 3:
+        return dxg, torch.einsum("tdbh,tdbg->dhg", _h_prev(ys), dxg)
+    by_group = [t.unflatten(2, (w_hh.shape[0], -1))
+                for t in (_h_prev(ys), dxg)]
+    return dxg, torch.einsum("tdpbh,tdpbg->pdhg", *by_group)
 
 
 def lstm_recurrence_bwd_plain(
@@ -145,15 +167,18 @@ def _check(xg: torch.Tensor, w_hh: torch.Tensor, **extra: torch.Tensor
         if t.device != xg.device:
             raise ValueError(f"lstm_recurrence: {name} is on {t.device}, xg "
                              f"on {xg.device}")
-    if xg.dim() != 4 or xg.shape[1] != 2 or w_hh.dim() != 3:
+    if xg.dim() != 4 or xg.shape[1] != 2 or w_hh.dim() not in (3, 4):
         raise ValueError(f"lstm_recurrence: xg and w_hh must be (T, 2, B, 4H) "
-                         f"and (2, H, 4H), got {tuple(xg.shape)} and "
-                         f"{tuple(w_hh.shape)}")
+                         f"and (2, H, 4H) or (G, 2, H, 4H), got "
+                         f"{tuple(xg.shape)} and {tuple(w_hh.shape)}")
     t, _, b, g = xg.shape
-    hid = w_hh.shape[1]
-    if w_hh.shape != (2, hid, 4 * hid) or g != 4 * hid:
+    hid = w_hh.shape[-2]
+    if w_hh.shape[-3:] != (2, hid, 4 * hid) or g != 4 * hid:
         raise ValueError(f"lstm_recurrence: w_hh {tuple(w_hh.shape)} does not "
                          f"match xg {tuple(xg.shape)}")
+    if w_hh.dim() == 4 and (w_hh.shape[0] == 0 or b % w_hh.shape[0]):
+        raise ValueError(f"lstm_recurrence: {w_hh.shape[0]} groups of w_hh "
+                         f"do not divide B={b}")
     # Each size on its own: min() would compare a symbolic T (an exported
     # LOGO's batch, HAGCN's 14 times it) with B and H, and pin it.
     if t == 0 or b == 0 or hid == 0:
@@ -167,8 +192,12 @@ def _check(xg: torch.Tensor, w_hh: torch.Tensor, **extra: torch.Tensor
         if tuple(tensor.shape) != want[name]:
             raise ValueError(f"lstm_recurrence: {name} must be {want[name]}, "
                              f"got {tuple(tensor.shape)}")
-    if xg.device.type not in ("cpu", "cuda"):
+    if xg.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"lstm_recurrence: no kernel for {xg.device}")
+
+
+def _groups(w_hh: torch.Tensor) -> int:
+    return 1 if w_hh.dim() == 3 else w_hh.shape[0]
 
 
 @torch.library.custom_op("gnn_rul_tpu_torch::lstm_recurrence",
@@ -192,8 +221,16 @@ def _op_fake(xg: torch.Tensor, w_hh: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     _check(xg, w_hh)
     t, _, b, _ = xg.shape
-    ys = xg.new_empty((t, 2, b, w_hh.shape[1]))
-    return ys, torch.empty_like(ys), xg.new_empty((2, b, w_hh.shape[1]))
+    ys = xg.new_empty((t, 2, b, w_hh.shape[-2]))
+    return ys, torch.empty_like(ys), xg.new_empty((2, b, w_hh.shape[-2]))
+
+
+@_op.register_vmap
+def _op_vmap(info, in_dims, xg, w_hh):
+    s = info.batch_size
+    ys, cs, c_fin = _op(fold(xg, in_dims[0], s, axis=2),
+                        groups(w_hh, in_dims[1], s, 3))
+    return (unfold(ys, s, 2), unfold(cs, s, 2), unfold(c_fin, s, 1)), (2, 2, 1)
 
 
 def _setup_context(ctx, inputs, output) -> None:
@@ -236,11 +273,11 @@ class FusedLstmRecurrence:
         bwd = ctypes.CDLL(str(built["fused_lstm_bwd"][0]))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         signatures = [
-            (fwd.fused_lstm_fwd, [ptr] * 5 + [i32] * 3 + [ptr]),
-            (bwd.fused_lstm_bwd_gates, [ptr] * 4 + [i32] * 3 + [ptr]),
-            (bwd.fused_lstm_bwd_sweep, [ptr] * 5 + [i32] * 3 + [ptr]),
-            (bwd.fused_lstm_bwd_dw_partial, [ptr] * 3 + [i32] * 3 + [ptr]),
-            (bwd.fused_lstm_bwd_dw_reduce, [ptr] * 2 + [i32] * 3 + [ptr]),
+            (fwd.fused_lstm_fwd, [ptr] * 5 + [i32] * 4 + [ptr]),
+            (bwd.fused_lstm_bwd_gates, [ptr] * 4 + [i32] * 4 + [ptr]),
+            (bwd.fused_lstm_bwd_sweep, [ptr] * 5 + [i32] * 4 + [ptr]),
+            (bwd.fused_lstm_bwd_dw_partial, [ptr] * 3 + [i32] * 4 + [ptr]),
+            (bwd.fused_lstm_bwd_dw_reduce, [ptr] * 2 + [i32] * 4 + [ptr]),
             (bwd.fused_lstm_bwd_dw_chunks, [i32] * 3),
             (fwd.fused_lstm_fwd_plan, [i32] * 2 + [ptr]),
             (bwd.fused_lstm_bwd_plan, [i32] * 2 + [ptr]),
@@ -291,7 +328,8 @@ class FusedLstmRecurrence:
     def forward(self, xg: torch.Tensor, w_hh: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``(ys, cs, c_fin)`` by the kernel alone, on CUDA tensors that
-        :func:`_check` accepts: one launch, without autograd."""
+        :func:`_check` accepts: one launch for all the groups, without
+        autograd."""
         if xg.device.type != "cuda":
             raise ValueError(f"lstm_recurrence: the kernel runs on CUDA "
                              f"tensors, got {xg.device}")
@@ -305,7 +343,7 @@ class FusedLstmRecurrence:
             stream = torch.cuda.current_stream(xg.device).cuda_stream
             err = self._fwd.fused_lstm_fwd(
                 xg.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), cs.data_ptr(),
-                c_fin.data_ptr(), t, b, hid, stream)
+                c_fin.data_ptr(), t, b, hid, _groups(w_hh), stream)
         if err != 0:
             self._raise(self._fwd, err, "forward", xg)
         self.launches += 1
@@ -325,7 +363,7 @@ class FusedLstmRecurrence:
             stream = torch.cuda.current_stream(xg.device).cuda_stream
             err = self._bwd.fused_lstm_bwd_gates(
                 xg.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), out.data_ptr(),
-                t, b, g // 4, stream)
+                t, b, g // 4, _groups(w_hh), stream)
         if err != 0:
             self._raise(self._bwd, err, "backward gate", xg)
         self.bwd_launches += 1
@@ -334,7 +372,8 @@ class FusedLstmRecurrence:
     def backward(self, xg: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor,
                  cs: torch.Tensor, dys: torch.Tensor, dc_fin: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(dxg, dw_hh)``: the four kernels on CUDA, plain on the CPU."""
+        """``(dxg, dw_hh)``: the four kernels on CUDA, each one launch for
+        all the groups; plain on the CPU."""
         _check(xg, w_hh, ys=ys, cs=cs, dys=dys, dc_fin=dc_fin)
         if xg.device.type == "cpu":
             return lstm_recurrence_bwd_plain(xg, w_hh, ys, cs, dys, dc_fin)
@@ -345,20 +384,23 @@ class FusedLstmRecurrence:
         hid = g // 4
         lib = self._bwd
         dw = torch.empty_like(w_hh)
-        chunks = lib.fused_lstm_bwd_dw_chunks(t, b, hid)
-        partial = torch.empty((2, chunks, hid, g), dtype=torch.float64,
+        grp = _groups(w_hh)
+        chunks = lib.fused_lstm_bwd_dw_chunks(t, b // grp, hid)
+        partial = torch.empty((grp, 2, chunks, hid, g), dtype=torch.float64,
                               device=xg.device)  # the dW sums run in fp64
         with torch.cuda.device(xg.device):
             stream = torch.cuda.current_stream(xg.device).cuda_stream
             launches = (
                 lambda: lib.fused_lstm_bwd_sweep(
                     w_hh.data_ptr(), cs.data_ptr(), dys.data_ptr(),
-                    dc_fin.data_ptr(), dxg.data_ptr(), t, b, hid, stream),
+                    dc_fin.data_ptr(), dxg.data_ptr(), t, b, hid, grp,
+                    stream),
                 lambda: lib.fused_lstm_bwd_dw_partial(
                     ys.data_ptr(), dxg.data_ptr(), partial.data_ptr(), t, b,
-                    hid, stream),
+                    hid, grp, stream),
                 lambda: lib.fused_lstm_bwd_dw_reduce(
-                    partial.data_ptr(), dw.data_ptr(), t, b, hid, stream))
+                    partial.data_ptr(), dw.data_ptr(), t, b, hid, grp,
+                    stream))
             for launch in launches:
                 err = launch()
                 if err != 0:

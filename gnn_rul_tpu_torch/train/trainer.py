@@ -10,11 +10,16 @@ The reference's GNN_RUL_trainer contract (trainer.py:25-262):
     and a final ``checkpoint.pt``; dict test sets (N-CMAPSS per unit,
     PHM2012 per bearing) give artifacts per key;
   - :meth:`Trainer.evaluate_only` evaluates given weights on the test set
-    alone and writes the same artifacts under ``<method>_eval``.
+    alone and writes the same artifacts under ``<method>_eval``;
+  - ``vectorized_runs=True`` trains all the runs at once, one
+    :class:`~.vectorized.VectorizedEngine`, with the same artifacts per
+    run (each run's ``checkpoint.pt`` is its seed's slice);
+  - each run's log gives its edges per sample (``ops/edge_count.py``) and
+    each epoch's samples/s and edges/s.
 
 Runs on ``device="cuda"`` unless told ``device="cpu"``, and raises where
-CUDA is absent. Periodic checkpoints, resume, seed-parallel runs, meshes,
-bf16, profiling and the edges/s counter are not ported yet (ROADMAP.md).
+CUDA is absent. Periodic checkpoints, resume, meshes, bf16 and profiling
+are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,10 +38,12 @@ from ..configs import hparams as hparams_bank
 from ..configs.data_configs import get_dataset_config
 from ..data.loader import DataBundle
 from ..export import resolve_device
+from ..ops.edge_count import edges_per_sample
 from .algorithms import get_algorithm_spec
 from .checkpoint import load_model_dict, save_checkpoint
 from .engine import Engine
 from .metrics import calc_metrics
+from .vectorized import VectorizedEngine
 
 METRIC_NAMES = ("Score_v1", "Score_v2", "MAE", "RMSE")
 
@@ -99,8 +106,9 @@ class Trainer:
                  train_params: Optional[Dict] = None,
                  model_hparams: Optional[Dict] = None,
                  num_epochs_override: Optional[int] = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", vectorized_runs: bool = False):
         self.device = resolve_device(device)
+        self.vectorized_runs = vectorized_runs
         self.method = method
         self.dataset = dataset
         self.dataset_id = dataset_id
@@ -118,27 +126,50 @@ class Trainer:
                                         run_description)
         os.makedirs(self.exp_log_dir, exist_ok=True)
 
+    def _model(self) -> torch.nn.Module:
+        return self.spec.model_cls(**self.model_hparams)
+
     def _build_engine(self, seed: int) -> Engine:
         torch.manual_seed(seed)
-        model = self.spec.model_cls(**self.model_hparams)
-        return Engine(model, self.spec, self.train_params, seed=seed,
+        return Engine(self._model(), self.spec, self.train_params, seed=seed,
                       device=str(self.device))
 
-    def _evaluate_and_track(self, engine: Engine, trackers, logger) -> None:
+    def _tests(self):
+        """``(key, x, y, max_rul)`` of each test set (one, or one per key
+        of a dict test set)."""
         tests = (self.data.test.items() if self.data.is_dict_test
                  else [(None, self.data.test)])
         for key, (tx, ty) in tests:
-            preds = engine.evaluate(tx)
-            reals = ty.reshape(-1)
             mr = (self.data.max_ruls[key] if isinstance(self.data.max_ruls,
                                                         dict)
                   else self.data.max_ruls)
+            yield key, tx, ty.reshape(-1), mr
+
+    def _header(self, run_dir: str, run_id: int, method: str,
+                edges: int) -> logging.Logger:
+        logger = _make_logger(run_dir, run_id)
+        logger.debug("=" * 45)
+        logger.debug(f"Dataset: {self.dataset}")
+        logger.debug(f"Sub-dataset ID: {self.dataset_id}")
+        logger.debug(f"Method: {method}")
+        logger.debug(f"Run ID: {run_id}")
+        logger.debug(f"Device: {self.device}")
+        logger.debug("=" * 45)
+        logger.debug(f"Edges per sample: {edges}")
+        return logger
+
+    @staticmethod
+    def _log_best(logger, key, best) -> None:
+        tag = f" {key}," if key is not None else ","
+        logger.debug(f"Testing{tag} Score_v1: {best[0]}, Score_v2: "
+                     f"{best[1]}, MAE: {best[2]}, RMSE: {best[3]}")
+
+    def _evaluate_and_track(self, engine: Engine, trackers, logger) -> None:
+        for key, tx, reals, mr in self._tests():
+            preds = engine.evaluate(tx)
             trackers[key].update(calc_metrics(preds, reals, mr), preds,
                                  reals, mr)
-            b = trackers[key].best
-            tag = f" {key}," if key is not None else ","
-            logger.debug(f"Testing{tag} Score_v1: {b[0]}, Score_v2: {b[1]}, "
-                         f"MAE: {b[2]}, RMSE: {b[3]}")
+            self._log_best(logger, key, trackers[key].best)
 
     def evaluate_only(self, state_dict: Dict[str, Any]) -> Dict:
         """Evaluate ``state_dict`` (the reference's keys, as a port or
@@ -161,6 +192,8 @@ class Trainer:
 
     def train(self) -> Dict[int, Dict]:
         """Run every seed; returns ``{run_id: {key_or_None: best 4-tuple}}``."""
+        if self.vectorized_runs:
+            return self._train_vectorized()
         all_results = {}
         num_epochs = int(self.train_params["num_epochs"])
         shuffle = self.dataset_config.shuffle
@@ -168,16 +201,10 @@ class Trainer:
         for run_id in range(self.num_runs):
             run_dir = os.path.join(self.exp_log_dir,
                                    f"{self.method}_run_{run_id}")
-            logger = _make_logger(run_dir, run_id)
-            logger.debug("=" * 45)
-            logger.debug(f"Dataset: {self.dataset}")
-            logger.debug(f"Sub-dataset ID: {self.dataset_id}")
-            logger.debug(f"Method: {self.method}")
-            logger.debug(f"Run ID: {run_id}")
-            logger.debug(f"Device: {self.device}")
-            logger.debug("=" * 45)
-
             engine = self._build_engine(seed=run_id)
+            # Static per (method, hparams): one forward on the meta device.
+            edges = edges_per_sample(engine.model, self.data.train_x)
+            logger = self._header(run_dir, run_id, self.method, edges)
             keys = list(self.data.test) if self.data.is_dict_test else [None]
             trackers = {k: BestTracker(run_dir, key=k) for k in keys}
             for epoch in range(1, num_epochs + 1):
@@ -185,9 +212,11 @@ class Trainer:
                 loss = engine.run_epoch(self.data.train_x, self.data.train_y,
                                         epoch, shuffle=shuffle)
                 dt = time.perf_counter() - t0  # the loss read synchronised
+                sps = n_train / max(dt, 1e-9)
                 logger.debug(f"[Epoch : {epoch}/{num_epochs}]")
                 logger.debug(f"loss\t: {loss:2.4f}\t({dt:.2f}s | "
-                             f"{n_train / max(dt, 1e-9):,.0f} samples/s)")
+                             f"{sps:,.0f} samples/s | {sps * edges:,.3g} "
+                             f"edges/s)")
                 self._evaluate_and_track(engine, trackers, logger)
                 logger.debug("-" * 37)
             save_checkpoint(os.path.join(run_dir, "checkpoint.pt"),
@@ -196,3 +225,59 @@ class Trainer:
                             train_params=self.train_params)
             all_results[run_id] = {k: t.best for k, t in trackers.items()}
         return all_results
+
+    def _train_vectorized(self) -> Dict[int, Dict]:
+        """Every run at once, seed = run index: one epoch of all seeds a
+        step at a time and one evaluation of all seeds, with each run's own
+        directory, log, best rows, ``results.csv/npz`` and final
+        ``checkpoint.pt`` (its seed's slice of the state)."""
+        seeds = list(range(self.num_runs))
+        engine = VectorizedEngine(self._model, self.spec, self.train_params,
+                                  seeds, device=str(self.device))
+        edges = edges_per_sample(engine.model, self.data.train_x)
+        keys = list(self.data.test) if self.data.is_dict_test else [None]
+        run_dirs, loggers, trackers = [], [], []
+        for run_id in seeds:
+            run_dirs.append(os.path.join(self.exp_log_dir,
+                                         f"{self.method}_run_{run_id}"))
+            loggers.append(self._header(
+                run_dirs[-1], run_id,
+                f"{self.method} (vectorized over {self.num_runs} seeds)",
+                edges))
+            trackers.append({k: BestTracker(run_dirs[-1], key=k)
+                             for k in keys})
+        num_epochs = int(self.train_params["num_epochs"])
+        shuffle = self.dataset_config.shuffle
+        n_train = int(self.data.train_x.shape[0])
+        for epoch in range(1, num_epochs + 1):
+            t0 = time.perf_counter()
+            losses = engine.run_epoch(self.data.train_x, self.data.train_y,
+                                      epoch, shuffle=shuffle)
+            dt = time.perf_counter() - t0  # the losses read synchronised
+            sps = n_train * self.num_runs / max(dt, 1e-9)
+            for run_id in seeds:
+                loggers[run_id].debug(f"[Epoch : {epoch}/{num_epochs}]")
+                loggers[run_id].debug(
+                    f"loss\t: {losses[run_id]:2.4f}\t({dt:.2f}s | "
+                    f"{sps:,.0f} samples/s all-seeds | {sps * edges:,.3g} "
+                    f"edges/s all-seeds)")
+            for key, tx, reals, mr in self._tests():
+                preds = engine.evaluate(tx)                 # (S, n)
+                for run_id in seeds:
+                    tracker = trackers[run_id][key]
+                    tracker.update(calc_metrics(preds[run_id], reals, mr),
+                                   preds[run_id], reals, mr)
+                    self._log_best(loggers[run_id], key, tracker.best)
+            for run_id in seeds:
+                loggers[run_id].debug("-" * 37)
+        for run_id in seeds:
+            model = self._model()
+            model.load_state_dict(engine.slice_state(run_id))
+            optimizer = torch.optim.Adam(model.parameters())
+            optimizer.load_state_dict(engine.slice_optimizer(run_id))
+            save_checkpoint(os.path.join(run_dirs[run_id], "checkpoint.pt"),
+                            model, optimizer, epoch=num_epochs, run_id=run_id,
+                            hparams=self.model_hparams,
+                            train_params=self.train_params)
+        return {run_id: {k: t.best for k, t in trackers[run_id].items()}
+                for run_id in seeds}

@@ -132,7 +132,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, error):
     elif bad == "bias_float":
         bias = 0.0
     elif bad == "bias_two":
-        bias = torch.zeros(2)
+        bias = torch.zeros(2, 1)  # two values, not one a group (G,)
     else:
         f1 = f1[:, :4].contiguous()
     with pytest.raises(error):

@@ -89,7 +89,8 @@ def test_cli_raises_without_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "data=2,model=1"], ["--precision", "bf16"],
-    ["--vectorized_runs"], ["--resume"], ["--checkpoint_every", "5"],
+    ["--vectorized_runs", "--precision", "bf16"], ["--resume"],
+    ["--checkpoint_every", "5"],
     ["--profile", "trace"], ["--fused", "off"]])
 def test_unported_flags_raise_naming_roadmap(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -111,8 +111,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     h, x, mask = map(torch.from_numpy, _fused_inputs(2, 5, 3, 7, seed=4))
     with pytest.raises(TypeError):
         fused_dot_graph_spmm(h.double(), x, mask)
-    with pytest.raises(ValueError, match="shared"):
-        fused_dot_graph_spmm(h, x, mask.expand(2, 5, 5).contiguous())
+    # One mask a group of graphs: 3 groups do not divide B = 2.
+    with pytest.raises(ValueError, match="dividing B"):
+        fused_dot_graph_spmm(h, x, mask.expand(3, 5, 5).contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         fused_dot_graph_spmm(h, x, mask.t())
     wide = torch.zeros(2, 5, fused_gnn.MAX_FEAT + 1)
