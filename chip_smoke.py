@@ -90,11 +90,12 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    the LSTM recurrence, cuDNN's ``torch.nn.LSTM``, with the backward's time
    launch by launch (torch.profiler), HAGCN's shapes (T = 1,400 at H = 60
    and 120, T = 14,000 at 120), LOGO_bearing's (B = 200 at H = 30 and
-   60; B = 544 at 30) and H = 120 at the B of each cluster size; the
+   60) and H = 120 at the B of each cluster size; the
    attention at GAT_LSTM's (100, 40, 300) and GDAGDL's (12,800, 3, 300)
    too; the serving latency and
-   samples/s (the four tier configurations too), the same requests through
-   the symbolic-batch artifact and the live model in turns, the training
+   samples/s (the four tier configurations too), the request of 100
+   through the symbolic-batch artifact and the live model in turns, the
+   training
    step and epoch of each model, and torch.profiler breakdowns of one
    request and one training step;
 10. vectorized (seed-parallel runs, ``train/vectorized.py``, SEEDS = 5):
@@ -103,27 +104,55 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    five seeds' shapes, against its plain version, one launch a call, and
    each group's answer bit for bit against the ungrouped kernel's on its
    slice where both take one plan (:func:`_grouped_vs_plain`), and timed;
+   the keyed dropout mask of one key bit for bit on the CPU and the card;
    for FC_STGNN, LOGO, STAGNN, STFA, HAGCN, LOGO_bearing and GRU_CM a
    VectorizedEngine of 5 seeds against 5 sequential Engines from the same
    seeds, 5 steps at batch 100 (each seed its own permutation, dropout
-   off): the launches of the steps and of an eval forward counted after a
+   on at the bank's rates, each seed its sequential run's keyed masks):
+   the launches of the steps and of an eval forward counted after a
    reset (one a call for all seeds; cuDNN's LSTM and GRU a call a seed),
-   each seed's losses and parameters held (HAGCN: each term of its first
-   gradient and its losses, the vectorized run's top-k selections
-   replayed in the sequential ones); one vectorized epoch of FD001's
-   (FEMTO's) real size against 5 sequential epochs, samples/s over all
-   seeds, and the card's busy share of a traced vectorized step.
+   each seed's losses and parameters held (HAGCN: each term of its
+   gradient at every step, the vectorized run's top-k selections replayed
+   in the sequential ones; FC_STGNN: its first step's gradient and its
+   losses); one vectorized epoch of FD001's
+   (FEMTO's) real size against 5 sequential epochs (5 times the mean of
+   2 timed), samples/s over all
+   seeds, and the card's busy share of a traced vectorized step;
+11. bf16 (``--precision bf16``): each kernel's bf16 instantiation against
+   its plain bf16 version (within one bf16 ulp) and against its own fp32
+   instantiation on the up-cast inputs (within 2^-8 |ref|; the LSTM
+   backward, recomputing from its stored bf16 trajectory, within 2^-8
+   |ref| + 2^-5 max |ref|) at FC_STGNN's, LOGO's, HAGCN's, LOGO_bearing's,
+   STAGNN's and STFA's shapes and a G = 5 case each; whether cuDNN takes a
+   bf16 LSTM; FC_STGNN, LOGO and STAGNN 5 bf16 steps on the card against
+   the CPU and one FD001 epoch through ``cli.main --precision bf16`` (the
+   fp32 epoch's launches, every one bf16; fp32 parameters, Adam and
+   BatchNorm statistics); bf16 serving of every method on a kernel at 100
+   and 1000 against fp32; FC_STGNN's bf16 artifact against the live bf16
+   model; each kernel's bf16 and fp32 times in turns, its bf16 bound, the
+   plain bf16 version and cuDNN's bf16 LSTM; bf16 and fp32 training steps
+   and epochs in turns;
+12. resume: FC_STGNN (2,000 FD001 windows) and LOGO_bearing (400 PHM2012
+   windows, across its MultiStepLR's milestone 10), dropout on, 3 epochs
+   straight against 2 epochs, a ``checkpoint_every=1`` save, a new
+   ``Trainer`` and ``resume=True``: parameters and predictions held at the
+   5-step tolerances, bit-equal tensors counted; how long an
+   ``AsyncCheckpointer.save`` blocks the training thread, and that the
+   step after a save never reaches its file.
 
-The line before the last is one JSON object ``{"kernels": [...]}`` (five
-entries; the grouped kernels' times and the vectorized launches beside
-each), the one before it ``{"vectorized": {...}}`` (phase 10's epochs);
-the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object ``{"kernels": [...]}`` (ten
+entries, the five kernels at fp32 and at bf16; the grouped kernels' times
+and the vectorized launches beside each fp32 one), the ones before it
+``{"resume": {...}}`` (phase 12), ``{"vectorized": {...}}`` (phase 10's
+epochs) and ``{"bf16_train": {...}}`` (phase 11's step and epoch
+ratios); the last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 -c "import chip_smoke as c; c._turns('build/parent')"`` times
 the dot-graph forward and backward and the attention of an earlier commit
 unpacked at ``build/parent`` and of this tree in turns on one card;
 ``c._turns('build/parent', c._HOST_TURN)`` the training steps and requests
-of 100.
+of 100, ``c._LSTM_TURN`` the LSTM kernels, and ``c._DIGEST_TURN`` prints
+digests of the fp32 kernels' outputs, for the two trees' to be compared.
 """
 
 from __future__ import annotations
@@ -155,6 +184,7 @@ from gnn_rul_tpu_torch.models import fc_stgnn, gdagdl, hagcn, stgnn, stnet
 from gnn_rul_tpu_torch.models.gat_lstm import path_graph
 from gnn_rul_tpu_torch.models.stfa import prior_knowledge_graph
 from gnn_rul_tpu_torch.nn import attention, recurrent
+from gnn_rul_tpu_torch.nn.basic import dropout_key, step_key
 from gnn_rul_tpu_torch.ops.graphs import covariance_threshold_graph
 from gnn_rul_tpu_torch.ops.kernels import (WRAPPERS, build, fused_gat,
                                            fused_gnn, fused_lstm)
@@ -166,6 +196,7 @@ from gnn_rul_tpu_torch.train.vectorized import VectorizedEngine
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 dense (tensor cores)
 TOL_ATOL, TOL_RTOL = 1e-5, 1e-4          # kernel vs plain, both fp32
 SERVE_ATOL, SERVE_RTOL = 2e-4, 1e-4      # card vs CPU, whole model
 # artifact vs live model, both on the card: tests/test_export.py:52
@@ -295,9 +326,9 @@ def _path(method: str) -> Path:
 def _reset() -> None:
     """Every wrapper's counts to 0, before a main path is driven."""
     for kernel in WRAPPERS.values():
-        kernel.launches = 0
+        kernel.launches = kernel.bf16_launches = 0
         if hasattr(kernel, "bwd_launches"):
-            kernel.bwd_launches = 0
+            kernel.bwd_launches = kernel.bf16_bwd_launches = 0
         if hasattr(kernel, "bwd_calls"):
             kernel.bwd_calls = 0
 
@@ -1448,13 +1479,16 @@ def _steps(engine: Engine, xs, ys, device: str, dtype=torch.float32,
     return np.array(losses)
 
 
-def _term_gradients(model, x, y, device: str, dtype=torch.float32):
+def _term_gradients(model, x, y, device: str, dtype=torch.float32,
+                    key=None):
     """``{term: the gradient of every parameter as one flat fp64 vector on
     the host}`` for each term of the model's training loss, the
     prediction's mean squared error and, for an auxiliary-loss model, the
-    auxiliary term, at the model's weights on one batch."""
+    auxiliary term, at the model's weights on one batch; ``key`` keys its
+    dropout (``nn/basic.py``; no dropout where the model has none)."""
     model = model.to(device, dtype).train()
-    out = model(torch.from_numpy(x).to(device, dtype))
+    with dropout_key(0 if key is None else key):
+        out = model(torch.from_numpy(x).to(device, dtype))
     pred, aux = out if isinstance(out, tuple) else (out, None)
     mse = torch.mean((pred - torch.from_numpy(y).to(device, dtype)) ** 2)
     params = list(model.parameters())
@@ -2081,7 +2115,7 @@ def _graph_ms(fn, inner: int = 50, reps: int = 21) -> float:
     return statistics.median(times)
 
 
-def _request_ms(model, x, warmup: int = 5, reps: int = 30) -> float:
+def _request_ms(model, x, warmup: int = 5, reps: int = 20) -> float:
     """Median host ms of one request, input on the host to answer on the
     host (the call ends with the copy back, which waits for the card)."""
     for _ in range(warmup):
@@ -2095,7 +2129,7 @@ def _request_ms(model, x, warmup: int = 5, reps: int = 30) -> float:
 
 
 def _profile(name: str, fn, untraced_ms: float, unit: str,
-             reps: int = 10) -> None:
+             reps: int = 5) -> None:
     """Print the card's time per ``fn()`` by kernel and copy
     (torch.profiler), its share of the traced calls' own wall time (the
     same window), and beside it its share of ``untraced_ms``, the time of
@@ -2133,21 +2167,28 @@ def _profile(name: str, fn, untraced_ms: float, unit: str,
     return busy_us, traced_us
 
 
+def _peak(elt: int) -> float:
+    """The card's peak operations a second for operands of ``elt`` bytes:
+    fp32 outside the tensor cores, or bf16 dense."""
+    return FP32_FLOP_PER_S if elt == 4 else BF16_FLOP_PER_S
+
+
 def _bound_ms(b: int, n: int, d: int, f: int, backward: bool = False,
-              groups: int = 1):
+              groups: int = 1, elt: int = 4):
     """Least time for the chain on an H100 SXM, the larger of its bytes at
     the HBM rate and its fp32 operations at the fp32 peak. Forward: h, x,
     the ``groups`` masks read and out written; 2*B*N^2*(D+F) operations.
     Backward without dmask: h, x, g, the masks read and dh, dx written;
-    2*B*N^2*(3D+2F) operations (S, dA, dx, dS h, dS^T h)."""
+    2*B*N^2*(3D+2F) operations (S, dA, dx, dS h, dS^T h). ``elt`` 2: bf16
+    operands, the operations at the bf16 peak."""
     if backward:
-        nbytes = 4 * (2 * b * n * d + 3 * b * n * f + groups * n * n)
+        nbytes = elt * (2 * b * n * d + 3 * b * n * f + groups * n * n)
         flops = 2 * b * n * n * (3 * d + 2 * f)
     else:
-        nbytes = 4 * (b * n * d + 2 * b * n * f + groups * n * n)
+        nbytes = elt * (b * n * d + 2 * b * n * f + groups * n * n)
         flops = 2 * b * n * n * (d + f)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    by_ops = flops / _peak(elt) * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -2169,7 +2210,8 @@ def _kernel_times(name: str, shapes, kernel_fn, plain_fn, backward: bool):
     return times
 
 
-def _gat_bound_ms(b: int, n: int, d: int, adj: str, groups: int = 1):
+def _gat_bound_ms(b: int, n: int, d: int, adj: str, groups: int = 1,
+                  elt: int = 4):
     """Least time for the graph attention on an H100 SXM, the larger of its
     bytes at the HBM rate and its fp32 operations at the fp32 peak: wh, f1,
     f2, adj (one (N, N) when shared, one a group when "grouped") and the
@@ -2177,10 +2219,10 @@ def _gat_bound_ms(b: int, n: int, d: int, adj: str, groups: int = 1):
     wh and 6*B*N^2 for the logits, the leaky_relu, the exponent, the
     normalisation and the mask."""
     adjs = {"shared": 1, "path": 1, "grouped": groups}.get(adj, b)
-    nbytes = 4 * (2 * b * n * d + 2 * b * n + adjs * n * n + groups)
+    nbytes = elt * (2 * b * n * d + 2 * b * n + adjs * n * n + groups)
     flops = 2 * b * n * n * d + 6 * b * n * n
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    by_ops = flops / _peak(elt) * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -2204,7 +2246,7 @@ def _gat_times(cases):
     return times
 
 
-def _step_ms(engine: Engine, x, y, warmup: int = 5, reps: int = 30) -> float:
+def _step_ms(engine: Engine, x, y, warmup: int = 5, reps: int = 20) -> float:
     """Median host ms of one training step, synchronised after each."""
     for _ in range(warmup):
         engine.train_step(x, y)
@@ -2219,7 +2261,7 @@ def _step_ms(engine: Engine, x, y, warmup: int = 5, reps: int = 30) -> float:
 
 
 def _lstm_bound_ms(t: int, b: int, h: int, backward: bool = False,
-                   groups: int = 1):
+                   groups: int = 1, elt: int = 4):
     """Least time for the recurrence on an H100 SXM, the larger of its bytes
     at the HBM rate and its fp32 operations at the fp32 peak, per (step,
     direction, column). Forward: xg and w_hh read, ys and the c trajectory
@@ -2230,14 +2272,14 @@ def _lstm_bound_ms(t: int, b: int, h: int, backward: bool = False,
     ``groups`` W_hh and dW_hh where the columns are in groups."""
     rows = t * 2 * b
     if backward:
-        nbytes = 4 * (rows * (4 * h + 3 * h + 4 * h)
-                      + 2 * groups * 2 * h * 4 * h + 2 * b * h)
+        nbytes = elt * (rows * (4 * h + 3 * h + 4 * h)
+                        + 2 * groups * 2 * h * 4 * h + 2 * b * h)
         flops = rows * (24 * h * h + 30 * h)
     else:
-        nbytes = 4 * (rows * (4 * h + 2 * h) + groups * 2 * h * 4 * h)
+        nbytes = elt * (rows * (4 * h + 2 * h) + groups * 2 * h * 4 * h)
         flops = rows * (8 * h * h + 14 * h)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    by_ops = flops / _peak(elt) * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -2425,11 +2467,11 @@ def _serve_times(method: str, fixed, symbolic, x100, x1000) -> None:
                  "request")
 
 
-def _artifact_times(method: str, artifact, symbolic, x100, x1000) -> None:
-    """A request of 100 and of 1000 through the symbolic-batch artifact and
-    the live symbolic-batch model, in turns: live, artifact, artifact,
-    live."""
-    for xs in (x100, x1000):
+def _artifact_times(method: str, artifact, symbolic, x100) -> None:
+    """A request of 100 through the symbolic-batch artifact and the live
+    symbolic-batch model, in turns: live, artifact, artifact, live (the
+    request of 1000 is cut since PR 14, a timing depth, PERF.md §4)."""
+    for xs in (x100,):
         live_a, art_a, art_b, live_b = (
             _request_ms(model, xs)
             for model in (symbolic, artifact, artifact, symbolic))
@@ -2465,7 +2507,7 @@ def _train_times(method: str, data: _Processed) -> None:
     steps = -(-len(train_x) // SERVE_BATCH)
     path = _path(method)
     print(f"train {method} [{SMI}]: {step_ms:.4f} ms per step at batch "
-          f"{SERVE_BATCH} (median of 30); one epoch of {len(train_x)} "
+          f"{SERVE_BATCH} (median of 20); one epoch of {len(train_x)} "
           f"windows in {steps} steps {epoch_s:.4f} s, "
           f"{len(train_x) / epoch_s:.1f} samples/s; launches per step "
           f"forward {path.train_per_forward}, backward "
@@ -2765,23 +2807,24 @@ def _recording(method: str, recorded: list):
             else contextlib.nullcontext())
 
 
-def _vectorized_term_gradients(engine: VectorizedEngine, x, y):
+def _vectorized_term_gradients(engine: VectorizedEngine, x, y, keys):
     """``[{term: gradient as one flat fp64 vector}]`` a seed, as
     :func:`_term_gradients` for each seed's model, at the engine's state on
-    one batch a seed; the BatchNorm statistics are left as they were."""
+    one batch a seed, each seed's dropout keyed by its entry of ``keys``;
+    the BatchNorm statistics are left as they were."""
     kept = {k: v.clone() for k, v in engine.buffers.items()}
     engine.model.train()
 
-    def terms(params, buffers, xs, ys):
-        out = engine._forward(params, buffers, xs)
+    def terms(params, buffers, xs, ys, key):
+        with dropout_key(key):
+            out = engine._forward(params, buffers, xs)
         pred, aux = out if isinstance(out, tuple) else (out, None)
         mse = torch.mean((pred - ys) ** 2)
         return (mse,) if aux is None else (mse, aux)
 
-    values = torch.func.vmap(terms, randomness="different")(
-        engine.params, engine.buffers, x, y)
-    for k, v in kept.items():
-        engine.buffers[k].copy_(v)
+    values = torch.func.vmap(terms, randomness="error")(
+        engine.params, engine.buffers, x, y,
+        torch.tensor(keys, dtype=torch.int64, device=x.device))
     params = list(engine.params.values())
     out = [{} for _ in engine.seeds]
     for term, value in zip(("squared error", "auxiliary"), values):
@@ -2792,6 +2835,10 @@ def _vectorized_term_gradients(engine: VectorizedEngine, x, y):
                 (g[s] if g is not None else torch.zeros_like(p[s]))
                 .detach().double().cpu().reshape(-1)
                 for g, p in zip(grads, params)])
+    # After the gradients: the backward of a train-mode BatchNorm reads the
+    # statistics as the forward left them.
+    for k, v in kept.items():
+        engine.buffers[k].copy_(v)
     return out
 
 
@@ -2804,8 +2851,22 @@ def _vectorized_term_gradients(engine: VectorizedEngine, x, y):
 # (ROADMAP Queue 3 entry 6) carries 5 free-running steps 3.6e-3 from the
 # sequential runs' parameters (each fp32 run ~3e-3 from fp64) and its
 # losses 29 times the tolerance from fp64 where a sequential run lies at
-# 0.46 times.
-VECTORIZED_GRADIENT_HELD = {"HAGCN": PARITY_STEPS}
+# 0.46 times. FC_STGNN's with its PE dropout on (PR 14): each seed's 5
+# losses within 6.1e-6 of its sequential run's (so the keyed masks are
+# the same), but its parameters 7.8e-4 from the sequential run's and from
+# fp64, the sequential run's 1.1e-4 from fp64 (H100 80GB HBM3, 700 W); on
+# the CPU the sequential fp32 run's own parameters end 4.8e-4 from fp64
+# (seed 0): the weights ahead of a train-mode BatchNorm
+# (nonlin_map2.0.weight, the graph constructions' mappings), whose
+# gradient the BatchNorm cancels, moved by Adam's normalised step. Its
+# first step's gradient is held (each seed within 4.1e-8 of its
+# sequential run's); from the second step the two runs' weights part, and
+# a logit within rounding of the dot graph's leaky_relu kink can take the
+# other branch (seed 2's third step: 5.8e-5 off fp64, the sequential run
+# 1.9e-8), so its losses are held at every step in place of the later
+# gradients (VECTORIZED_LOSSES_HELD).
+VECTORIZED_GRADIENT_HELD = {"HAGCN": PARITY_STEPS, "FC_STGNN": 1}
+VECTORIZED_LOSSES_HELD = ("FC_STGNN",)
 
 
 def _hold_vectorized_gradients(method, engine, model_fn, x, y, idx,
@@ -2814,10 +2875,11 @@ def _hold_vectorized_gradients(method, engine, model_fn, x, y, idx,
     ``idx[s]``, vectorized against the seed's sequential model at the same
     weights on the card, the vectorized forward's top-k selections
     replayed, by :func:`_hold` (the fp64 witness on the CPU, replaying
-    them too)."""
+    them too), each seed's dropout keyed as its step ``step`` is."""
+    keys = [step_key(s, 0, step - 1) for s in engine.seeds]
     ranked = []
     with _recording(method, ranked):
-        vec_terms = _vectorized_term_gradients(engine, x[idx], y[idx])
+        vec_terms = _vectorized_term_gradients(engine, x[idx], y[idx], keys)
     for s in range(len(engine.seeds)):
         sel = _seed_replay(method, ranked, s)
         xs, ys = (t[idx[s]].cpu().numpy() for t in (x, y))
@@ -2829,7 +2891,7 @@ def _hold_vectorized_gradients(method, engine, model_fn, x, y, idx,
             return model.to(dtype)
 
         with _during(sel, "replay"):
-            seq = _term_gradients(seeded(), xs, ys, "cuda")
+            seq = _term_gradients(seeded(), xs, ys, "cuda", key=keys[s])
         if sel:
             sel.report(method, f"seed {s}'s step {step} (the vectorized "
                                f"run's selections as the card's, the "
@@ -2839,7 +2901,7 @@ def _hold_vectorized_gradients(method, engine, model_fn, x, y, idx,
         def exact(sel=sel, seeded=seeded, xs=xs, ys=ys):
             with _plain_kernels(), _during(sel, "replay"):
                 return _term_gradients(seeded(torch.float64), xs, ys, "cpu",
-                                       torch.float64)
+                                       torch.float64, key=keys[s])
 
         for term in seq:
             _hold(f"vectorized {method}: seed {s}'s step {step} gradient of "
@@ -2847,6 +2909,22 @@ def _hold_vectorized_gradients(method, engine, model_fn, x, y, idx,
                   f"({seq[term].numel()} values)", vec_terms[s][term],
                   seq[term], lambda term=term, exact=exact: exact()[term])
 
+
+
+def _mask_bits() -> None:
+    """The keyed dropout mask of one key is the same bits on the CPU and
+    on the card, at a training shape of FC_STGNN's PE dropout."""
+    from gnn_rul_tpu_torch.nn.basic import keep_mask, step_key
+    key = step_key(3, 2, 7)
+    shape = (SERVE_BATCH, 8, 14, 2 * _FC_HP["hidden_dim"])
+    masks = [keep_mask(torch.tensor(key, device=dev), shape, 0.1, dev)
+             for dev in (torch.device("cpu"), torch.device("cuda"))]
+    same = torch.equal(masks[0], masks[1].cpu())
+    print(f"keyed dropout mask {shape} at p=0.1: CPU and card "
+          f"{'bit-equal' if same else 'DIFFER'}, kept share "
+          f"{masks[1].float().mean().item():.5f}")
+    if not same:
+        raise AssertionError("the keyed mask differs between CPU and card")
 
 def _vectorized(method: str) -> dict:
     """The main path of seed-parallel runs for ``method``: a
@@ -2863,7 +2941,8 @@ def _vectorized(method: str) -> dict:
     the tolerance of them); a method of VECTORIZED_GRADIENT_HELD holds each
     term of its gradient at every step's weights instead. A ranked
     method's sequential runs replay the vectorized run's top-k selections.
-    Returns the launches."""
+    Dropout is on (the bank's rates; keyed, ``nn/basic.py``): seed s's
+    masks are its sequential run's. Returns the launches."""
     torch.backends.cudnn.deterministic = True
     dataset, dataset_id = CELL[method]
     spec = get_algorithm_spec(method)
@@ -2876,7 +2955,7 @@ def _vectorized(method: str) -> dict:
     y = torch.from_numpy(rng.uniform(size=(n, 1)).astype(np.float32)).cuda()
 
     def model_fn():
-        return _no_dropout(build_model(method, dataset, dataset_id))
+        return build_model(method, dataset, dataset_id)
 
     veng = VectorizedEngine(model_fn, spec, tp, seeds)
     perm = veng.permutations(n, 1, shuffle=True)
@@ -2898,7 +2977,7 @@ def _vectorized(method: str) -> dict:
     v_losses = []
     with _recording(method, ranked):
         for idx in batches:
-            if not held:
+            if len(snapshots) < VECTORIZED_GRADIENT_HELD.get(method, 0):
                 snapshots.append({k: t.detach().clone() for k, t in
                                   {**veng.params, **veng.buffers}.items()})
             v_losses.append(veng.train_step(x[idx], y[idx]).cpu().numpy())
@@ -2913,8 +2992,8 @@ def _vectorized(method: str) -> dict:
     launches["eval"] = _counts(path.kernel)[0]
     launches["library_rnn_eval"] = recurrent.library_rnn.calls - calls
     _only_its_kernel(method, "vectorized evaluation")
-    want = {"steps": (path.per_forward * steps,
-                      path.per_forward * path.bwd_per_call * steps),
+    want = {"steps": (path.train_per_forward * steps,
+                      path.train_per_forward * path.bwd_per_call * steps),
             "library_rnn_steps": SEEDS * rnn_layers * steps,
             "eval": path.per_forward,
             "library_rnn_eval": SEEDS * rnn_layers}
@@ -2969,8 +3048,15 @@ def _vectorized(method: str) -> dict:
           f"{np.abs(v_losses - s_losses).max():.3e} (losses "
           f"{v_losses[0].tolist()} for seed 0), max |param vectorized - "
           f"sequential| {param_diff:.3e}"
-          + ("" if held else "; not held: the gradient at every step is"))
+          + ("" if held else
+             f"; the parameters not held: the gradient at the first "
+             f"{VECTORIZED_GRADIENT_HELD[method]} step(s) is"
+             + (", and the losses at every step" if method in
+                VECTORIZED_LOSSES_HELD else "")))
     torch.backends.cudnn.deterministic = False
+    if method in VECTORIZED_LOSSES_HELD and not loss_ok:
+        raise AssertionError(f"vectorized {method}: the losses miss the "
+                             f"sequential runs'")
     if not held or (loss_ok and param_diff < PARAM_MAX_DIFF):
         return launches
     # Where the vectorized run misses the sequential one, both against the
@@ -3008,11 +3094,18 @@ def _vectorized(method: str) -> dict:
     return launches
 
 
+# Sequential epochs timed against a vectorized one: SEEDS times their mean
+# stands for the SEEDS sequential epochs (PR 13 timed all 5; each seed's
+# epoch is the same work; a depth cut of PR 14, PERF.md §4).
+SEQUENTIAL_TIMED = 2
+
+
 def _vectorized_times(method: str, data: _Processed) -> dict:
     """One vectorized epoch of SEEDS seeds against SEEDS sequential epochs,
-    one a seed, of the same windows, host clock, after each engine's
-    warm-up steps (a full batch and the remainder batch); samples/s over
-    all seeds; the card's busy share of a traced vectorized step."""
+    one a seed (SEEDS times the mean of SEQUENTIAL_TIMED timed ones), of
+    the same windows, host clock, after each engine's warm-up steps (a
+    full batch and the remainder batch); samples/s over all seeds; the
+    card's busy share of a traced vectorized step."""
     dataset, dataset_id = CELL[method]
     spec = get_algorithm_spec(method)
     tp = train_params(dataset, dataset_id, method)
@@ -3024,7 +3117,7 @@ def _vectorized_times(method: str, data: _Processed) -> dict:
         return build_model(method, dataset, dataset_id)
 
     seq_s = []
-    for s in range(SEEDS):
+    for s in range(SEQUENTIAL_TIMED):
         torch.manual_seed(s)
         engine = Engine(model_fn(), spec, tp, seed=s)
         xd, yd = engine._device_data(data.train_x, data.train_y)
@@ -3049,20 +3142,648 @@ def _vectorized_times(method: str, data: _Processed) -> dict:
     busy_us, traced_us = _profile(f"vectorized step {method} ({SEEDS} seeds)",
                                   lambda: veng.train_step(xb, yb), step_ms,
                                   "step", reps=5)
-    out = {"vectorized_epoch_s": vec_s, "sequential_epochs_s": sum(seq_s),
+    seq_total = SEEDS * statistics.mean(seq_s)
+    out = {"vectorized_epoch_s": vec_s, "sequential_epochs_s": seq_total,
            "vectorized_samples_per_s": SEEDS * n / vec_s,
-           "sequential_samples_per_s": SEEDS * n / sum(seq_s),
+           "sequential_samples_per_s": SEEDS * n / seq_total,
            "vectorized_step_ms": step_ms,
            "vectorized_step_busy_share": busy_us / traced_us}
     print(f"vectorized times {method} [{SMI}]: {SEEDS} seeds x {n} windows; "
           f"one vectorized epoch {vec_s:.4f} s, "
           f"{out['vectorized_samples_per_s']:.1f} samples/s all seeds; "
-          f"{SEEDS} sequential epochs {sum(seq_s):.4f} s ("
+          f"{SEEDS} sequential epochs {seq_total:.4f} s ({SEEDS} x the mean "
+          f"of seeds {list(range(SEQUENTIAL_TIMED))}'s: "
           + ", ".join(f"{t:.4f}" for t in seq_s) + "), "
           f"{out['sequential_samples_per_s']:.1f} samples/s; "
-          f"{sum(seq_s) / vec_s:.3f}x; a vectorized step {step_ms:.4f} ms "
+          f"{seq_total / vec_s:.3f}x; a vectorized step {step_ms:.4f} ms "
           f"(median of 10), the card busy {busy_us:.1f} us of a traced "
           f"step's {traced_us:.1f} ({100 * busy_us / traced_us:.1f}%)")
+    return out
+
+
+
+# Phase "bf16" (slice 14): each kernel's bf16 instantiation against its
+# plain bf16 version (reads bf16, computes in fp32, rounds once) and
+# against its own fp32 instantiation on the up-cast inputs, at the shapes
+# the fp32 phases use, and one G = 5 grouped case for each operator.
+BF16 = torch.bfloat16
+# The bf16 LSTM backward recomputes its gates from the stored bf16 ys and
+# cs, the fp32 one from fp32 ys and cs: the two backward trajectories part
+# by the rounding of the saved state, carried along T. Its bound against
+# the fp32 kernel is 2^-8 |ref| + 2^-5 max |ref| (the measured error is
+# printed beside it).
+LSTM_BWD_VS_FP32 = 2.0 ** -5
+BF16_GNN = ((100, 28, 16, 16, 1), (1000, 28, 16, 16, 1),
+            (5 * 100, 28, 16, 16, 5))
+BF16_LSTM = ((100, 70, 48, 1), (1400, 5, 120, 1), (100, 200, 30, 1),
+             (100, 5 * 70, 48, 5))
+BF16_GAT = ((100, 14, 64, "per-graph", 1), (2500, 14, 5, "shared", 1),
+            (5 * 100, 14, 64, "per-graph", 5))
+
+
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |v| (fp32): 2^(floor(log2 |v|) - 7)."""
+    a = v.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _hold_bf16(what: str, got, want, spread: float = 0.0):
+    """``got`` (bf16) against ``want``, compared in fp32. A bf16 ``want``
+    (the plain bf16 version, itself rounded) within one bf16 ulp of |want|
+    plus 1e-6; an fp32 ``want`` (the fp32 kernel: one rounding apart)
+    within 2^-8 |want| + 1e-6, plus ``spread`` times max |want| where
+    given. Prints the largest error and the count of elements not equal
+    to the reference rounded to bf16; returns (largest error, count)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if want.dtype == BF16:
+        bound = _bf16_ulp(w) + 1e-6
+        how = "one bf16 ulp + 1e-6"
+    else:
+        bound = 2.0 ** -8 * w.abs() + 1e-6 + spread * w.abs().max()
+        how = "2^-8 |ref| + 1e-6" + (f" + {spread:g} max|ref|" if spread
+                                     else "")
+    ok = bool((err <= bound).all()) and bool(torch.isfinite(g).all())
+    off = int((got != want.to(BF16)).sum())
+    print(f"{what}: max_abs_err={err.max().item():.3e} ({how}), {off} of "
+          f"{err.numel()} elements off the reference rounded to bf16 "
+          f"{'ok' if ok else 'FAIL'}")
+    if got.dtype != BF16 or not ok:
+        raise AssertionError(f"{what}: {got.dtype}, or beyond the bound")
+    return err.max().item(), off
+
+
+def _bf16_gnn_case(b, n, d, f, groups, seed):
+    kernel = fused_gnn.fused_dot_graph_spmm
+    h, x, mask = _fused_inputs(b, n, d, f, seed)
+    if groups > 1:
+        mask = torch.stack([mask * (1.0 - 0.1 * g) for g in range(groups)])
+    g = torch.randn(x.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
+    hb, xb, mb, gb = (t.to(BF16).contiguous() for t in (h, x, mask, g))
+    up = [t.float() for t in (hb, xb, mb, gb)]
+    before = (kernel.bf16_launches, kernel.bf16_bwd_launches)
+    out = kernel.forward(hb, xb, mb)
+    dh, dx, dmask = kernel.backward(hb, xb, mb, gb, need_dmask=True)
+    launched = (kernel.bf16_launches - before[0],
+                kernel.bf16_bwd_launches - before[1])
+    if launched != (1, fused_gnn.bwd_launches_per_call(n, d, f)):
+        raise AssertionError(f"bf16 dot graph launched {launched}")
+    plain = fused_gnn.fused_dot_graph_spmm_plain(hb, xb, mb)
+    p_bwd = fused_gnn.fused_dot_graph_spmm_bwd_plain(hb, xb, mb, gb)
+    ref = kernel.forward(*up[:3])
+    r_bwd = kernel.backward(*up, need_dmask=True)
+    torch.cuda.synchronize()
+    shape = f"B={b} N={n} D={d} F={f} G={groups}"
+    errs = [_hold_bf16(f"bf16 dot graph {shape} out vs plain bf16", out,
+                       plain)[0]]
+    _hold_bf16(f"bf16 dot graph {shape} out vs fp32 kernel", out, ref)
+    bwd = []
+    for name, got, want, r in zip(("dh", "dx", "dmask"), (dh, dx, dmask),
+                                  p_bwd, r_bwd):
+        bwd.append(_hold_bf16(f"bf16 dot graph bwd {shape} {name} vs plain "
+                              f"bf16", got, want)[0])
+        _hold_bf16(f"bf16 dot graph bwd {shape} {name} vs fp32 kernel", got,
+                   r)
+    return max(errs), max(bwd)
+
+
+def _bf16_lstm_case(t, b, h, groups, seed):
+    kernel = fused_lstm.lstm_recurrence
+    xg, w, dys, dcf = _lstm_inputs(t, b, h, seed)
+    if groups > 1:
+        w = torch.stack([_lstm_inputs(1, 1, h, seed + g)[1]
+                         for g in range(groups)])
+    xb, wb, dyb, dcb = (a.to(BF16).contiguous() for a in (xg, w, dys, dcf))
+    before = (kernel.bf16_launches, kernel.bf16_bwd_launches)
+    ys, cs, c_fin = kernel.forward(xb, wb)
+    dxg, dw = kernel.backward(xb, wb, ys, cs, dyb, dcb)
+    launched = (kernel.bf16_launches - before[0],
+                kernel.bf16_bwd_launches - before[1])
+    if launched != (1, fused_lstm.BWD_LAUNCHES_PER_CALL):
+        raise AssertionError(f"bf16 LSTM launched {launched}")
+    p_ys, p_cs = fused_lstm.lstm_trajectory_plain(xb, wb)
+    p_dxg, p_dw = fused_lstm.lstm_recurrence_bwd_plain(xb, wb, ys, cs, dyb,
+                                                       dcb)
+    r_ys, r_cs, r_fin = kernel.forward(xb.float(), wb.float())
+    r_dxg, r_dw = kernel.backward(xb.float(), wb.float(), r_ys, r_cs,
+                                  dyb.float(), dcb.float())
+    torch.cuda.synchronize()
+    plan = kernel.plan(h, b)
+    shape = f"T={t} B={b} H={h} G={groups}" + (
+        f" (cluster of {plan['cluster']})" if plan["cluster"] > 1 else "")
+    fwd, bwd = [], []
+    for name, got, want, r in (("ys", ys, p_ys, r_ys), ("cs", cs, p_cs, r_cs),
+                               ("c_fin", c_fin, p_cs[-1], r_fin)):
+        fwd.append(_hold_bf16(f"bf16 lstm {shape} {name} vs plain bf16", got,
+                              want)[0])
+        _hold_bf16(f"bf16 lstm {shape} {name} vs fp32 kernel", got, r)
+    for name, got, want, r in (("dxg", dxg, p_dxg, r_dxg),
+                               ("dw", dw, p_dw, r_dw)):
+        bwd.append(_hold_bf16(f"bf16 lstm bwd {shape} {name} vs plain bf16",
+                              got, want)[0])
+        _hold_bf16(f"bf16 lstm bwd {shape} {name} vs fp32 kernel (its own "
+                   f"fp32 trajectory)", got, r, spread=LSTM_BWD_VS_FP32)
+    return max(fwd), max(bwd)
+
+
+def _bf16_gat_case(b, n, d, adj, groups, seed):
+    kernel = fused_gat.fused_gat
+    args = list(_gat_inputs(b, n, d, adj, 0.3, seed))
+    if groups > 1:
+        args[4] = torch.linspace(-0.4, 0.4, groups, device="cuda")
+    ab = [t.to(BF16).contiguous() for t in args]
+    before = kernel.bf16_launches
+    out = kernel.forward(*ab, 0.1)
+    if kernel.bf16_launches - before != 1:
+        raise AssertionError("bf16 attention launched no kernel")
+    plain = fused_gat.fused_gat_plain(*ab, 0.1)
+    ref = kernel.forward(*(t.float() for t in ab), 0.1)
+    torch.cuda.synchronize()
+    shape = f"B={b} N={n} D={d} adj={adj} G={groups}"
+    err = _hold_bf16(f"bf16 gat {shape} vs plain bf16", out, plain)[0]
+    _hold_bf16(f"bf16 gat {shape} vs fp32 kernel", out, ref)
+    return err
+
+
+def _bf16_vs_plain() -> dict:
+    """Every kernel's bf16 instantiation at BF16_GNN, BF16_LSTM and BF16_GAT
+    against its plain bf16 version and its fp32 kernel, by
+    :func:`_hold_bf16`; each call must launch the bf16 kernels it reports.
+    Returns the largest errors against the plain versions."""
+    errs = {"gnn": [0.0, 0.0], "lstm": [0.0, 0.0], "gat": 0.0}
+    for i, case in enumerate(BF16_GNN):
+        errs["gnn"] = [max(a, e) for a, e in
+                       zip(errs["gnn"], _bf16_gnn_case(*case, seed=700 + i))]
+    for i, case in enumerate(BF16_LSTM):
+        errs["lstm"] = [max(a, e) for a, e in
+                        zip(errs["lstm"], _bf16_lstm_case(*case, 710 + i))]
+    for i, case in enumerate(BF16_GAT):
+        errs["gat"] = max(errs["gat"], _bf16_gat_case(*case, seed=720 + i))
+    return errs
+
+
+
+# The methods trained at bf16 in phase "bf16" (one method on each kernel),
+# those served at bf16 (every method on a kernel), and the bounds the bf16
+# runs are held to: the JAX package's own bf16 bounds, its 3-epoch losses
+# against fp32 (tests/test_bf16.py:49) and its bf16 forward against fp32
+# (tests/test_bf16.py:80-81).
+BF16_TRAINED = ("FC_STGNN", "LOGO", "STAGNN")
+BF16_SERVED = ("FC_STGNN", "LOGO", "STAGNN", "STFA", "HAGCN", "GAT_LSTM",
+               "GDAGDL", "LOGO_bearing")
+BF16_LOSS_RTOL, BF16_LOSS_ATOL = 0.15, 0.01
+BF16_SERVE_RTOL, BF16_SERVE_ATOL = 0.1, 0.05
+
+
+def _bf16_counts(kernel):
+    """The bf16 instantiations' (forward, backward) launches."""
+    if kernel is None:
+        return 0, 0
+    return kernel.bf16_launches, getattr(kernel, "bf16_bwd_launches", 0)
+
+
+def _all_bf16(method: str, what: str) -> tuple:
+    """The launches of ``method``'s kernel since :func:`_reset`, each one
+    of its bf16 instantiation (no fp32 launch on a bf16 path), and no
+    other wrapper's."""
+    kernel = _path(method).kernel
+    counts = _counts(kernel)
+    if _bf16_counts(kernel) != counts:
+        raise AssertionError(f"{what} {method}: launches {counts}, of them "
+                             f"bf16 {_bf16_counts(kernel)}")
+    _only_its_kernel(method, what)
+    return counts
+
+
+def _fp32_state(method: str, what: str, state: dict, optimizer) -> None:
+    """Master parameters, BatchNorm statistics and Adam's moments fp32."""
+    bad = [k for k, v in state.items()
+           if v.is_floating_point() and v.dtype != torch.float32]
+    bad += [f"adam {k}" for st in optimizer["state"].values()
+            for k, v in st.items()
+            if torch.is_tensor(v) and v.dim() and v.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"{what} {method}: not fp32: {bad[:5]}")
+
+
+def _bf16_steps(method: str) -> np.ndarray:
+    """PARITY_STEPS bf16 steps on the card and on the CPU from the same
+    weights on the same batches of 100, dropout off: finite losses, held
+    card against CPU at the JAX package's bf16 bound; fp32 state; every
+    launch a bf16 one."""
+    dataset, dataset_id = CELL[method]
+    spec = get_algorithm_spec(method)
+    tp = train_params(dataset, dataset_id, method)
+    torch.manual_seed(0)
+    sd = build_model(method, dataset, dataset_id).state_dict()
+
+    def engine(device):
+        model = build_model(method, dataset, dataset_id)
+        model.load_state_dict(sd)
+        return Engine(_no_dropout(model), spec, tp, device=device,
+                      precision="bf16")
+
+    rng = np.random.default_rng(2)
+    xs = _windows(dataset, rng, PARITY_STEPS * SERVE_BATCH)
+    xs = xs.reshape(PARITY_STEPS, SERVE_BATCH, *xs.shape[1:])
+    ys = rng.uniform(size=(PARITY_STEPS, SERVE_BATCH, 1)).astype(np.float32)
+    on_card = engine("cuda")
+    _reset()
+    card = _steps(on_card, xs, ys, "cuda")
+    torch.cuda.synchronize()
+    path = _path(method)
+    launches = _all_bf16(method, "bf16 steps")
+    want = (path.train_per_forward * PARITY_STEPS,
+            path.train_per_forward * path.bwd_per_call * PARITY_STEPS)
+    cpu = _steps(engine("cpu"), xs, ys, "cpu")
+    _fp32_state(method, "bf16 steps", on_card.model.state_dict(),
+                on_card.optimizer.state_dict())
+    rel = np.abs(card - cpu) / (BF16_LOSS_ATOL + BF16_LOSS_RTOL
+                                * np.abs(cpu))
+    print(f"bf16 steps {method}: {PARITY_STEPS} steps at batch "
+          f"{SERVE_BATCH}, losses card {card.tolist()}, CPU {cpu.tolist()} "
+          f"(largest |card - CPU| {np.abs(card - cpu).max():.3e}, "
+          f"{rel.max():.3f} of the bound rtol={BF16_LOSS_RTOL}, "
+          f"atol={BF16_LOSS_ATOL}); launches {launches}, all bf16")
+    if launches != want:
+        raise AssertionError(f"bf16 steps {method}: launches {launches}, "
+                             f"expected {want}")
+    if not np.isfinite(card).all() or rel.max() > 1:
+        raise AssertionError(f"bf16 steps {method}: card against CPU")
+    return card
+
+
+def _bf16_epoch(method: str, data: _Processed) -> tuple:
+    """``cli.main --precision bf16`` trains one epoch of ``method``: its
+    launches those of the fp32 epoch (:func:`_train_entry_point`), every
+    one bf16; a finite loss; checkpoint.pt fp32, marked bf16."""
+    dataset, dataset_id = CELL[method]
+    save_dir = os.path.join(os.path.dirname(data.root), "logs_bf16")
+    _reset()
+    cli.main(["--GNN_method", method, "--dataset", dataset, "--dataset_id",
+              dataset_id, "--data_path", data.root, "--save_dir", save_dir,
+              "--epochs", "1", "--num_runs", "1", "--precision", "bf16"])
+    torch.cuda.synchronize()
+    launches = _all_bf16(method, "bf16 epoch")
+    path = _path(method)
+    steps = -(-len(data.train_x) // SERVE_BATCH)
+    evals = sum(-(-len(x) // SERVE_BATCH) for x in data.tests.values())
+    want = (path.train_per_forward * steps + path.per_forward * evals,
+            path.train_per_forward * path.bwd_per_call * steps)
+    run_dir = os.path.join(save_dir, "GNN_RUL", "run_1", f"{method}_run_0")
+    with open(os.path.join(run_dir, "logs_run_0.log")) as f:
+        losses = [float(v) for v in re.findall(r"loss\t: (\S+)", f.read())]
+    ckpt = torch.load(os.path.join(run_dir, "checkpoint.pt"),
+                      map_location="cpu", weights_only=True)
+    _fp32_state(method, "bf16 epoch", ckpt["model_dict"], ckpt["optimizer"])
+    print(f"bf16 epoch {method}: cli.main --precision bf16, 1 epoch of "
+          f"{len(data.train_x)} windows, loss {losses}; launches {launches} "
+          f"(the fp32 epoch's {want}), all bf16; checkpoint.pt fp32, "
+          f"precision {ckpt['precision']!r}")
+    if launches != want or len(losses) != 1 or not np.isfinite(losses[0]) \
+            or ckpt["precision"] != "bf16":
+        raise AssertionError(f"bf16 epoch {method}")
+    return launches
+
+
+def _bf16_train_times(method: str, data: _Processed) -> dict:
+    """A training step at batch 100 and one epoch, fp32 and bf16 in turns
+    (fp32, bf16, bf16, fp32 for the steps), on one card; the ratios of
+    bf16's samples/s to fp32's fill ``train/precision.py``."""
+    dataset, dataset_id = CELL[method]
+    xb = torch.from_numpy(data.train_x[:SERVE_BATCH]).cuda()
+    yb = torch.from_numpy(data.train_y[:SERVE_BATCH]).cuda()
+    engines = {}
+    for precision in ("fp32", "bf16"):
+        torch.manual_seed(0)
+        engines[precision] = Engine(
+            build_model(method, dataset, dataset_id),
+            get_algorithm_spec(method),
+            train_params(dataset, dataset_id, method), precision=precision)
+    step = {"fp32": [], "bf16": []}
+    for precision in ("fp32", "bf16", "bf16", "fp32"):
+        step[precision].append(_step_ms(engines[precision], xb, yb))
+    epoch = {}
+    rem = len(data.train_x) % SERVE_BATCH
+    for precision, engine in engines.items():
+        engine._device_data(data.train_x, data.train_y)
+        if rem:
+            engine.train_step(xb[:rem], yb[:rem])
+        t0 = time.perf_counter()
+        engine.run_epoch(data.train_x, data.train_y, 1,
+                         shuffle=get_dataset_config(dataset).shuffle)
+        epoch[precision] = len(data.train_x) / (time.perf_counter() - t0)
+    out = {"step_ms": {k: statistics.median(v) for k, v in step.items()},
+           "epoch_samples_per_s": epoch,
+           "ratio": epoch["bf16"] / epoch["fp32"]}
+    print(f"bf16 train times {method} [{SMI}]: step at batch {SERVE_BATCH} "
+          f"fp32 {step['fp32']} ms, bf16 {step['bf16']} ms (in turns); one "
+          f"epoch fp32 {epoch['fp32']:.1f}, bf16 {epoch['bf16']:.1f} "
+          f"samples/s, bf16/fp32 {out['ratio']:.4f}")
+    return out
+
+
+def _bf16_serve(method: str) -> int:
+    """Requests of 100 and 1000 through ``serving_model(precision="bf16")``
+    on the card, every launch a bf16 one, against the fp32 serving model on
+    the card at the same batch, at the JAX package's bf16 forward bound.
+    Returns the launches of the request of 100."""
+    dataset, dataset_id = CELL[method]
+    sd = _seeded_state_dict(method)
+    models = {p: serving_model(method, dataset, dataset_id, sd, precision=p)
+              for p in ("fp32", "bf16")}
+    rng = np.random.default_rng(31)
+    first = None
+    for n in (SERVE_BATCH, 1000):
+        x = _windows(dataset, rng, n)
+        _reset()
+        got = models["bf16"](x)
+        torch.cuda.synchronize()
+        launches = _all_bf16(method, f"bf16 request of {n}")
+        first = launches[0] if first is None else first
+        want = models["fp32"](x)
+        diff = np.abs(got - want)
+        ok = bool(np.all(diff <= BF16_SERVE_ATOL
+                         + BF16_SERVE_RTOL * np.abs(want)))
+        print(f"bf16 serve {method}: a request of {n}, {got.dtype} "
+              f"{got.shape}, {launches[0]} launches, all bf16; against fp32 "
+              f"on the card max |diff| {diff.max():.3e} (rtol="
+              f"{BF16_SERVE_RTOL}, atol={BF16_SERVE_ATOL}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if got.dtype != np.float32 or got.shape != (n,) \
+                or not np.isfinite(got).all() or not ok or not launches[0]:
+            raise AssertionError(f"bf16 serve {method}")
+    return first
+
+
+def _bf16_artifact(tmp: str) -> int:
+    """FC_STGNN's bf16 artifact (symbolic batch, traced on the CPU), saved,
+    loaded on the card: a request of 100 served as the live bf16 model
+    serves it, through the bf16 kernel. Returns its launches."""
+    sd = _seeded_state_dict("FC_STGNN")
+    meta, program = export.export_serving("FC_STGNN", "CMAPSS", "FD001", sd,
+                                          precision="bf16")
+    path = export.save_artifact(os.path.join(tmp, "fc_stgnn_bf16.pt2"),
+                                meta, program)
+    art = export.load_artifact(path)
+    live = serving_model("FC_STGNN", "CMAPSS", "FD001", sd,
+                         precision="bf16")
+    x = _windows("CMAPSS", np.random.default_rng(32), SERVE_BATCH)
+    _reset()
+    got = art(x)
+    torch.cuda.synchronize()
+    launches = _all_bf16("FC_STGNN", "bf16 artifact")
+    want = live(x)
+    diff = float(np.abs(got - want).max())
+    nodes = _op_nodes(art.program)
+    print(f"bf16 artifact FC_STGNN: {os.path.getsize(path)} bytes, "
+          f"precision {meta['precision']!r}, operator nodes {nodes}; a "
+          f"request of {SERVE_BATCH}: {launches[0]} launches, all bf16, max "
+          f"|artifact - live bf16| {diff:.3e}")
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=2.0 ** -7)
+    return launches[0]
+
+
+def _cudnn_bf16_lstm() -> None:
+    """Whether cuDNN takes a bf16 LSTM on this card: torch's check, and the
+    kernels a bf16 ``torch.nn.LSTM`` forward runs."""
+    lib = torch.nn.LSTM(48, 48, bidirectional=True,
+                        batch_first=True).cuda().to(BF16)
+    x = torch.randn(70, 100, 48, device="cuda", dtype=BF16)
+    lib(x)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        lib(x)
+        torch.cuda.synchronize()
+    names = sorted({e.key[:60] for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    print(f"cuDNN bf16 LSTM [{SMI}]: torch.backends.cudnn.is_acceptable "
+          f"{torch.backends.cudnn.is_acceptable(x)}, a bf16 nn.LSTM forward "
+          f"runs {names[:8]}")
+
+
+def _bf16_kernel_times() -> dict:
+    """Each kernel's bf16 and fp32 instantiations in turns (fp32, bf16,
+    bf16, fp32; CUDA graphs), the plain bf16 version, the bound at 2-byte
+    operands and, for the LSTM, a bf16 ``torch.nn.LSTM`` (PyTorch's own
+    CUDA RNN: cuDNN takes no bf16, :func:`_cudnn_bf16_lstm`), at the main
+    shapes:
+    {name: (bf16 ms, plain ms, bound ms, bound by, library ms, fp32 ms)}."""
+    out = {}
+    gnn = fused_gnn.fused_dot_graph_spmm
+    for shape in KERNEL_CASES[:2]:
+        h, x, mask = _fused_inputs(*shape, seed=0)
+        g = torch.randn(x.shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+        args = {"fp32": (h, x, mask, g),
+                "bf16": tuple(t.to(BF16) for t in (h, x, mask, g))}
+        for part, call, plain in (
+                ("fwd", lambda a: gnn.forward(*a[:3]),
+                 lambda a: fused_gnn.fused_dot_graph_spmm_plain(*a[:3])),
+                ("bwd", lambda a: gnn.backward(*a),
+                 lambda a: fused_gnn.fused_dot_graph_spmm_bwd_plain(*a))):
+            out[f"gnn {part} {shape}"] = _bf16_row(
+                f"fused_dot_graph_spmm{'_bwd' if part == 'bwd' else ''} "
+                f"B={shape[0]} N={shape[1]} D={shape[2]} F={shape[3]}",
+                lambda p: _graph_ms(lambda: call(args[p])),
+                _graph_ms(lambda: plain(args["bf16"])),
+                _bound_ms(*shape, backward=part == "bwd", elt=2), None)
+    lstm = fused_lstm.lstm_recurrence
+    for t, b, h in ((100, 70, 48), (1400, 5, 120), (100, 200, 30)):
+        xg, w, dys, dcf = _lstm_inputs(t, b, h, seed=0)
+        args = {"fp32": (xg, w, dys, dcf),
+                "bf16": tuple(a.to(BF16) for a in (xg, w, dys, dcf))}
+        saved = {p: lstm.forward(*args[p][:2])[:2] for p in args}
+        calls = max(1, min(50, 20000 // t))
+        lib = torch.nn.LSTM(h, h, bidirectional=True,
+                            batch_first=True).cuda().to(BF16)
+        xl = torch.randn(b, t, h, device="cuda", dtype=BF16,
+                         requires_grad=True)
+        gl = torch.randn(b, t, 2 * h, device="cuda", dtype=BF16)
+        lib_inner = max(1, min(10, 2000 // t))
+
+        def lib_fwd():
+            with torch.no_grad():
+                lib(xl)
+
+        lib_f = _event_ms(lib_fwd, inner=lib_inner)
+        lib_train = _event_ms(lambda: lib(xl)[0].backward(gl),
+                              inner=lib_inner) - _event_ms(
+            lambda: lib(xl), inner=lib_inner)
+        out[f"lstm fwd {(t, b, h)}"] = _bf16_row(
+            f"lstm_recurrence T={t} B={b} H={h}",
+            lambda p: _graph_ms(lambda: lstm.forward(*args[p][:2]),
+                                inner=calls),
+            _graph_ms(lambda: fused_lstm.lstm_trajectory_plain(
+                *args["bf16"][:2]), inner=max(1, 500 // t),
+                reps=21 if t <= 2000 else 3),
+            _lstm_bound_ms(t, b, h, elt=2), lib_f)
+        out[f"lstm bwd {(t, b, h)}"] = _bf16_row(
+            f"lstm_recurrence_bwd T={t} B={b} H={h}",
+            lambda p: _graph_ms(lambda: lstm.backward(
+                *args[p][:2], *saved[p], *args[p][2:]), inner=calls),
+            _graph_ms(lambda: fused_lstm.lstm_recurrence_bwd_plain(
+                *args["bf16"][:2], *saved["bf16"], *args["bf16"][2:]),
+                inner=max(1, 500 // t // 3), reps=21 if t <= 2000 else 3),
+            _lstm_bound_ms(t, b, h, backward=True, elt=2), lib_train)
+    for case in (GAT_CASES[0], GAT_CASES[2]):
+        b, n, d, adj, bias, slope = case
+        a32 = _gat_inputs(b, n, d, adj, bias, seed=0)
+        args = {"fp32": a32, "bf16": tuple(t.to(BF16) for t in a32)}
+        out[f"gat {case[:4]}"] = _bf16_row(
+            f"fused_gat B={b} N={n} D={d} adj={adj}",
+            lambda p: _graph_ms(lambda: fused_gat.fused_gat.forward(
+                *args[p], slope)),
+            _graph_ms(lambda: fused_gat.fused_gat_plain(*args["bf16"],
+                                                        slope)),
+            _gat_bound_ms(b, n, d, adj, elt=2), None)
+    return out
+
+
+def _bf16_row(what: str, kernel_ms, plain_ms: float, bound, library):
+    """Times the kernel at fp32 and bf16 in turns and prints the row."""
+    turns = {"fp32": [], "bf16": []}
+    for precision in ("fp32", "bf16", "bf16", "fp32"):
+        turns[precision].append(kernel_ms(precision))
+    ms = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"times bf16 [{SMI}]: {what}: bf16 kernel {turns['bf16']} ms, "
+          f"fp32 kernel {turns['fp32']} ms (in turns; bf16/fp32 "
+          f"{ms['bf16'] / ms['fp32']:.3f}), plain bf16 {plain_ms:.6f} ms, "
+          f"bound at 2-byte operands {bound[0]:.6f} ms ({bound[1]}), "
+          + (f"bf16 nn.LSTM {library:.6f} ms (PyTorch's CUDA RNN: cuDNN "
+             f"takes no bf16)" if library is not None else "library none"))
+    return (ms["bf16"], plain_ms, *bound, library, ms["fp32"])
+
+
+def _bf16(data: dict, tmp: str) -> dict:
+    """Phase "bf16": the kernels' bf16 instantiations against their plain
+    versions and their fp32 kernels, bf16 training (steps against the
+    CPU, one FD001 epoch through the CLI), bf16 serving and a bf16
+    artifact, and the times. Returns what the kernels line reports."""
+    errs = _bf16_vs_plain()
+    _cudnn_bf16_lstm()
+    steps = {m: _bf16_steps(m) for m in BF16_TRAINED}
+    epochs = {m: _bf16_epoch(m, data[CELL[m][0]]) for m in BF16_TRAINED}
+    served = {m: _bf16_serve(m) for m in BF16_SERVED}
+    artifact = _bf16_artifact(tmp)
+    with _Clocks():
+        times = _bf16_kernel_times()
+    ratios = {m: _bf16_train_times(m, data[CELL[m][0]])
+              for m in BF16_TRAINED}
+    print(json.dumps({"bf16_train": ratios}))
+    return {"errs": errs, "steps": steps, "epochs": epochs,
+            "served": served, "artifact": artifact, "times": times,
+            "ratios": ratios}
+
+
+# Phase "resume": a run interrupted after epoch 2 and resumed from its
+# --checkpoint_every 1 checkpoint against the straight 3-epoch run, dropout
+# on (FC_STGNN's pe_dropout 0.1; LOGO_bearing's trunk dropout 0.2 across
+# its MultiStepLR's milestone 10, at 4 steps an epoch); cut data:
+# RESUME_WINDOWS training windows.
+RESUME_WINDOWS = {"FC_STGNN": 2000, "LOGO_bearing": 400}
+
+
+def _resume_run(method: str, data: _Processed, tmp: str) -> dict:
+    from gnn_rul_tpu_torch.data.loader import load_dataset, resolve_data_path
+    from gnn_rul_tpu_torch.train.trainer import Trainer
+    dataset, dataset_id = CELL[method]
+    bundle = load_dataset(resolve_data_path(data.root, dataset, dataset_id,
+                                            "Testing_bearing_1"))
+    cut = RESUME_WINDOWS[method]
+    bundle.train_x, bundle.train_y = (bundle.train_x[:cut],
+                                      bundle.train_y[:cut])
+
+    def trainer(save_dir, epochs, **kw):
+        return Trainer(method, dataset, dataset_id, bundle, save_dir=save_dir,
+                       experiment_description="resume", run_description="r",
+                       num_runs=1, num_epochs_override=epochs, **kw)
+
+    def final(save_dir):
+        run = os.path.join(save_dir, "resume", "r", f"{method}_run_0")
+        return torch.load(os.path.join(run, "checkpoint.pt"),
+                          map_location="cpu", weights_only=True)
+
+    torch.backends.cudnn.deterministic = True
+    straight_dir = os.path.join(tmp, f"straight_{method}")
+    trainer(straight_dir, 3, checkpoint_every=1).train()
+    cut_dir = os.path.join(tmp, f"resumed_{method}")
+    trainer(cut_dir, 2, checkpoint_every=1).train()
+    trainer(cut_dir, 3, resume=True).train()
+    torch.backends.cudnn.deterministic = False
+    a, b = final(straight_dir), final(cut_dir)
+    names = list(a["model_dict"])
+    diff = max((a["model_dict"][k].double()
+                - b["model_dict"][k].double()).abs().max().item()
+               for k in names)
+    equal = sum(torch.equal(a["model_dict"][k], b["model_dict"][k])
+                for k in names)
+    x = next(iter(bundle.test.values()))[0] if bundle.is_dict_test \
+        else bundle.test[0]
+    preds = [serving_model(method, dataset, dataset_id, c["model_dict"],
+                           batch_size=SERVE_BATCH)(x) for c in (a, b)]
+    pred_diff = float(np.abs(preds[0] - preds[1]).max())
+    lrs = [c["optimizer"]["param_groups"][0]["lr"] for c in (a, b)]
+    print(f"resume {method}: {cut} windows, 3 epochs straight against 2, a "
+          f"--checkpoint_every 1 save, a new Trainer and --resume: "
+          f"{equal} of {len(names)} tensors bit-equal, max |param diff| "
+          f"{diff:.3e}; predictions of {len(x)} test windows max |diff| "
+          f"{pred_diff:.3e}; lr after the runs {lrs}; epochs "
+          f"{a['epoch']}, {b['epoch']}; scheduler "
+          f"{a['scheduler'] and a['scheduler']['last_epoch']}")
+    if diff > PARAM_MAX_DIFF or pred_diff > SERVE_ATOL or lrs[0] != lrs[1] \
+            or a["scheduler"] != b["scheduler"]:
+        raise AssertionError(f"resume {method}: the resumed run misses")
+    return {"equal": equal, "of": len(names), "diff": diff,
+            "pred_diff": pred_diff}
+
+
+def _save_block_ms(method: str, data: _Processed, tmp: str) -> dict:
+    """How long one AsyncCheckpointer.save blocks the training thread, and
+    that the step right after it does not reach the file: the saved
+    weights are those before the step."""
+    from gnn_rul_tpu_torch.train.checkpoint import AsyncCheckpointer
+    dataset, dataset_id = CELL[method]
+    torch.manual_seed(0)
+    engine = Engine(build_model(method, dataset, dataset_id),
+                    get_algorithm_spec(method),
+                    train_params(dataset, dataset_id, method))
+    xb = torch.from_numpy(data.train_x[:SERVE_BATCH]).cuda()
+    yb = torch.from_numpy(data.train_y[:SERVE_BATCH]).cuda()
+    engine.train_step(xb, yb)
+    ckptr = AsyncCheckpointer()
+    path = os.path.join(tmp, f"save_{method}.pt")
+    times = []
+    for rep in range(6):
+        before = {k: v.detach().cpu().clone()
+                  for k, v in engine.model.state_dict().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckptr.save(path, engine.model, engine.optimizer, epoch=rep, run_id=0,
+                   hparams={}, train_params={}, scheduler=engine.scheduler)
+        times.append((time.perf_counter() - t0) * 1e3)
+        engine.train_step(xb, yb)   # rewrites the weights in place
+        ckptr.wait()
+        saved = torch.load(path, map_location="cpu",
+                           weights_only=True)["model_dict"]
+        if any(not torch.equal(saved[k], v) for k, v in before.items()):
+            raise AssertionError(f"save {method}: the step after the save "
+                                 f"reached the file")
+    ckptr.close()
+    size = os.path.getsize(path)
+    print(f"resume save {method} [{SMI}]: AsyncCheckpointer.save blocks the "
+          f"training thread {times[1:]} ms (after a first {times[0]:.3f}), "
+          f"a checkpoint of {size} bytes; each file holds the weights of "
+          f"before the step that followed its save")
+    return {"block_ms": statistics.median(times[1:]), "bytes": size}
+
+
+def _resume(data: dict, tmp: str) -> dict:
+    """Phase "resume"."""
+    out = {m: _resume_run(m, data[CELL[m][0]], tmp) for m in RESUME_WINDOWS}
+    for m in RESUME_WINDOWS:
+        out[m].update(_save_block_ms(m, data[CELL[m][0]], tmp))
     return out
 
 
@@ -3125,11 +3846,12 @@ def main() -> None:
         with _Clocks():
             # HAGCN's three layers at a batch of 100 (H = 60, 120) and its
             # widest at a request of 1000 (T = 14,000).
-            lstm = _lstm_times([(100, 70, 24), (100, 70, 48),
-                                (1000, 70, 48), (1400, 5, 60),
+            # LOGO's, HAGCN's and LOGO_bearing's shapes; PR 5's (100, 70,
+            # 24), (1000, 70, 48) and (100, 544, 30) are cut (PR 14, a
+            # timing depth, PERF.md §4).
+            lstm = _lstm_times([(100, 70, 48), (1400, 5, 60),
                                 (1400, 5, 120), (14000, 5, 120),
-                                (100, 544, 30), (100, 200, 30),
-                                (100, 200, 60)])
+                                (100, 200, 30), (100, 200, 60)])
             _lstm_cluster_times()
             phases.mark("kernel times, LSTM")
             # The serving and training shapes of STAGNN and STFA, the two
@@ -3141,7 +3863,7 @@ def main() -> None:
         for method in METHODS:
             _serve_times(method, *served[method][:4])
             _artifact_times(method, artifacts[method][0],
-                            *served[method][1:4])
+                            *served[method][1:3])
             _train_times(method, data[CELL[method][0]])
             phases.mark(f"times {method}")
         for tier, models in tiers.items():
@@ -3149,10 +3871,15 @@ def main() -> None:
         phases.mark("times, tiers")
         grouped_err = _grouped_vs_plain()
         grouped = _grouped_times()
+        _mask_bits()
         vectorized = {m: _vectorized(m) for m in VECTORIZED_METHODS}
         vec_times = {m: _vectorized_times(m, data[CELL[m][0]])
                      for m in VECTORIZED_METHODS}
         phases.mark("vectorized")
+        bf16 = _bf16(data, tmp)
+        phases.mark("bf16")
+        resumed = _resume(data, tmp)
+        phases.mark("resume")
     phases.report()
 
     def entry(name, times, max_abs_err, launches, **extra):
@@ -3219,7 +3946,18 @@ def main() -> None:
     logo5 = f"lstm {GROUPED_LSTM[0][0]}x{GROUPED_LSTM[0][1]}x" \
             f"{GROUPED_LSTM[0][2]}"
     lstm_methods = ("LOGO", "HAGCN", "LOGO_bearing")
+    def bf16_entry(name, key, err, launches, source, replaces, **extra):
+        ms, plain_ms, bound_ms, bound_by, library, fp32_ms = \
+            bf16["times"][key]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library, "fp32_ms": fp32_ms, **extra}
+
+    bf16_launches = bf16["epochs"]
     print(json.dumps({"vectorized": vec_times}))
+    print(json.dumps({"resume": resumed}))
     print(json.dumps({"kernels": [
         entry("fused_dot_graph_spmm", fwd[KERNEL_CASES[0]], max_err,
               trained["FC_STGNN"][0],
@@ -3282,6 +4020,38 @@ def main() -> None:
               **seeds(["STAGNN", "STFA"], 0,
                       f"gat {GROUPED_GAT[0][0]}x{GROUPED_GAT[0][1]}x"
                       f"{GROUPED_GAT[0][2]}", 3)),
+        bf16_entry("fused_dot_graph_spmm_bf16",
+                   f"gnn fwd {KERNEL_CASES[0]}", bf16["errs"]["gnn"][0],
+                   bf16_launches["FC_STGNN"][0],
+                   "gnn_rul_tpu_torch/csrc/fused_gnn.cu",
+                   "gnn_rul_tpu/ops/pallas/fused_gnn.py:45 (_kernel), "
+                   "gnn_rul_tpu/ops/pallas/fused_gnn.py:116 (_packed_kernel)",
+                   launches_serve=bf16["served"]["FC_STGNN"],
+                   launches_artifact=bf16["artifact"]),
+        bf16_entry("fused_dot_graph_spmm_bwd_bf16",
+                   f"gnn bwd {KERNEL_CASES[0]}", bf16["errs"]["gnn"][1],
+                   bf16_launches["FC_STGNN"][1],
+                   "gnn_rul_tpu_torch/csrc/fused_gnn_bwd.cu",
+                   "gnn_rul_tpu/ops/pallas/fused_gnn.py:235 (_bwd_kernel)"),
+        bf16_entry("fused_lstm_bf16", "lstm fwd (100, 70, 48)",
+                   bf16["errs"]["lstm"][0], bf16_launches["LOGO"][0],
+                   "gnn_rul_tpu_torch/csrc/fused_lstm.cu",
+                   "gnn_rul_tpu/ops/pallas/fused_lstm.py:77 (_fwd_kernel)",
+                   shape="T=100 B=70 H=48",
+                   library="torch.nn.LSTM forward, bf16 (PyTorch's CUDA "
+                           "RNN; cuDNN takes no bf16)"),
+        bf16_entry("fused_lstm_bwd_bf16", "lstm bwd (100, 70, 48)",
+                   bf16["errs"]["lstm"][1], bf16_launches["LOGO"][1],
+                   "gnn_rul_tpu_torch/csrc/fused_lstm_bwd.cu",
+                   "gnn_rul_tpu/ops/pallas/fused_lstm.py:106 (_bwd_kernel)",
+                   shape="T=100 B=70 H=48",
+                   library="torch.nn.LSTM forward+backward minus forward, "
+                           "bf16 (PyTorch's CUDA RNN; cuDNN takes no bf16)"),
+        bf16_entry("fused_gat_bf16", f"gat {GAT_CASES[0][:4]}",
+                   bf16["errs"]["gat"], bf16_launches["STAGNN"][0],
+                   "gnn_rul_tpu_torch/csrc/fused_gat.cu",
+                   "gnn_rul_tpu/ops/pallas/fused_gat.py:46 (_kernel)",
+                   shape="B=100 N=14 D=64 per-graph adj (STAGNN)"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3326,6 +4096,47 @@ for m in c.METHODS:
     print(f"host turn {m} [{c.SMI}]: training step {step:.4f} ms, request "
           f"of {c.SERVE_BATCH} {c._request_ms(model, x):.4f} ms", flush=True)
 """
+
+
+# A turn of digests: SHA-256 of the fp32 kernels' outputs, forward and
+# backward, at the dot graph's, the LSTM's and the attention's timed
+# shapes, through functions every tree since PR 13's has, so two trees'
+# fp32 kernels can be held bit for bit.
+_DIGEST_TURN = """
+import hashlib, torch
+import chip_smoke as c
+c._device(); c._build()
+
+def digest(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+k = c.fused_gnn.fused_dot_graph_spmm
+for shape in [c.KERNEL_CASES[i] for i in (0, 1, 4, 5, 6)]:
+    h, x, m = c._fused_inputs(*shape, seed=0)
+    g = torch.randn(x.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    print("digest dot graph", shape, digest(k.forward(h, x, m)),
+          digest(*k.backward(h, x, m, g, need_dmask=True)), flush=True)
+lstm = c.fused_lstm.lstm_recurrence
+for t, b, hh in ((100, 70, 48), (1400, 5, 120), (100, 200, 30)):
+    xg, w, dys, dcf = c._lstm_inputs(t, b, hh, seed=0)
+    ys, cs, cf = lstm.forward(xg, w)
+    print("digest lstm", (t, b, hh), digest(ys, cs, cf),
+          digest(*lstm.backward(xg, w, ys, cs, dys, dcf)), flush=True)
+for case in c.GAT_CASES[:4]:
+    args = c._gat_inputs(*case[:5], seed=0)
+    print("digest gat", case[:4],
+          digest(c.fused_gat.fused_gat.forward(*args, case[5])), flush=True)
+"""
+
+# A turn of the LSTM kernels' times at LOGO's, HAGCN's and LOGO_bearing's
+# shapes.
+_LSTM_TURN = ("import chip_smoke as c; c._device(); c._build(); "
+              "c._lstm_times([(100, 70, 48), (1400, 5, 120), "
+              "(100, 200, 30)])")
 
 
 def _turns(parent: str, turn: str = _TURN) -> None:

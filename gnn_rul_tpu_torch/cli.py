@@ -10,7 +10,10 @@ absent) or on the CPU (``--device cpu``); with ``--eval_torch_checkpoint
 PT`` it evaluates the weights of a ``checkpoint.pt`` (the port's or the
 reference's) on the test set instead of training; with ``--vectorized_runs``
 it trains all ``--num_runs`` seeds at once (``train/vectorized.py``), each
-run's artifacts as a sequential run writes them. The methods are
+run's artifacts as a sequential run writes them; ``--precision bf16``
+trains in bfloat16 on fp32 state (``train/precision.py``);
+``--checkpoint_every K`` writes each run's ``checkpoint.pt`` after every
+K-th epoch, asynchronously, and ``--resume`` restarts each run from it. The methods are
 ``models.MODELS``, all 21 of the reference: the twelve aero-engine methods
 (FC_STGNN, LOGO, HAGCN, RGCNU, STAGNN, STFA, GRU_CM, STGNN, DVGTformer,
 HierCorrPool, ASTGCNN, ST_Conv) and the nine bearing methods
@@ -48,12 +51,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises where CUDA is absent) or cpu")
     p.add_argument("--checkpoint_every", type=int, default=0,
-                   help="periodic checkpoints: not ported yet (0 = final "
-                        "checkpoint only)")
+                   help="write checkpoint.pt after every K-th epoch, off the "
+                        "training thread (0 = the final checkpoint only)")
     p.add_argument("--resume", action="store_true",
-                   help="resume from a checkpoint: not ported yet")
+                   help="restart each run from its checkpoint.pt (weights, "
+                        "BatchNorm statistics, Adam, scheduler, epoch)")
     p.add_argument("--precision", default="fp32", choices=["fp32", "bf16"],
-                   help="bf16 compute: not ported yet")
+                   help="bf16: the forward and backward in bfloat16 on fp32 "
+                        "parameters, Adam and BatchNorm statistics")
     p.add_argument("--fused", default="auto", choices=["auto", "on", "off"],
                    help="the port always runs its kernels on the card; auto "
                         "and on are accepted, off is not ported")
@@ -64,8 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vectorized_runs", action="store_true",
                    help="train all --num_runs seeds at once, one vmapped "
                         "step for every seed (seed = run index, the "
-                        "sequential runs' per-seed semantics but dropout "
-                        "masks; each run's artifacts as a sequential run's)")
+                        "sequential runs' per-seed semantics, dropout masks "
+                        "included; each run's artifacts as a sequential "
+                        "run's)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="profiler trace of an epoch: not ported yet")
     p.add_argument("--eval_torch_checkpoint", default=None, metavar="PT",
@@ -80,11 +86,11 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         raise ValueError("--vectorized_runs does not support --resume (the "
                          "runs advance in lockstep; resume a run on the "
                          "sequential path)")
+    if args.checkpoint_every < 0:
+        raise ValueError(f"--checkpoint_every must be >= 0, got "
+                         f"{args.checkpoint_every}")
     unported = {
         "--mesh": args.mesh is not None,
-        "--precision bf16": args.precision == "bf16",
-        "--resume": args.resume,
-        "--checkpoint_every": args.checkpoint_every > 0,
         "--profile": args.profile is not None,
         "--fused off": args.fused == "off",
     }
@@ -113,6 +119,9 @@ def main(argv=None):
         num_epochs_override=args.epochs or None,
         device=args.device,
         vectorized_runs=args.vectorized_runs,
+        precision=args.precision,
+        resume=args.resume,
+        checkpoint_every=args.checkpoint_every,
     )
     if args.eval_torch_checkpoint:
         state_dict, _ = load_checkpoint(args.eval_torch_checkpoint)

@@ -5,7 +5,9 @@
 //
 //   wh (B, N, D), f1 and f2 (B, N), adj (B, N, N) or one (N, N) shared by every
 //   graph, bias one float in device memory, slope a float; out (B, N, D); all
-//   fp32, contiguous.
+//   fp32, or all bf16 (the _bf16 entry: read as bf16 and staged into the
+//   fp32 layout, the softmax and the products in fp32, out rounded once to
+//   bf16; slope a float either way), contiguous.
 //
 //   Or groups (seed-parallel runs, all seeds in one launch): adj (A, N, N),
 //   graph b on adj[b / (B/A)], and bias G floats, graph b with
@@ -62,6 +64,9 @@
 #include "stage.cuh"
 
 namespace {
+
+using dtype::from_float;
+using dtype::to_float;
 
 constexpr int kThreads = 256;
 constexpr long long kTargetBlocks = 132;   // an H100's SMs
@@ -133,14 +138,15 @@ bool make_plan(long long b, int n, int d, long long part, Plan* p) {
   return p->blocks <= 2147483647LL;
 }
 
+template <typename T>
 struct Args {
-  const float* wh;
-  const float* f1;
-  const float* f2;
-  const float* adj;
-  const float* bias;
+  const T* wh;
+  const T* f1;
+  const T* f2;
+  const T* adj;
+  const T* bias;
   float slope;
-  float* out;
+  T* out;
   long long b;
   int n;
   int d;
@@ -182,8 +188,8 @@ __device__ __forceinline__ void fma4(float a, float4 b, float4& acc) {
   acc.w = fmaf(a, b.w, acc.w);
 }
 
-template <int S>
-__global__ void __launch_bounds__(kThreads) fused_gat_kernel(const Args a) {
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads) fused_gat_kernel(const Args<T> a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int n = a.n, d = a.d, n4 = round4(n), ps = quad_stride(n);
@@ -230,14 +236,15 @@ __global__ void __launch_bounds__(kThreads) fused_gat_kernel(const Args a) {
   const int adj_rows = shared_adj ? rn : rows;
   // One group (the call of before) reads the first adj and bias.
   const int g0 = static_cast<int>(gb0);
-  const float* adj =
+  const T* adj =
       a.adj + (!shared_adj ? gb0 * a.adj_stride
                : a.adj_group == a.b
                    ? 0LL
                    : static_cast<long long>(g0 / a.adj_group) * n * n);
   stage::rows(adjs, adj_rows * n, adj + static_cast<long long>(i0) * n,
               adj_rows * n, 1, adj_rows * n);
-  const float bias = a.bias[a.bias_group == a.b ? 0 : g0 / a.bias_group];
+  const float bias =
+      to_float(a.bias[a.bias_group == a.b ? 0 : g0 / a.bias_group]);
   const float slope = a.slope;
   stage::wait_all();
   __syncthreads();
@@ -286,7 +293,7 @@ __global__ void __launch_bounds__(kThreads) fused_gat_kernel(const Args a) {
   // Outputs. Where D allows, a thread takes 4 columns of 2 rows of one
   // graph, reading the weights and wh 16 bytes at a time, 4 columns j a
   // step; else a thread keeps one column c and takes 2 rows at a time.
-  float* out = a.out + (gb0 * n + i0) * d;
+  T* out = a.out + (gb0 * n + i0) * d;
   for (int c0 = 0;;) {
     if (quads) {
       const int cq = cn / 4, pairs = (rn + 1) / 2;
@@ -312,10 +319,10 @@ __global__ void __launch_bounds__(kThreads) fused_gat_kernel(const Args a) {
           fma4(a0.w, h3, acc0);
           fma4(a1.w, h3, acc1);
         }
-        float* o0 = out + static_cast<long long>(k) * d + c0 + c;
-        *reinterpret_cast<float4*>(o0) = acc0;
+        T* o0 = out + static_cast<long long>(k) * d + c0 + c;
+        dtype::store4(o0, acc0);
         if (k2 != k)
-          *reinterpret_cast<float4*>(o0 + d) = acc1;
+          dtype::store4(o0 + d, acc1);
       }
     } else if (cn <= kThreads) {
       const int per = kThreads / cn, c = threadIdx.x % cn;
@@ -332,9 +339,10 @@ __global__ void __launch_bounds__(kThreads) fused_gat_kernel(const Args a) {
             acc0 = fmaf(w0[j], h0[j * cn], acc0);
             acc1 = fmaf(w1[j], h1[j * cn], acc1);
           }
-          out[static_cast<long long>(k) * d + c0 + c] = acc0;
+          out[static_cast<long long>(k) * d + c0 + c] = from_float<T>(acc0);
           if (k + per < rows)
-            out[static_cast<long long>(k2) * d + c0 + c] = acc1;
+            out[static_cast<long long>(k2) * d + c0 + c] =
+                from_float<T>(acc1);
         }
       }
     } else {
@@ -345,7 +353,7 @@ __global__ void __launch_bounds__(kThreads) fused_gat_kernel(const Args a) {
           float acc = 0.f;
 #pragma unroll 7
           for (int j = 0; j < n; ++j) acc = fmaf(wr[j], hg[j * cn + c], acc);
-          out[static_cast<long long>(k) * d + c0 + c] = acc;
+          out[static_cast<long long>(k) * d + c0 + c] = from_float<T>(acc);
         }
       }
     }
@@ -361,11 +369,48 @@ __global__ void __launch_bounds__(kThreads) fused_gat_kernel(const Args a) {
   }
 }
 
-template <int S>
-int launch(const Args& a, cudaStream_t stream) {
-  fused_gat_kernel<S><<<static_cast<unsigned>(a.plan.blocks), kThreads,
-                        static_cast<size_t>(a.plan.smem), stream>>>(a);
+template <typename T, int S>
+int launch(const Args<T>& a, cudaStream_t stream) {
+  fused_gat_kernel<T, S><<<static_cast<unsigned>(a.plan.blocks), kThreads,
+                           static_cast<size_t>(a.plan.smem), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+long long gcd(long long x, long long y) {
+  while (y != 0) {
+    const long long r = x % y;
+    x = y;
+    y = r;
+  }
+  return x;
+}
+
+template <typename T>
+int fwd(const T* wh, const T* f1, const T* f2, const T* adj, const T* bias,
+        float slope, T* out, int b, int n, int d, int adj_groups,
+        int bias_groups, void* stream) {
+  if (b <= 0 || adj_groups <= 0 || bias_groups <= 0 || b % adj_groups != 0 ||
+      b % bias_groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool per_graph = adj_groups == b && b > 1;
+  const int bias_group = b / bias_groups, adj_group = b / adj_groups;
+  const int part = adj_groups > 1 && !per_graph
+                       ? static_cast<int>(gcd(bias_group, adj_group))
+                       : bias_group;
+  Plan p;
+  if (!make_plan(b, n, d, part, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args<T> a{wh, f1, f2, adj, bias, slope, out, b, n, d,
+                  per_graph ? static_cast<long long>(n) * n : 0LL, adj_group,
+                  bias_group, p};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // A row's segment: the power of 2 that covers N, up to a warp.
+  if (n <= 1) return launch<T, 1>(a, s);
+  if (n <= 2) return launch<T, 2>(a, s);
+  if (n <= 4) return launch<T, 4>(a, s);
+  if (n <= 8) return launch<T, 8>(a, s);
+  if (n <= 16) return launch<T, 16>(a, s);
+  return launch<T, 32>(a, s);
 }
 
 }  // namespace
@@ -390,15 +435,6 @@ int fused_gat_plan(int b, int n, int d, int part, long long* out) {
   return 0;
 }
 
-long long gcd(long long x, long long y) {
-  while (y != 0) {
-    const long long r = x % y;
-    x = y;
-    y = r;
-  }
-  return x;
-}
-
 // Launches on `stream` and returns cudaGetLastError(): nonzero when the launch
 // was refused. adj holds `adj_groups` (N, N) (A: 1 shared by every graph, B
 // one a graph), bias `bias_groups` floats (G); A and G divide B. Does not
@@ -407,28 +443,18 @@ int fused_gat_fwd(const float* wh, const float* f1, const float* f2,
                   const float* adj, const float* bias, float slope, float* out,
                   int b, int n, int d, int adj_groups, int bias_groups,
                   void* stream) {
-  if (b <= 0 || adj_groups <= 0 || bias_groups <= 0 || b % adj_groups != 0 ||
-      b % bias_groups != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool per_graph = adj_groups == b && b > 1;
-  const int bias_group = b / bias_groups, adj_group = b / adj_groups;
-  const int part = adj_groups > 1 && !per_graph
-                       ? static_cast<int>(gcd(bias_group, adj_group))
-                       : bias_group;
-  Plan p;
-  if (!make_plan(b, n, d, part, &p))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{wh, f1, f2, adj, bias, slope, out, b, n, d,
-               per_graph ? static_cast<long long>(n) * n : 0LL, adj_group,
-               bias_group, p};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // A row's segment: the power of 2 that covers N, up to a warp.
-  if (n <= 1) return launch<1>(a, s);
-  if (n <= 2) return launch<2>(a, s);
-  if (n <= 4) return launch<4>(a, s);
-  if (n <= 8) return launch<8>(a, s);
-  if (n <= 16) return launch<16>(a, s);
-  return launch<32>(a, s);
+  return fwd(wh, f1, f2, adj, bias, slope, out, b, n, d, adj_groups,
+             bias_groups, stream);
+}
+
+// The same on bf16 tensors (slope a float), on the same plan.
+int fused_gat_fwd_bf16(const dtype::bf16* wh, const dtype::bf16* f1,
+                       const dtype::bf16* f2, const dtype::bf16* adj,
+                       const dtype::bf16* bias, float slope,
+                       dtype::bf16* out, int b, int n, int d, int adj_groups,
+                       int bias_groups, void* stream) {
+  return fwd(wh, f1, f2, adj, bias, slope, out, b, n, d, adj_groups,
+             bias_groups, stream);
 }
 
 const char* fused_gat_error_string(int code) {

@@ -2,7 +2,10 @@
 //
 //   out = ((softmax(leaky_relu(h h^T - 1e8 I, 0.01)) + I) * mask) @ x
 //
-//   h (B, N, D), x (B, N, F), mask (N, N), out (B, N, F); all fp32, contiguous.
+//   h (B, N, D), x (B, N, F), mask (N, N), out (B, N, F); contiguous, all
+//   fp32 or all bf16 (the _bf16 entry: read as bf16, computed in fp32 as
+//   below, out rounded once to bf16; staged into the fp32 layout, so the
+//   plans are the same at either dtype, dtype.cuh, stage.cuh).
 //
 //   Or G groups: mask (G, N, N) with B a multiple of G, group g = graphs
 //   [g*B/G, (g+1)*B/G) masked by mask[g] (seed-parallel runs: each seed's
@@ -79,6 +82,9 @@
 #include "stage.cuh"
 
 namespace {
+
+using dtype::from_float;
+using dtype::to_float;
 
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;                    // the stream: a warp a row
@@ -203,11 +209,12 @@ bool make_plan(int b, int n, int d, int f, int groups, Plan* p) {
   return true;
 }
 
+template <typename T>
 struct Args {
-  const float* h;
-  const float* x;
-  const float* mask;
-  float* out;
+  const T* h;
+  const T* x;
+  const T* mask;
+  T* out;
   long long b;
   int per;  // graphs a group: B / G
   int n;
@@ -217,8 +224,8 @@ struct Args {
 };
 
 // JPL: columns j a lane takes per row, a power of 2 covering N / 32.
-template <int JPL>
-__global__ void __launch_bounds__(kThreads) fwd_graph_kernel(const Args a) {
+template <typename T, int JPL>
+__global__ void __launch_bounds__(kThreads) fwd_graph_kernel(const Args<T> a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int n = a.n, d = a.d, f = a.f;
@@ -239,7 +246,7 @@ __global__ void __launch_bounds__(kThreads) fwd_graph_kernel(const Args a) {
     rn = min(p.rows, n - i0);
   }
   // The group's mask; one group (the call of before) reads the first.
-  const float* mask =
+  const T* mask =
       a.mask + (a.per == a.b ? 0LL
                              : static_cast<long long>(
                                    static_cast<int>(gb0) / a.per) * n * n);
@@ -348,7 +355,7 @@ __global__ void __launch_bounds__(kThreads) fwd_graph_kernel(const Args a) {
   // out = A @ x. Where F allows, a thread takes 4 columns of 2 rows of one
   // graph, reading A and x 16 bytes at a time, 4 columns j a step; else a
   // thread keeps one column c and takes 2 rows at a time.
-  float* out = a.out + (gb0 * n + i0) * f;
+  T* out = a.out + (gb0 * n + i0) * f;
   if (f % 4 == 0) {
     const int cq = f / 4, pairs = (rn + 1) / 2;
     for (int u = threadIdx.x; u < gn * pairs * cq; u += kThreads) {
@@ -372,9 +379,9 @@ __global__ void __launch_bounds__(kThreads) fwd_graph_kernel(const Args a) {
         fma4(a0.w, x3, acc0);
         fma4(a1.w, x3, acc1);
       }
-      float* o = out + (g * n + r0) * f + c;
-      *reinterpret_cast<float4*>(o) = acc0;
-      if (two) *reinterpret_cast<float4*>(o + f) = acc1;
+      T* o = out + (g * n + r0) * f + c;
+      dtype::store4(o, acc0);
+      if (two) dtype::store4(o + f, acc1);
     }
   } else {
     // Block row k: graph k / rn, its row k % rn; with several graphs rn = N,
@@ -392,16 +399,17 @@ __global__ void __launch_bounds__(kThreads) fwd_graph_kernel(const Args a) {
           acc0 = fmaf(w0[j], x0[j * f], acc0);
           acc1 = fmaf(w1[j], x1[j * f], acc1);
         }
-        out[k * f + c] = acc0;
-        if (k + per < rows) out[k2 * f + c] = acc1;
+        out[k * f + c] = from_float<T>(acc0);
+        if (k + per < rows) out[k2 * f + c] = from_float<T>(acc1);
       }
     }
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
-fwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
-                const float* __restrict__ masks, float* __restrict__ out,
+fwd_rows_kernel(const T* __restrict__ h, const T* __restrict__ x,
+                const T* __restrict__ masks, T* __restrict__ out,
                 int n, int d, int f, int per) {
   // Shared memory: the block's rows of h, then one column tile of h (odd row
   // stride, so lanes reading different rows hit different banks) and of x.
@@ -418,13 +426,14 @@ fwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
   const int i = row0 + warp;
   const bool row_valid = i < n;
 
-  const float* hb = h + static_cast<size_t>(b) * n * d;
-  const float* xb = x + static_cast<size_t>(b) * n * f;
-  const float* mask = masks + static_cast<size_t>(b / per) * n * n;
+  const T* hb = h + static_cast<size_t>(b) * n * d;
+  const T* xb = x + static_cast<size_t>(b) * n * f;
+  const T* mask = masks + static_cast<size_t>(b / per) * n * n;
 
   for (int idx = threadIdx.x; idx < kRowsPerBlock * d; idx += blockDim.x) {
     const int row = row0 + idx / d;
-    hi[idx] = row < n ? hb[static_cast<size_t>(row) * d + idx % d] : 0.f;
+    hi[idx] =
+        row < n ? to_float(hb[static_cast<size_t>(row) * d + idx % d]) : 0.f;
   }
 
   float run_max = -INFINITY;
@@ -437,11 +446,13 @@ fwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
     __syncthreads();  // the previous tile has been consumed
     for (int idx = threadIdx.x; idx < kWarp * d; idx += blockDim.x) {
       const int r = idx / d, c = idx % d, j = j0 + r;
-      hs[r * hs_stride + c] = j < n ? hb[static_cast<size_t>(j) * d + c] : 0.f;
+      hs[r * hs_stride + c] =
+          j < n ? to_float(hb[static_cast<size_t>(j) * d + c]) : 0.f;
     }
     for (int idx = threadIdx.x; idx < kWarp * f; idx += blockDim.x) {
       const int j = j0 + idx / f;
-      xs[idx] = j < n ? xb[static_cast<size_t>(j) * f + idx % f] : 0.f;
+      xs[idx] = j < n ? to_float(xb[static_cast<size_t>(j) * f + idx % f])
+                      : 0.f;
     }
     __syncthreads();
     if (!row_valid) continue;  // whole warp: no shuffle is split
@@ -462,7 +473,8 @@ fwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
     const float p = col_valid ? expf(z - new_max) : 0.f;
     run_sum = run_sum * scale + warp_sum(p);
     run_max = new_max;
-    const float w = col_valid ? p * mask[static_cast<size_t>(i) * n + j] : 0.f;
+    const float w =
+        col_valid ? p * to_float(mask[static_cast<size_t>(i) * n + j]) : 0.f;
 
 #pragma unroll
     for (int k = 0; k < kFeatPerLane; ++k) acc[k] *= scale;
@@ -479,20 +491,21 @@ fwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
   }
   if (!row_valid) return;
 
-  const float self_w = mask[static_cast<size_t>(i) * n + i];
-  const float* xi = xb + static_cast<size_t>(i) * f;
-  float* oi = out + (static_cast<size_t>(b) * n + i) * f;
+  const float self_w = to_float(mask[static_cast<size_t>(i) * n + i]);
+  const T* xi = xb + static_cast<size_t>(i) * f;
+  T* oi = out + (static_cast<size_t>(b) * n + i) * f;
 #pragma unroll
   for (int k = 0; k < kFeatPerLane; ++k) {
     const int c = lane + k * kWarp;
-    if (c < f) oi[c] = acc[k] / run_sum + self_w * xi[c];
+    if (c < f)
+      oi[c] = from_float<T>(acc[k] / run_sum + self_w * to_float(xi[c]));
   }
 }
 
-// Raises fwd_graph_kernel<JPL>'s dynamic shared memory limit to kMaxSmem
+// Raises fwd_graph_kernel<T, JPL>'s dynamic shared memory limit to kMaxSmem
 // once per device, so that a launch inside a CUDA graph capture makes no
 // attribute call.
-template <int JPL>
+template <typename T, int JPL>
 int allow_graph_smem() {
   static bool raised[kMaxDevices];
   int dev = 0;
@@ -500,7 +513,7 @@ int allow_graph_smem() {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (raised[dev]) return 0;
-  err = cudaFuncSetAttribute(fwd_graph_kernel<JPL>,
+  err = cudaFuncSetAttribute(fwd_graph_kernel<T, JPL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kMaxSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -508,15 +521,47 @@ int allow_graph_smem() {
   return 0;
 }
 
-template <int JPL>
-int launch_graph(const Args& a, cudaStream_t stream) {
+template <typename T, int JPL>
+int launch_graph(const Args<T>& a, cudaStream_t stream) {
   if (a.plan.smem > kDefaultSmem) {
-    const int code = allow_graph_smem<JPL>();
+    const int code = allow_graph_smem<T, JPL>();
     if (code != 0) return code;
   }
-  fwd_graph_kernel<JPL><<<static_cast<unsigned>(a.plan.blocks), kThreads,
-                          static_cast<size_t>(a.plan.smem), stream>>>(a);
+  fwd_graph_kernel<T, JPL><<<static_cast<unsigned>(a.plan.blocks), kThreads,
+                             static_cast<size_t>(a.plan.smem), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int fwd(const T* h, const T* x, const T* mask, T* out, int b, int n, int d,
+        int f, int groups, void* stream, int* launched) {
+  *launched = 0;
+  Plan p;
+  if (!make_plan(b, n, d, f, groups, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  if (p.whole) {
+    const Args<T> a{h, x, mask, out, b, b / groups, n, d, f, p};
+    if (n <= kWarp)
+      err = launch_graph<T, 1>(a, s);
+    else if (n <= 2 * kWarp)
+      err = launch_graph<T, 2>(a, s);
+    else if (n <= 4 * kWarp)
+      err = launch_graph<T, 4>(a, s);
+    else if (n <= 8 * kWarp)
+      err = launch_graph<T, 8>(a, s);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);  // not a whole plan
+  } else {
+    const dim3 grid(b, p.row_tiles);
+    fwd_rows_kernel<T><<<grid, kWarp * kRowsPerBlock,
+                         static_cast<size_t>(p.smem), s>>>(h, x, mask, out, n,
+                                                           d, f, b / groups);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err == 0) *launched = 1;
+  return err;
 }
 
 }  // namespace
@@ -551,33 +596,15 @@ int fused_dot_graph_spmm_fwd_plan(int b, int n, int d, int f, int groups,
 int fused_dot_graph_spmm_fwd(const float* h, const float* x, const float* mask,
                              float* out, int b, int n, int d, int f,
                              int groups, void* stream, int* launched) {
-  *launched = 0;
-  Plan p;
-  if (!make_plan(b, n, d, f, groups, &p))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-  if (p.whole) {
-    const Args a{h, x, mask, out, b, b / groups, n, d, f, p};
-    if (n <= kWarp)
-      err = launch_graph<1>(a, s);
-    else if (n <= 2 * kWarp)
-      err = launch_graph<2>(a, s);
-    else if (n <= 4 * kWarp)
-      err = launch_graph<4>(a, s);
-    else if (n <= 8 * kWarp)
-      err = launch_graph<8>(a, s);
-    else
-      return static_cast<int>(cudaErrorInvalidValue);  // not a whole plan
-  } else {
-    const dim3 grid(b, p.row_tiles);
-    fwd_rows_kernel<<<grid, kWarp * kRowsPerBlock,
-                      static_cast<size_t>(p.smem), s>>>(h, x, mask, out, n, d,
-                                                        f, b / groups);
-    err = static_cast<int>(cudaGetLastError());
-  }
-  if (err == 0) *launched = 1;
-  return err;
+  return fwd(h, x, mask, out, b, n, d, f, groups, stream, launched);
+}
+
+// The same on bf16 tensors, on the same plan.
+int fused_dot_graph_spmm_fwd_bf16(const dtype::bf16* h, const dtype::bf16* x,
+                                  const dtype::bf16* mask, dtype::bf16* out,
+                                  int b, int n, int d, int f, int groups,
+                                  void* stream, int* launched) {
+  return fwd(h, x, mask, out, b, n, d, f, groups, stream, launched);
 }
 
 const char* fused_dot_graph_spmm_error_string(int code) {

@@ -12,9 +12,13 @@
 //
 //   h (B, N, D), x (B, N, F), mask (N, N), g (B, N, F); dh (B, N, D),
 //   dx (B, N, F), dmask per sample (B, N, N) when asked for; all fp32,
-//   contiguous. Or G groups: mask (G, N, N) with B a multiple of G, graph b
-//   masked by mask[b / (B/G)] (seed-parallel runs, all seeds in one
-//   launch); the caller sums dmask over each group's graphs.
+//   or all bf16 (the _bf16 entry: read as bf16 and staged into the fp32
+//   layout, computed in fp32, each output rounded once to bf16; the
+//   two-launch plan keeps dh's row term in an fp32 scratch for the column
+//   pass to add to), contiguous. Or G groups: mask (G, N, N) with B a
+//   multiple of G, graph b masked by mask[b / (B/G)] (seed-parallel runs,
+//   all seeds in one launch); the caller sums dmask over each group's
+//   graphs.
 //
 // Replaces gnn_rul_tpu/ops/pallas/fused_gnn.py::_bwd_kernel, which recomputes
 // S/P/A for one graph in VMEM and runs the whole chain there.
@@ -61,6 +65,9 @@
 
 namespace {
 
+using dtype::from_float;
+using dtype::to_float;
+
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;                    // one warp per row/column
 constexpr int kMaxFeat = 128;                       // limit on D and on F
@@ -101,13 +108,15 @@ __device__ __forceinline__ float leaky_slope(float s) {
 
 // Copies rows [r0, r0 + rows) of a (n, width) matrix into shared memory at
 // row stride `stride`, zero past row n.
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
                                           int r0, int rows, int n, int width,
                                           int stride) {
   for (int idx = threadIdx.x; idx < rows * width; idx += blockDim.x) {
     const int r = idx / width, c = idx % width;
     dst[r * stride + c] =
-        r0 + r < n ? src[static_cast<size_t>(r0 + r) * width + c] : 0.f;
+        r0 + r < n ? to_float(src[static_cast<size_t>(r0 + r) * width + c])
+                   : 0.f;
   }
 }
 
@@ -146,11 +155,12 @@ __device__ __forceinline__ void zero_pad(float* dst, int rows, int width,
     dst[(e / pad) * stride + width + e % pad] = 0.f;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kGraphThreads)
-bwd_graph_kernel(const float* __restrict__ h, const float* __restrict__ x,
-                 const float* __restrict__ masks, const float* __restrict__ g,
-                 float* __restrict__ dh, float* __restrict__ dx,
-                 float* __restrict__ dmask, int n, int d, int f, int per) {
+bwd_graph_kernel(const T* __restrict__ h, const T* __restrict__ x,
+                 const T* __restrict__ masks, const T* __restrict__ g,
+                 T* __restrict__ dh, T* __restrict__ dx,
+                 T* __restrict__ dmask, int n, int d, int f, int per) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int hst = quad_stride(d), xst = quad_stride(f), ts = n | 1;
@@ -164,7 +174,7 @@ bwd_graph_kernel(const float* __restrict__ h, const float* __restrict__ x,
   const size_t b = blockIdx.x;
   // The graph's group's mask (32-bit division: B fits an int); one group,
   // the call of before, skips the division.
-  const float* mask = masks;
+  const T* mask = masks;
   if (per < static_cast<int>(gridDim.x))
     mask += static_cast<size_t>(static_cast<int>(blockIdx.x) / per) * n * n;
   const int warp = threadIdx.x / kWarp;
@@ -255,7 +265,8 @@ bwd_graph_kernel(const float* __restrict__ h, const float* __restrict__ x,
         const float pe = p + (j == i ? 1.f : 0.f);
         drow[j] = p * (da * mk - inner[r]) * (signbit(v) ? 0.01f : 1.f);
         erow[j] = pe * mk;
-        if (dmask != nullptr) dmask[(b * n + i) * n + j] = pe * da;
+        if (dmask != nullptr)
+          dmask[(b * n + i) * n + j] = from_float<T>(pe * da);
       }
     }
   }
@@ -266,7 +277,7 @@ bwd_graph_kernel(const float* __restrict__ h, const float* __restrict__ x,
   const int fq = (f + 3) / 4, dq = (d + 3) / 4;
   for (int o = threadIdx.x; o < n * (fq + dq); o += kGraphThreads) {
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    float* dst;
+    T* dst;
     int width, c;
     if (o < n * fq) {
       const int j = o / fq;
@@ -286,14 +297,16 @@ bwd_graph_kernel(const float* __restrict__ h, const float* __restrict__ x,
     const float vals[4] = {acc.x, acc.y, acc.z, acc.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      if (c + k < width) dst[c + k] = vals[k];
+      if (c + k < width) dst[c + k] = from_float<T>(vals[k]);
   }
 }
 
+// dh_part: dh's row term in fp32 (dh itself at fp32).
+template <typename T>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
-bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
-                const float* __restrict__ masks, const float* __restrict__ g,
-                float* __restrict__ dh, float* __restrict__ dmask,
+bwd_rows_kernel(const T* __restrict__ h, const T* __restrict__ x,
+                const T* __restrict__ masks, const T* __restrict__ g,
+                float* __restrict__ dh_part, T* __restrict__ dmask,
                 float* __restrict__ stats, int n, int d, int f, int per) {
   // The block's rows of h and g, then one column tile of h and of x (odd
   // row strides, so lanes reading different rows hit different banks).
@@ -311,15 +324,15 @@ bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
   const int i = row0 + warp;
   const bool row_valid = i < n;
 
-  const float* hb = h + static_cast<size_t>(b) * n * d;
-  const float* xb = x + static_cast<size_t>(b) * n * f;
+  const T* hb = h + static_cast<size_t>(b) * n * d;
+  const T* xb = x + static_cast<size_t>(b) * n * f;
   load_rows(hi, hb, row0, kRowsPerBlock, n, d, d);
   load_rows(gi, g + static_cast<size_t>(b) * n * f, row0, kRowsPerBlock, n, f,
             f);
   const float* hrow = hi + warp * d;
   const float* grow = gi + warp * f;
   const int grp = per < static_cast<int>(gridDim.x) ? b / per : 0;
-  const float* mrow = masks + (static_cast<size_t>(grp) * n + i) * n;
+  const T* mrow = masks + (static_cast<size_t>(grp) * n + i) * n;
 
   // Sweep 1: online softmax statistics and rowsum(dP * P).
   float run_max = -INFINITY, run_sum = 0.f, run_t = 0.f;
@@ -336,7 +349,8 @@ bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
     if (j == i) s -= 1e8f;
     const float z = col_valid ? leaky(s) : -INFINITY;
     const float dp =
-        col_valid ? dot(grow, xs + lane * xs_stride, f) * mrow[j] : 0.f;
+        col_valid ? dot(grow, xs + lane * xs_stride, f) * to_float(mrow[j])
+                  : 0.f;
 
     const float new_max = fmaxf(run_max, warp_max(z));
     const float scale = expf(run_max - new_max);  // 0 on the first tile
@@ -365,10 +379,10 @@ bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
       if (j == i) s -= 1e8f;
       const float p = expf(leaky(s) - run_max) / run_sum;
       const float da = dot(grow, xs + lane * xs_stride, f);
-      ds = p * (da * mrow[j] - inner) * leaky_slope(s);
+      ds = p * (da * to_float(mrow[j]) - inner) * leaky_slope(s);
       if (dmask != nullptr)
         dmask[(static_cast<size_t>(b) * n + i) * n + j] =
-            (p + (j == i ? 1.f : 0.f)) * da;
+            from_float<T>((p + (j == i ? 1.f : 0.f)) * da);
     }
     const int cols = min(kWarp, n - j0);
     for (int jj = 0; jj < cols; ++jj) {
@@ -383,7 +397,7 @@ bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
   }
   if (!row_valid) return;
 
-  float* dhi = dh + (static_cast<size_t>(b) * n + i) * d;
+  float* dhi = dh_part + (static_cast<size_t>(b) * n + i) * d;
 #pragma unroll
   for (int k = 0; k < kFeatPerLane; ++k) {
     const int c = lane + k * kWarp;
@@ -397,11 +411,13 @@ bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ x,
   }
 }
 
+// dh_part: the row pass's row term (dh itself at fp32, so not restrict).
+template <typename T>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
-bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ x,
-                const float* __restrict__ masks, const float* __restrict__ g,
-                const float* __restrict__ stats, float* __restrict__ dh,
-                float* __restrict__ dx, int n, int d, int f, int per) {
+bwd_cols_kernel(const T* __restrict__ h, const T* __restrict__ x,
+                const T* __restrict__ masks, const T* __restrict__ g,
+                const float* __restrict__ stats, const float* dh_part, T* dh,
+                T* __restrict__ dx, int n, int d, int f, int per) {
   // The block's columns of h and x, then one row tile of h, of g and of the
   // row statistics.
   extern __shared__ float smem[];
@@ -419,11 +435,11 @@ bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ x,
   const int j = col0 + warp;
   const bool col_valid = j < n;
 
-  const float* hb = h + static_cast<size_t>(b) * n * d;
-  const float* gb = g + static_cast<size_t>(b) * n * f;
+  const T* hb = h + static_cast<size_t>(b) * n * d;
+  const T* gb = g + static_cast<size_t>(b) * n * f;
   const float* sb = stats + static_cast<size_t>(b) * n * 3;
   const int grp = per < static_cast<int>(gridDim.x) ? b / per : 0;
-  const float* mask = masks + static_cast<size_t>(grp) * n * n;
+  const T* mask = masks + static_cast<size_t>(grp) * n * n;
   load_rows(hj, hb, col0, kRowsPerBlock, n, d, d);
   load_rows(xj, x + static_cast<size_t>(b) * n * f, col0, kRowsPerBlock, n, f,
             f);
@@ -450,7 +466,7 @@ bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ x,
       if (i == j) s -= 1e8f;
       const float* sti = st + lane * 3;
       const float p = expf(leaky(s) - sti[0]) / sti[1];
-      const float mk = mask[static_cast<size_t>(i) * n + j];
+      const float mk = to_float(mask[static_cast<size_t>(i) * n + j]);
       const float da = dot(gs + lane * gs_stride, xcol, f);
       a = (p + (i == j ? 1.f : 0.f)) * mk;
       ds = p * (da * mk - sti[2]) * leaky_slope(s);
@@ -471,13 +487,14 @@ bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ x,
   }
   if (!col_valid) return;
 
-  float* dxj = dx + (static_cast<size_t>(b) * n + j) * f;
-  float* dhj = dh + (static_cast<size_t>(b) * n + j) * d;
+  T* dxj = dx + (static_cast<size_t>(b) * n + j) * f;
+  T* dhj = dh + (static_cast<size_t>(b) * n + j) * d;
+  const float* dpj = dh_part + (static_cast<size_t>(b) * n + j) * d;
 #pragma unroll
   for (int k = 0; k < kFeatPerLane; ++k) {
     const int c = lane + k * kWarp;
-    if (c < f) dxj[c] = acc_x[k];
-    if (c < d) dhj[c] += acc_h[k];  // the row pass wrote the row term
+    if (c < f) dxj[c] = from_float<T>(acc_x[k]);
+    if (c < d) dhj[c] = from_float<T>(dpj[c] + acc_h[k]);  // + the row term
   }
 }
 
@@ -504,9 +521,10 @@ bool one_launch(int n, int d, int f) {
   return graph_smem_bytes(n, d, f) <= kMaxSmem;
 }
 
-// Raises bwd_graph_kernel's dynamic shared memory limit to kMaxSmem once per
-// device, so that a launch inside a CUDA graph capture makes no attribute
-// call.
+// Raises bwd_graph_kernel<T>'s dynamic shared memory limit to kMaxSmem once
+// per device, so that a launch inside a CUDA graph capture makes no
+// attribute call.
+template <typename T>
 int allow_graph_smem() {
   static bool raised[kMaxDevices];
   int dev = 0;
@@ -514,12 +532,51 @@ int allow_graph_smem() {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (raised[dev]) return 0;
-  err = cudaFuncSetAttribute(bwd_graph_kernel,
+  err = cudaFuncSetAttribute(bwd_graph_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kMaxSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   raised[dev] = true;
   return 0;
+}
+
+// dh_part: the two-launch plan's fp32 row term, dh itself at fp32.
+template <typename T>
+int bwd(const T* h, const T* x, const T* mask, const T* g, T* dh, T* dx,
+        T* dmask, float* stats, float* dh_part, int b, int n, int d, int f,
+        int groups, void* stream, int* launched) {
+  *launched = 0;
+  if (bad_shape(b, n, d, f) || groups <= 0 || b % groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per = b / groups;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (one_launch(n, d, f)) {
+    const size_t smem = graph_smem_bytes(n, d, f);
+    if (smem > kDefaultSmem) {
+      const int code = allow_graph_smem<T>();
+      if (code != 0) return code;
+    }
+    bwd_graph_kernel<T><<<b, kGraphThreads, smem, s>>>(h, x, mask, g, dh, dx,
+                                                       dmask, n, d, f, per);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) *launched = 1;
+    return static_cast<int>(err);
+  }
+  if (stats == nullptr || dh_part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(b, (n + kRowsPerBlock - 1) / kRowsPerBlock);
+  const size_t smem = pass_smem_bytes(d, f);
+  bwd_rows_kernel<T><<<grid, kWarp * kRowsPerBlock, smem, s>>>(
+      h, x, mask, g, dh_part, dmask, stats, n, d, f, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *launched = 1;
+  bwd_cols_kernel<T><<<grid, kWarp * kRowsPerBlock, smem, s>>>(
+      h, x, mask, g, stats, dh_part, dh, dx, n, d, f, per);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *launched = 2;
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -549,37 +606,22 @@ int fused_dot_graph_spmm_bwd(const float* h, const float* x,
                              float* dx, float* dmask, float* stats, int b,
                              int n, int d, int f, int groups, void* stream,
                              int* launched) {
-  *launched = 0;
-  if (bad_shape(b, n, d, f) || groups <= 0 || b % groups != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int per = b / groups;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (one_launch(n, d, f)) {
-    const size_t smem = graph_smem_bytes(n, d, f);
-    if (smem > kDefaultSmem) {
-      const int code = allow_graph_smem();
-      if (code != 0) return code;
-    }
-    bwd_graph_kernel<<<b, kGraphThreads, smem, s>>>(h, x, mask, g, dh, dx,
-                                                    dmask, n, d, f, per);
-    err = cudaGetLastError();
-    if (err == cudaSuccess) *launched = 1;
-    return static_cast<int>(err);
-  }
-  if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(b, (n + kRowsPerBlock - 1) / kRowsPerBlock);
-  const size_t smem = pass_smem_bytes(d, f);
-  bwd_rows_kernel<<<grid, kWarp * kRowsPerBlock, smem, s>>>(
-      h, x, mask, g, dh, dmask, stats, n, d, f, per);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *launched = 1;
-  bwd_cols_kernel<<<grid, kWarp * kRowsPerBlock, smem, s>>>(
-      h, x, mask, g, stats, dh, dx, n, d, f, per);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) *launched = 2;
-  return static_cast<int>(err);
+  return bwd(h, x, mask, g, dh, dx, dmask, stats, dh, b, n, d, f, groups,
+             stream, launched);
+}
+
+// The same on bf16 tensors, on the same plan; `dh_part` is the two-launch
+// plan's fp32 (B, N, D) scratch for dh's row term (null on the one-launch
+// plan).
+int fused_dot_graph_spmm_bwd_bf16(const dtype::bf16* h, const dtype::bf16* x,
+                                  const dtype::bf16* mask,
+                                  const dtype::bf16* g, dtype::bf16* dh,
+                                  dtype::bf16* dx, dtype::bf16* dmask,
+                                  float* stats, float* dh_part, int b, int n,
+                                  int d, int f, int groups, void* stream,
+                                  int* launched) {
+  return bwd(h, x, mask, g, dh, dx, dmask, stats, dh_part, b, n, d, f, groups,
+             stream, launched);
 }
 
 const char* fused_dot_graph_spmm_bwd_error_string(int code) {

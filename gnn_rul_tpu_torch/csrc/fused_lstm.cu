@@ -8,7 +8,9 @@
 //
 //   xg (T, 2, B, 4H) the projected gate inputs, direction 1 already flipped
 //   in time; w_hh (2, H, 4H); ys and the whole c trajectory cs (T, 2, B, H);
-//   c_fin (2, B, H) = cs[T-1]. h and c start at zero. All fp32, contiguous.
+//   c_fin (2, B, H) = cs[T-1]. h and c start at zero. All fp32, or all bf16
+//   (the _bf16 entry: h and c carried in fp32, ys, cs and c_fin stored
+//   rounded to bf16 each step, W_hh held in fp32), contiguous.
 //   Or G groups (seed-parallel runs, all seeds in one launch): w_hh (G, 2,
 //   H, 4H), batch column b run with w_hh[b / (B/G)]; each CTA (or cluster)
 //   serves one column, so it reads its group's W_hh and nothing else
@@ -94,12 +96,17 @@ constexpr int kSlots = 4;
 
 // kW: -1 W_hh read from global memory, 0 in shared memory, 8 or 16 rows a
 // lane in registers.
-template <bool kCluster, int kW>
+// T: the storage type. A bf16 call reads its gate inputs into registers one
+// step ahead (cp.async copies no conversion) and stores each step's h and
+// c rounded; h and c are carried in fp32, as the Pallas kernel's VMEM
+// scratch carries them.
+template <typename T, bool kCluster, int kW>
 __global__ void __launch_bounds__(kW > 0 ? kRegThreads : kMaxThreads)
-lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w,
-                float* __restrict__ ys, float* __restrict__ cs,
-                float* __restrict__ c_fin, int t_len, int b_len, int h,
+lstm_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ w,
+                T* __restrict__ ys, T* __restrict__ cs,
+                T* __restrict__ c_fin, int t_len, int b_len, int h,
                 int per, Plan p) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ float4 smem[];
   const int g = 4 * h, tid = threadIdx.x, sl = p.lanes;
   const int rank =
@@ -118,7 +125,7 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w,
   float* gate = hbuf + 2 * nv;
   float* xin = gate + 4 * stride;
   // This column's group's W_hh, this direction's.
-  const float* wk = w + (static_cast<size_t>(col / per) * 2 + dir) * h * g;
+  const T* wk = w + (static_cast<size_t>(col / per) * 2 + dir) * h * g;
   float4 wr[kW > 0 ? kW : 1];
   if constexpr (kW > 0)
     load_w_regs(wr, wk, h, p, u0, u, s, false);
@@ -131,12 +138,13 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w,
   const size_t hstep = static_cast<size_t>(2) * b_len * h;
   const size_t row = static_cast<size_t>(dir) * b_len + col;
   const size_t hrow = row * h + jc;
-  const float* xrow = xg + row * g;
+  const T* xrow = xg + row * g;
 
   // This thread's activation slots; slot k's gate input of step t is
   // copied to xin[(t & 1) * nslot + k] during step t - 1.
   int x_off[kSlots], g_off[kSlots];
   bool tanh_slot[kSlots], live[kSlots];
+  float xr[kSlots];  // bf16: this step's gate inputs
 #pragma unroll
   for (int m = 0; m < kSlots; ++m) {
     const int k = tid + m * p.threads, q = k / p.units, uu = k % p.units;
@@ -144,7 +152,11 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w,
     tanh_slot[m] = q == 2;
     x_off[m] = q * h + u0 + uu;
     g_off[m] = q * stride + uu;
-    if (live[m]) cp_async4(xin + k, xrow + x_off[m]);
+    if constexpr (kF32) {
+      if (live[m]) cp_async4(xin + k, xrow + x_off[m]);
+    } else {
+      xr[m] = live[m] ? dtype::to_float(xrow[x_off[m]]) : 0.f;
+    }
   }
   cp_async_commit();
   if (kCluster)
@@ -156,13 +168,18 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w,
   for (int t = 0; t < t_len; ++t) {
     const float* hprev = hbuf + (t & 1) * nv;
     float* hnext = hbuf + ((t + 1) & 1) * nv;
+    float xn[kSlots];  // bf16: the next step's gate inputs
     if (t + 1 < t_len) {
       float* next = xin + ((t + 1) & 1) * nslot;
 #pragma unroll
       for (int m = 0; m < kSlots; ++m)
-        if (live[m])
-          cp_async4(next + tid + m * p.threads,
-                    xrow + (t + 1) * xstep + x_off[m]);
+        if (live[m]) {
+          if constexpr (kF32)
+            cp_async4(next + tid + m * p.threads,
+                      xrow + (t + 1) * xstep + x_off[m]);
+          else
+            xn[m] = dtype::to_float(xrow[(t + 1) * xstep + x_off[m]]);
+        }
     }
     cp_async_commit();
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -179,7 +196,8 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w,
 #pragma unroll
     for (int m = 0; m < kSlots; ++m) {
       if (live[m]) {
-        const float pre = x[tid + m * p.threads] + gate[g_off[m]];
+        const float pre =
+            (kF32 ? x[tid + m * p.threads] : xr[m]) + gate[g_off[m]];
         gate[g_off[m]] = tanh_slot[m] ? tanhf(pre) : sigmoid(pre);
       }
     }
@@ -189,8 +207,8 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w,
       const float gg = gate[2 * stride + tid], og = gate[3 * stride + tid];
       c = fg * c + ig * gg;
       const float hn = og * tanhf(c);
-      ys[t * hstep + hrow] = hn;
-      cs[t * hstep + hrow] = c;
+      ys[t * hstep + hrow] = dtype::from_float<T>(hn);
+      cs[t * hstep + hrow] = dtype::from_float<T>(c);
       if (kCluster)
         store_to_cluster(hnext, jc, hn, p.cluster);
       else
@@ -202,27 +220,48 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w,
       cluster_barrier();
     else
       __syncthreads();
+    if constexpr (!kF32) {
+#pragma unroll
+      for (int m = 0; m < kSlots; ++m) xr[m] = xn[m];
+    }
   }
-  if (cell) c_fin[hrow] = c;
+  if (cell) c_fin[hrow] = dtype::from_float<T>(c);
 }
 
-template <bool kCluster, int kW, typename... Args>
+template <typename T, bool kCluster, int kW, typename... Args>
 int run_fwd(const Plan& p, dim3 grid, cudaStream_t s, Args... args) {
   static Prepared done = {};
-  return run(lstm_fwd_kernel<kCluster, kW>, done, p, grid, s, args...);
+  return run(lstm_fwd_kernel<T, kCluster, kW>, done, p, grid, s, args...);
 }
 
-template <bool kCluster, typename... Args>
+template <typename T, bool kCluster, typename... Args>
 int dispatch(const Plan& p, dim3 grid, cudaStream_t s, Args... args) {
   if (p.w_mode == kWRegisters)
     return p.iters == kRegRows
-               ? run_fwd<kCluster, kRegRows>(p, grid, s, args...)
-               : run_fwd<kCluster, kRegRows / 2>(p, grid, s, args...);
-  if (p.w_mode == kWShared) return run_fwd<kCluster, 0>(p, grid, s, args...);
+               ? run_fwd<T, kCluster, kRegRows>(p, grid, s, args...)
+               : run_fwd<T, kCluster, kRegRows / 2>(p, grid, s, args...);
+  if (p.w_mode == kWShared)
+    return run_fwd<T, kCluster, 0>(p, grid, s, args...);
   if constexpr (kCluster)
     return static_cast<int>(cudaErrorInvalidValue);  // no plan asks this
   else
-    return run_fwd<false, -1>(p, grid, s, args...);
+    return run_fwd<T, false, -1>(p, grid, s, args...);
+}
+
+template <typename T>
+int fwd(const T* xg, const T* w_hh, T* ys, T* cs, T* c_fin, int t, int b,
+        int h, int groups, void* stream) {
+  Plan p;
+  if (bad_shape(t, b) || bad_groups(b, groups) || !pick_plan(h, b, kVec, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(b * p.cluster, 2);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int per = b / groups;
+  return p.cluster > 1
+             ? dispatch<T, true>(p, grid, s, xg, w_hh, ys, cs, c_fin, t, b, h,
+                                 per, p)
+             : dispatch<T, false>(p, grid, s, xg, w_hh, ys, cs, c_fin, t, b,
+                                  h, per, p);
 }
 
 }  // namespace
@@ -251,17 +290,14 @@ int fused_lstm_fwd_plan(int h, int b, int* out) {
 int fused_lstm_fwd(const float* xg, const float* w_hh, float* ys, float* cs,
                    float* c_fin, int t, int b, int h, int groups,
                    void* stream) {
-  Plan p;
-  if (bad_shape(t, b) || bad_groups(b, groups) || !pick_plan(h, b, kVec, &p))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(b * p.cluster, 2);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per = b / groups;
-  return p.cluster > 1
-             ? dispatch<true>(p, grid, s, xg, w_hh, ys, cs, c_fin, t, b, h,
-                              per, p)
-             : dispatch<false>(p, grid, s, xg, w_hh, ys, cs, c_fin, t, b, h,
-                               per, p);
+  return fwd(xg, w_hh, ys, cs, c_fin, t, b, h, groups, stream);
+}
+
+// The same on bf16 tensors, on the same plan.
+int fused_lstm_fwd_bf16(const dtype::bf16* xg, const dtype::bf16* w_hh,
+                        dtype::bf16* ys, dtype::bf16* cs, dtype::bf16* c_fin,
+                        int t, int b, int h, int groups, void* stream) {
+  return fwd(xg, w_hh, ys, cs, c_fin, t, b, h, groups, stream);
 }
 
 const char* fused_lstm_error_string(int code) { return error_string(code); }

@@ -62,12 +62,20 @@
 // orders the step. The vector is double-buffered, so no CTA overwrites
 // entries that another still reads. Above what C <= 8 CTAs can hold, one
 // CTA reads W_hh from global memory (the L2 keeps it across steps).
+//
+// bf16. A bf16 W_hh is converted to fp32 where the plan holds it
+// (registers, shared memory, each CTA of a cluster) or as it is read from
+// global memory, so the plans are the same at either dtype.
 
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
+
+#include "dtype.cuh"
 
 namespace lstm {
 
@@ -221,11 +229,17 @@ __device__ __forceinline__ float4 load4(const float* p, int h) {
   return make_float4(p[0], p[h], p[2 * h], p[3 * h]);
 }
 
+__device__ __forceinline__ float4 load4(const dtype::bf16* p, int h) {
+  return make_float4(dtype::to_float(p[0]), dtype::to_float(p[h]),
+                     dtype::to_float(p[2 * h]), dtype::to_float(p[3 * h]));
+}
+
 // Stages this CTA's slice of one direction's W_hh (H, 4H) in read order:
 // slot (i, tid) holds, for local unit u = tid / S, lane s and row r = i*S + s,
 // the float4 of the four gates at (row, column unit) = (r, u0 + u) in the
 // forward and (u0 + u, r) in the backward (`transposed`); zero beyond H.
-__device__ __forceinline__ void stage_w(float4* ws, const float* w, int h,
+template <typename TW>
+__device__ __forceinline__ void stage_w(float4* ws, const TW* w, int h,
                                         const Plan& p, int u0,
                                         bool transposed) {
   const int n = p.threads, sl = p.lanes, g = 4 * h;
@@ -290,12 +304,16 @@ __device__ __forceinline__ float4 ldg4(const float* p, int h) {
                      __ldg(p + 3 * h));
 }
 
+__device__ __forceinline__ float4 ldg4(const dtype::bf16* p, int h) {
+  return load4(p, h);
+}
+
 // The same with W_hh read from global memory: the float4 of row r is
 // ldg4(w + r * row_stride), for the lane's rows r = s + i*S < H; v is the
 // whole vector.
-template <typename V>
+template <typename V, typename TW>
 __device__ __forceinline__ float4 lane_product_global(const V* v,
-                                                      const float* w,
+                                                      const TW* w,
                                                       size_t row_stride,
                                                       int h, int s,
                                                       int lanes) {
@@ -317,8 +335,8 @@ __device__ __forceinline__ float4 lane_product_global(const V* v,
 }
 
 // W_hh rows of this lane in registers, as stage_w lays them out.
-template <int kW>
-__device__ __forceinline__ void load_w_regs(float4 (&wr)[kW], const float* w,
+template <int kW, typename TW>
+__device__ __forceinline__ void load_w_regs(float4 (&wr)[kW], const TW* w,
                                             int h, const Plan& p, int u0,
                                             int u, int s, bool transposed) {
   const int g = 4 * h, j = u0 + u;

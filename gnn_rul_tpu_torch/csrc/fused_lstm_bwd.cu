@@ -13,7 +13,11 @@
 //
 //   xg (T, 2, B, 4H), w_hh (2, H, 4H), ys and cs (T, 2, B, H), dys
 //   (T, 2, B, H), dc_fin (2, B, H) -> dxg (T, 2, B, 4H), dw_hh (2, H, 4H).
-//   All fp32, contiguous. Or G groups (seed-parallel runs, all seeds in one
+//   All fp32, or all bf16 (the _bf16 entries: the gates recomputed from
+//   the stored bf16 ys and cs, the carry and the dgates in fp32 in a
+//   (T, 2, B, 4H) fp32 work buffer beside dxg, which the sweep writes
+//   rounded; dW_hh summed from the fp32 dgates in fp64 and rounded once),
+//   contiguous. Or G groups (seed-parallel runs, all seeds in one
 //   launch of each kernel): w_hh and dw_hh (G, 2, H, 4H), batch column b
 //   run with w_hh[b / (B/G)] and summed into dw_hh[b / (B/G)].
 //
@@ -94,9 +98,10 @@ constexpr int kTargetBlocks = 132;  // dW blocks per direction: one per SM
 // Rows r in [0, T*B) of one direction are (t, b) = (r / B, r % B); row r's
 // h_prev is ys[t-1, dir, b] (zero at t = 0). Writes act(xg + h_prev @ W) of
 // every row into `gates` (T, 2, B, 4H).
+template <typename T>
 __global__ void __launch_bounds__(kGateThreads)
-lstm_gates_kernel(const float* __restrict__ xg, const float* __restrict__ w,
-                  const float* __restrict__ ys, float* __restrict__ gates,
+lstm_gates_kernel(const T* __restrict__ xg, const T* __restrict__ w,
+                  const T* __restrict__ ys, float* __restrict__ gates,
                   int t_len, int b_len, int h, int per) {
   // h_prev transposed, [k][row], padded so that its stores spread over the
   // banks and each 4-row read stays 16-byte aligned; W, [k][column].
@@ -107,7 +112,7 @@ lstm_gates_kernel(const float* __restrict__ xg, const float* __restrict__ w,
   const int r0 = blockIdx.x * kGateTile, c0 = blockIdx.y * kGateTile;
   const int grp = blockIdx.z / 2, dir = blockIdx.z % 2, b_off = grp * per;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* wk = w + (static_cast<size_t>(grp) * 2 + dir) * h * g;
+  const T* wk = w + (static_cast<size_t>(grp) * 2 + dir) * h * g;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < h; k0 += kGateK) {
     __syncthreads();  // the previous tiles have been consumed
@@ -118,12 +123,14 @@ lstm_gates_kernel(const float* __restrict__ xg, const float* __restrict__ w,
       if (r < rows && k < h) {
         const int t = r / per, b = b_off + r - t * per;
         if (t > 0)
-          v = ys[((static_cast<size_t>(t - 1) * 2 + dir) * b_len + b) * h + k];
+          v = dtype::to_float(
+              ys[((static_cast<size_t>(t - 1) * 2 + dir) * b_len + b) * h + k]);
       }
       as[ka][rr] = v;
       const int kb = e / kGateTile, cc = e % kGateTile;
       bs[kb][cc] = (k0 + kb < h && c0 + cc < g)
-                       ? wk[static_cast<size_t>(k0 + kb) * g + c0 + cc]
+                       ? dtype::to_float(
+                             wk[static_cast<size_t>(k0 + kb) * g + c0 + cc])
                        : 0.f;
     }
     __syncthreads();
@@ -149,21 +156,24 @@ lstm_gates_kernel(const float* __restrict__ xg, const float* __restrict__ w,
     for (int q = 0; q < 4; ++q) {
       const int cidx = c0 + tx * 4 + q;
       if (cidx >= g) continue;
-      const float pre = xg[o + cidx] + acc[i][q];
+      const float pre = dtype::to_float(xg[o + cidx]) + acc[i][q];
       gates[o + cidx] = cidx / h == 2 ? tanhf(pre) : sigmoid(pre);
     }
   }
 }
 
-// dxg holds the activated gates on entry and the dgates on exit. kW: -1
-// W_hh read from global memory, 0 in shared memory, 8 or 16 rows a lane in
-// registers.
-template <bool kCluster, int kW>
+// dxg holds the activated gates (fp32) on entry and the dgates on exit;
+// `out` gets the dgates rounded at bf16 (unused at fp32). kW: -1 W_hh read
+// from global memory, 0 in shared memory, 8 or 16 rows a lane in
+// registers. A bf16 call loads c, c_prev and dys into shared memory by
+// plain loads (cp.async copies no conversion).
+template <typename T, bool kCluster, int kW>
 __global__ void __launch_bounds__(kW > 0 ? kRegThreads : kMaxThreads)
-lstm_sweep_kernel(const float* __restrict__ w, const float* __restrict__ cs,
-                  const float* __restrict__ dys,
-                  const float* __restrict__ dc_fin, float* __restrict__ dxg,
-                  int t_len, int b_len, int h, int per, Plan p) {
+lstm_sweep_kernel(const T* __restrict__ w, const T* __restrict__ cs,
+                  const T* __restrict__ dys, const T* __restrict__ dc_fin,
+                  float* __restrict__ dxg, T* __restrict__ out, int t_len,
+                  int b_len, int h, int per, Plan p) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ float4 smem[];
   const int g = 4 * h, tid = threadIdx.x, sl = p.lanes;
   const int rank =
@@ -183,7 +193,7 @@ lstm_sweep_kernel(const float* __restrict__ w, const float* __restrict__ cs,
   float* dhsum = reinterpret_cast<float*>(dbuf + nbuf * nv);
   float* in = dhsum + p.units;
   // This column's group's W_hh, this direction's.
-  const float* wk = w + (static_cast<size_t>(col / per) * 2 + dir) * h * g;
+  const T* wk = w + (static_cast<size_t>(col / per) * 2 + dir) * h * g;
   float4 wr[kW > 0 ? kW : 1];
   if constexpr (kW > 0)
     load_w_regs(wr, wk, h, p, u0, u, s, true);
@@ -197,6 +207,7 @@ lstm_sweep_kernel(const float* __restrict__ w, const float* __restrict__ cs,
   const size_t hstep = static_cast<size_t>(2) * b_len * h;
   const size_t row = static_cast<size_t>(dir) * b_len + col;
   float* xrow = dxg + row * g + jc;
+  T* orow = out + row * g + jc;
   const size_t hrow = row * h + jc;
 
   // Copies step t's inputs into buffer t & 1 (cell threads only).
@@ -205,15 +216,22 @@ lstm_sweep_kernel(const float* __restrict__ w, const float* __restrict__ cs,
     const float* x = xrow + t * xstep;
 #pragma unroll
     for (int q = 0; q < 4; ++q) cp_async4(d + q * p.units, x + q * h);
-    cp_async4(d + 4 * p.units, cs + t * hstep + hrow);
-    cp_async4(d + 5 * p.units, cs + (t > 0 ? t - 1 : 0) * hstep + hrow,
-              t > 0);
-    cp_async4(d + 6 * p.units, dys + t * hstep + hrow);
+    if constexpr (kF32) {
+      cp_async4(d + 4 * p.units, cs + t * hstep + hrow);
+      cp_async4(d + 5 * p.units, cs + (t > 0 ? t - 1 : 0) * hstep + hrow,
+                t > 0);
+      cp_async4(d + 6 * p.units, dys + t * hstep + hrow);
+    } else {
+      d[4 * p.units] = dtype::to_float(cs[t * hstep + hrow]);
+      d[5 * p.units] =
+          t > 0 ? dtype::to_float(cs[(t - 1) * hstep + hrow]) : 0.f;
+      d[6 * p.units] = dtype::to_float(dys[t * hstep + hrow]);
+    }
   };
   const int last = t_len - 1;
   if (cell) fetch(last);
   cp_async_commit();
-  float dc = cell ? dc_fin[hrow] : 0.f;
+  float dc = cell ? dtype::to_float(dc_fin[hrow]) : 0.f;
   if (kCluster)
     cluster_barrier();  // every CTA's buffers are zero before any store
   else
@@ -242,6 +260,13 @@ lstm_sweep_kernel(const float* __restrict__ w, const float* __restrict__ cs,
       dx[h] = d.y;
       dx[2 * h] = d.z;
       dx[3 * h] = d.w;
+      if constexpr (!kF32) {
+        T* o = orow + t * xstep;
+        o[0] = dtype::from_float<T>(d.x);
+        o[h] = dtype::from_float<T>(d.y);
+        o[2 * h] = dtype::from_float<T>(d.z);
+        o[3 * h] = dtype::from_float<T>(d.w);
+      }
       if (kCluster)
         store_to_cluster(dcur, jc, d, p.cluster);
       else
@@ -269,32 +294,33 @@ lstm_sweep_kernel(const float* __restrict__ w, const float* __restrict__ cs,
   }
 }
 
-template <bool kCluster, int kW, typename... Args>
+template <typename T, bool kCluster, int kW, typename... Args>
 int run_sweep(const Plan& p, dim3 grid, cudaStream_t s, Args... args) {
   static Prepared done = {};
-  return run(lstm_sweep_kernel<kCluster, kW>, done, p, grid, s, args...);
+  return run(lstm_sweep_kernel<T, kCluster, kW>, done, p, grid, s, args...);
 }
 
-template <bool kCluster, typename... Args>
+template <typename T, bool kCluster, typename... Args>
 int dispatch(const Plan& p, dim3 grid, cudaStream_t s, Args... args) {
   if (p.w_mode == kWRegisters)
     return p.iters == kRegRows
-               ? run_sweep<kCluster, kRegRows>(p, grid, s, args...)
-               : run_sweep<kCluster, kRegRows / 2>(p, grid, s, args...);
+               ? run_sweep<T, kCluster, kRegRows>(p, grid, s, args...)
+               : run_sweep<T, kCluster, kRegRows / 2>(p, grid, s, args...);
   if (p.w_mode == kWShared)
-    return run_sweep<kCluster, 0>(p, grid, s, args...);
+    return run_sweep<T, kCluster, 0>(p, grid, s, args...);
   if constexpr (kCluster)
     return static_cast<int>(cudaErrorInvalidValue);  // no plan asks this
   else
-    return run_sweep<false, -1>(p, grid, s, args...);
+    return run_sweep<T, false, -1>(p, grid, s, args...);
 }
 
 // Rows r in [0, T*B) of one direction are (t, b) = (r / B, r % B); row r's
 // h_prev is ys[t-1, dir, b] (zero at t = 0) and its dgates dxg[t, dir, b].
 // A block sums h_prev^T dgates over one chunk of rows into one 64 x 64 tile
 // of dW, a 4 x 4 register tile per thread.
+template <typename T>
 __global__ void __launch_bounds__(kDwThreads)
-lstm_dw_partial_kernel(const float* __restrict__ ys,
+lstm_dw_partial_kernel(const T* __restrict__ ys,
                        const float* __restrict__ dxg,
                        double* __restrict__ partial, int t_len, int b_len,
                        int h, int per, int rows_per_chunk, int chunks) {
@@ -319,8 +345,9 @@ lstm_dw_partial_kernel(const float* __restrict__ ys,
       float hv = 0.f, gv = 0.f;
       if (r < r_end) {
         if (t > 0 && h0 + cc < h)
-          hv = ys[((static_cast<size_t>(t - 1) * 2 + dir) * b_len + b) * h +
-                  h0 + cc];
+          hv = dtype::to_float(
+              ys[((static_cast<size_t>(t - 1) * 2 + dir) * b_len + b) * h +
+                 h0 + cc]);
         if (g0 + cc < g)
           gv = dxg[((static_cast<size_t>(t) * 2 + dir) * b_len + b) * g + g0 +
                    cc];
@@ -361,8 +388,9 @@ lstm_dw_partial_kernel(const float* __restrict__ ys,
   }
 }
 
+template <typename T>
 __global__ void lstm_dw_reduce_kernel(const double* __restrict__ partial,
-                                      float* __restrict__ dw, int h,
+                                      T* __restrict__ dw, int h,
                                       int chunks, int groups) {
   const size_t per_dir = static_cast<size_t>(h) * 4 * h;
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -371,7 +399,7 @@ __global__ void lstm_dw_reduce_kernel(const double* __restrict__ partial,
   const double* p = partial + dir * chunks * per_dir + o;
   double s = 0.0;
   for (int c = 0; c < chunks; ++c) s += p[c * per_dir];
-  dw[idx] = static_cast<float>(s);
+  dw[idx] = dtype::from_float<T>(static_cast<float>(s));
 }
 
 bool bad_args(int t, int b, int h) {
@@ -391,6 +419,73 @@ int rows_per_chunk(int t, int b, int h) {
   want = want < 1 ? 1 : (want > max_chunks ? max_chunks : want);
   const int per = (rows + want - 1) / want;
   return (per + kRowTile - 1) / kRowTile * kRowTile;
+}
+
+template <typename T>
+int gates(const T* xg, const T* w_hh, const T* ys, float* dxg, int t, int b,
+          int h, int groups, void* stream) {
+  if (bad_args(t, b, h) || bad_groups(b, groups))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per = b / groups;
+  const dim3 grid((t * per + kGateTile - 1) / kGateTile,
+                  (4 * h + kGateTile - 1) / kGateTile, 2 * groups);
+  lstm_gates_kernel<T><<<grid, kGateThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      xg, w_hh, ys, dxg, t, b, h, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int sweep(const T* w_hh, const T* cs, const T* dys, const T* dc_fin,
+          float* dxg, T* out, int t, int b, int h, int groups,
+          void* stream) {
+  Plan p;
+  if (bad_args(t, b, h) || bad_groups(b, groups) ||
+      !pick_plan(h, b, kVec, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(b * p.cluster, 2);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int per = b / groups;
+  return p.cluster > 1
+             ? dispatch<T, true>(p, grid, s, w_hh, cs, dys, dc_fin, dxg, out,
+                                 t, b, h, per, p)
+             : dispatch<T, false>(p, grid, s, w_hh, cs, dys, dc_fin, dxg, out,
+                                  t, b, h, per, p);
+}
+
+int dw_chunks(int t, int b, int h) {
+  if (bad_args(t, b, h)) return 0;
+  const int per = rows_per_chunk(t, b, h);
+  return (t * b + per - 1) / per;
+}
+
+template <typename T>
+int dw_partial(const T* ys, const float* dxg, double* partial, int t, int b,
+               int h, int groups, void* stream) {
+  if (bad_args(t, b, h) || bad_groups(b, groups))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cols = b / groups;
+  const int chunk_rows = rows_per_chunk(t, cols, h);
+  const int chunks = (t * cols + chunk_rows - 1) / chunk_rows;
+  const dim3 grid(tiles(h), chunks, 2 * groups);
+  lstm_dw_partial_kernel<T><<<grid, kDwThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      ys, dxg, partial, t, b, h, cols, chunk_rows, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dw_reduce(const double* partial, T* dw, int t, int b, int h, int groups,
+              void* stream) {
+  if (bad_args(t, b, h) || bad_groups(b, groups))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = dw_chunks(t, b / groups, h);
+  const long long n = 2LL * groups * h * 4 * h;
+  const int threads = 256;
+  lstm_dw_reduce_kernel<T>
+      <<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
+         static_cast<cudaStream_t>(stream)>>>(partial, dw, h, chunks, groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -414,77 +509,69 @@ int fused_lstm_bwd_plan(int h, int b, int* out) {
 // Chunks of rows per direction in the dW pass: the scratch the caller
 // allocates for it is (2, chunks, H, 4H) doubles.
 int fused_lstm_bwd_dw_chunks(int t, int b, int h) {
-  if (bad_args(t, b, h)) return 0;
-  const int per = rows_per_chunk(t, b, h);
-  return (t * b + per - 1) / per;
+  return dw_chunks(t, b, h);
 }
 
 // All launch on `stream`, for B columns in G groups (w_hh (G, 2, H, 4H)),
 // and return the launch's error or cudaGetLastError(): nonzero when the
-// launch was refused. None synchronises or allocates. In stream order: the gate pass writes the
-// activated gates into dxg; the sweep overwrites them with the dgates; the
-// dW pass reads ys and dxg, writes its partials to `partial` and reduces
-// them into dw.
+// launch was refused. None synchronises or allocates. In stream order: the
+// gate pass writes the activated gates into dxg (at bf16 into the fp32
+// `work`); the sweep overwrites them with the dgates; the dW pass reads ys
+// and the dgates, writes its partials to `partial` and reduces them into
+// dw. The sweep runs on the plan of fused_lstm_bwd_plan. The partials of G
+// groups: the scratch is (G, 2, chunks, H, 4H) doubles, chunks =
+// fused_lstm_bwd_dw_chunks(T, B / G, H).
 int fused_lstm_bwd_gates(const float* xg, const float* w_hh, const float* ys,
                          float* dxg, int t, int b, int h, int groups,
                          void* stream) {
-  if (bad_args(t, b, h) || bad_groups(b, groups))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int per = b / groups;
-  const dim3 grid((t * per + kGateTile - 1) / kGateTile,
-                  (4 * h + kGateTile - 1) / kGateTile, 2 * groups);
-  lstm_gates_kernel<<<grid, kGateThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(xg, w_hh, ys, dxg,
-                                                           t, b, h, per);
-  return static_cast<int>(cudaGetLastError());
+  return gates(xg, w_hh, ys, dxg, t, b, h, groups, stream);
 }
 
-// On the plan of fused_lstm_bwd_plan.
+// The gates of bf16 operands, in fp32.
+int fused_lstm_bwd_gates_bf16(const dtype::bf16* xg, const dtype::bf16* w_hh,
+                              const dtype::bf16* ys, float* work, int t,
+                              int b, int h, int groups, void* stream) {
+  return gates(xg, w_hh, ys, work, t, b, h, groups, stream);
+}
+
 int fused_lstm_bwd_sweep(const float* w_hh, const float* cs, const float* dys,
                          const float* dc_fin, float* dxg, int t, int b, int h,
                          int groups, void* stream) {
-  Plan p;
-  if (bad_args(t, b, h) || bad_groups(b, groups) ||
-      !pick_plan(h, b, kVec, &p))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(b * p.cluster, 2);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per = b / groups;
-  return p.cluster > 1
-             ? dispatch<true>(p, grid, s, w_hh, cs, dys, dc_fin, dxg, t, b, h,
-                              per, p)
-             : dispatch<false>(p, grid, s, w_hh, cs, dys, dc_fin, dxg, t, b,
-                               h, per, p);
+  return sweep(w_hh, cs, dys, dc_fin, dxg, dxg, t, b, h, groups, stream);
 }
 
-// The partials of G groups: the scratch is (G, 2, chunks, H, 4H) doubles,
-// chunks = fused_lstm_bwd_dw_chunks(T, B / G, H).
+// At bf16: the fp32 dgates into `work` (over the gates), and rounded into
+// `dxg`.
+int fused_lstm_bwd_sweep_bf16(const dtype::bf16* w_hh, const dtype::bf16* cs,
+                              const dtype::bf16* dys,
+                              const dtype::bf16* dc_fin, float* work,
+                              dtype::bf16* dxg, int t, int b, int h,
+                              int groups, void* stream) {
+  return sweep(w_hh, cs, dys, dc_fin, work, dxg, t, b, h, groups, stream);
+}
+
 int fused_lstm_bwd_dw_partial(const float* ys, const float* dxg,
                               double* partial, int t, int b, int h,
                               int groups, void* stream) {
-  if (bad_args(t, b, h) || bad_groups(b, groups))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int cols = b / groups;
-  const int chunk_rows = rows_per_chunk(t, cols, h);
-  const int chunks = (t * cols + chunk_rows - 1) / chunk_rows;
-  const dim3 grid(tiles(h), chunks, 2 * groups);
-  lstm_dw_partial_kernel<<<grid, kDwThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      ys, dxg, partial, t, b, h, cols, chunk_rows, chunks);
-  return static_cast<int>(cudaGetLastError());
+  return dw_partial(ys, dxg, partial, t, b, h, groups, stream);
+}
+
+// dW's partials from bf16 ys and the fp32 dgates in `work`.
+int fused_lstm_bwd_dw_partial_bf16(const dtype::bf16* ys, const float* work,
+                                   double* partial, int t, int b, int h,
+                                   int groups, void* stream) {
+  return dw_partial(ys, work, partial, t, b, h, groups, stream);
 }
 
 int fused_lstm_bwd_dw_reduce(const double* partial, float* dw, int t, int b,
                              int h, int groups, void* stream) {
-  if (bad_args(t, b, h) || bad_groups(b, groups))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int chunks = fused_lstm_bwd_dw_chunks(t, b / groups, h);
-  const long long n = 2LL * groups * h * 4 * h;
-  const int threads = 256;
-  lstm_dw_reduce_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
-                          threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      partial, dw, h, chunks, groups);
-  return static_cast<int>(cudaGetLastError());
+  return dw_reduce(partial, dw, t, b, h, groups, stream);
+}
+
+int fused_lstm_bwd_dw_reduce_bf16(const double* partial, dtype::bf16* dw,
+                                  int t, int b, int h, int groups,
+                                  void* stream) {
+  return dw_reduce(partial, dw, t, b, h, groups, stream);
 }
 
 const char* fused_lstm_bwd_error_string(int code) {

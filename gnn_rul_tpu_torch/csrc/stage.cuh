@@ -5,10 +5,17 @@
 // memory, where a load into registers followed by a store to shared memory
 // costs one round trip per array a thread copies (on an H100 such loads took
 // 2.6 us of a 6.2 us attention launch at B=100, N=14, D=64).
+//
+// A bf16 source is staged by plain loads, converted to float and stored
+// into the same fp32 layout, so a kernel's plan and its reads of shared
+// memory are the same at either dtype (bf16 staging by cp.async, into a
+// bf16 layout, is later work).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtype.cuh"
 
 namespace stage {
 
@@ -81,6 +88,20 @@ __device__ __forceinline__ void rows(float* dst, int dst_stride,
       else
         copy4(dst + r * dst_stride + c, src + r * src_stride + c);
     }
+}
+
+// The same copy from a bf16 source, converted: synchronous stores to
+// shared memory, made visible to the block by the barrier after
+// wait_all() as the asynchronous ones are.
+__device__ __forceinline__ void rows(float* dst, int dst_stride,
+                                     const dtype::bf16* src,
+                                     long long src_stride, int rows,
+                                     int width) {
+  const int total = rows * width;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int r = e / width, c = e - r * width;
+    dst[r * dst_stride + c] = dtype::to_float(src[r * src_stride + c]);
+  }
 }
 
 }  // namespace stage

@@ -58,7 +58,11 @@ rounding of the last one kept, can give another graph, and so another
 answer, on the card than on the CPU.
 
 Both run in ``eval()`` under ``torch.inference_mode()``, on the card by
-default.
+default. With ``precision="bf16"`` both cast the parameters and every
+buffer, the BatchNorm statistics included, and the input to bfloat16, as
+the JAX package's ``infer`` does, and return fp32; a bf16 artifact holds
+the casts and the kernels' bf16 instantiations in its program, with the
+same fp32 call contract.
 """
 
 from __future__ import annotations
@@ -81,6 +85,7 @@ from .configs.data_configs import get_dataset_config
 # first launch).
 from .models import MODELS
 from .train.checkpoint import load_checkpoint, load_model_dict
+from .train.precision import check_precision
 
 ARTIFACT_FORMAT = "gnn_rul_tpu_torch.artifact.v1"
 _META_FILE = "meta.json"  # the artifact's extra file that holds ``meta``
@@ -107,6 +112,11 @@ def build_model(method: str, dataset: str, dataset_id: Optional[str],
         raise NotImplementedError(f"no method {method}")
     return MODELS[method](**(model_hparams or hparams_bank.model_hparams(
         dataset, dataset_id, method)))
+
+
+def _dtype(precision: str) -> torch.dtype:
+    return (torch.bfloat16 if check_precision(precision) == "bf16"
+            else torch.float32)
 
 
 def _check_batch_size(batch_size: Optional[int]) -> None:
@@ -194,6 +204,7 @@ def serving_model(method: str, dataset: str, dataset_id: Optional[str],
                   state_dict: Mapping[str, Any], *,
                   batch_size: Optional[int] = None,
                   seq_len: Optional[int] = None,
+                  precision: str = "fp32",
                   device: str = "cuda") -> ServingModel:
     """Build ``method`` for ``(dataset, dataset_id)``, load ``state_dict``
     strictly and return a :class:`ServingModel` on ``device``.
@@ -202,13 +213,17 @@ def serving_model(method: str, dataset: str, dataset_id: Optional[str],
     ``batch_size`` runs every forward at that batch. ``seq_len`` overrides
     the dataset config's window length, as in :func:`export_serving`
     (XJTU-SY's raw minute is 32,768 samples; the config's 30,768 is the
-    reference's stale value).
+    reference's stale value). ``precision="bf16"`` serves in bfloat16
+    (the module's docstring).
     """
+    dtype = _dtype(precision)
     _check_batch_size(batch_size)
     dev = resolve_device(device)
     cfg = get_dataset_config(dataset)
     model = load_model_dict(build_model(method, dataset, dataset_id),
                             state_dict).eval().to(dev)
+    if dtype != torch.float32:
+        model = _Predict(model.to(dtype), dtype)
     meta = {
         "format": "gnn_rul_tpu_torch.serving.v1",
         "method": method,
@@ -217,20 +232,26 @@ def serving_model(method: str, dataset: str, dataset_id: Optional[str],
         "input_shape": [None if batch_size is None else int(batch_size),
                         cfg.input_channels, int(seq_len or cfg.sequence_len)],
         "output": _OUTPUT,
+        "precision": precision,
         "device": str(dev),
     }
     return ServingModel(model, meta, dev)
 
 
 class _Predict(nn.Module):
-    """The program's body: the model's eval forward as ``(batch,)``."""
+    """The program's body: the model's eval forward as ``(batch,)``; at a
+    ``dtype`` other than fp32 the input cast to it and the output back to
+    fp32."""
 
-    def __init__(self, model: nn.Module):
+    def __init__(self, model: nn.Module, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.model = model
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x).reshape(-1)
+        if self.dtype == torch.float32:
+            return self.model(x).reshape(-1)
+        return self.model(x.to(self.dtype)).reshape(-1).float()
 
 
 def export_serving(method: str, dataset: str, dataset_id: Optional[str],
@@ -251,6 +272,8 @@ def export_serving(method: str, dataset: str, dataset_id: Optional[str],
     batch. ``seq_len`` overrides the dataset config's window length.
     ``model_hparams`` overrides the hparam bank's (a checkpoint's own).
     ``max_rul`` is recorded in ``meta`` for denormalizing predictions.
+    ``precision="bf16"`` exports the bfloat16 forward (the module's
+    docstring).
 
     The trace always runs on the CPU, and a program for another device is
     then moved there (``move_to_device_pass``), as :func:`load_artifact`
@@ -261,20 +284,14 @@ def export_serving(method: str, dataset: str, dataset_id: Optional[str],
     program keeps ``aten.batch_norm`` itself, so on the card it chooses
     per call, as the live model does.
     """
-    if precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' is not ported yet: bf16 compute comes with "
-            "train/precision.py (ROADMAP.md, Queue 1 item 11)")
-    if precision != "fp32":
-        raise ValueError(f"precision must be 'fp32' or 'bf16', got "
-                         f"{precision!r}")
+    dtype = _dtype(precision)
     _check_batch_size(batch_size)
     dev = resolve_device(device)
     cfg = get_dataset_config(dataset)
     length = int(seq_len or cfg.sequence_len)
     model = load_model_dict(
         build_model(method, dataset, dataset_id, model_hparams),
-        state_dict).eval()
+        state_dict).eval().to(dtype)
     # A symbolic batch is traced at 2 rows: an example of 1 row would let
     # the tracer take the batch for the constant 1.
     example = torch.zeros((batch_size or 2, cfg.input_channels, length))
@@ -282,7 +299,7 @@ def export_serving(method: str, dataset: str, dataset_id: Optional[str],
                else ({0: torch.export.Dim("batch", min=1)},))
     try:
         with torch.no_grad():
-            program = torch.export.export(_Predict(model), (example,),
+            program = torch.export.export(_Predict(model, dtype), (example,),
                                           dynamic_shapes=dynamic)
     except Exception as e:
         if batch_size is None:
@@ -368,7 +385,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq_len", type=int, default=0,
                     help="override the dataset window length")
     ap.add_argument("--precision", default="fp32", choices=["fp32", "bf16"],
-                    help="bf16: not ported yet")
+                    help="bf16: the program computes in bfloat16 (fp32 in "
+                         "and out)")
     ap.add_argument("--max_rul", type=float, default=None,
                     help="recorded in meta for denormalizing predictions")
     ap.add_argument("--device", default="cuda",

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.basic import GELU
+from ..nn.basic import GELU, Dropout
 from ..ops.graphs import pearson_graph
 
 
@@ -79,7 +79,7 @@ class VGTBlock(nn.Module):
         self.add_module(f"layer_norm2_{tag}", nn.LayerNorm(model_dim))
         self.add_module(f"feed_forward_{tag}", nn.Sequential(
             nn.Linear(model_dim, d_ff), GELU(), nn.Linear(d_ff, model_dim)))
-        self.dropout = nn.Dropout(dropout) if apply_dropout else None
+        self.dropout = Dropout(dropout) if apply_dropout else None
 
     def _sub(self, name: str) -> nn.Module:
         return getattr(self, f"{name}_{self.tag}")

@@ -22,7 +22,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from ..nn.basic import BatchNorm1d
+from ..nn.basic import BatchNorm1d, Dropout
 from ..nn.encoders import FeatureExtractor1DCNNRUL
 from ..ops.encoding import sinusoidal_encoding
 from ..ops.graphs import leaky_relu
@@ -123,7 +123,7 @@ class FCSTGNN(nn.Module):
         self.register_buffer(
             "pe", sinusoidal_encoding(num_patch, feat, base=100.0),
             persistent=False)
-        self.pe_dropout = nn.Dropout(pe_dropout)
+        self.pe_dropout = Dropout(pe_dropout)
         self.MPNN1 = GraphConvPoolMPNN(feat, hidden_dim, num_node,
                                        moving_window[0], stride[0], decay)
         self.MPNN2 = GraphConvPoolMPNN(feat, hidden_dim, num_node,

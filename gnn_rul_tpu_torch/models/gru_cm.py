@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..nn.basic import Dropout
 from ..nn.recurrent import GRULayer
 from ..ops.edge_count import record_edges
 
@@ -54,11 +55,11 @@ class GRUCM(nn.Module):
         super().__init__()
         hidden = int(num_nodes / 2)
         self.input_linear = nn.Linear(1, hidden)
-        self.dropout1 = nn.Dropout(0.2)
+        self.dropout1 = Dropout(0.2)
         self.gnn = GNNLayer(hidden, hidden)
-        self.dropout2 = nn.Dropout(0.2)
+        self.dropout2 = Dropout(0.2)
         self.gru = GRULayer(hidden, gru_hidden_dim)
-        self.dropout3 = nn.Dropout(0.2)
+        self.dropout3 = Dropout(0.2)
         self.output_linear = nn.Linear(time_length * gru_hidden_dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..nn.basic import Dropout
 from ..nn.gnn_blocks import MPNNmk
 from ..nn.recurrent import LSTMParams, bilstm_fused
 from ..ops.graphs import dot_graph_from_mapped, leaky_relu, pearson_graph
@@ -67,8 +68,8 @@ class BiLSTMStandard(nn.Module):
         self.bi_lstm1 = LSTMParams(input_dim, h, bidirectional=True)
         self.bi_lstm2 = LSTMParams(h, 2 * h, bidirectional=True)
         self.bi_lstm3 = LSTMParams(2 * h, h, bidirectional=True)
-        self.drop2 = nn.Dropout(0.2)
-        self.drop3 = nn.Dropout(0.2)
+        self.drop2 = Dropout(0.2)
+        self.drop3 = Dropout(0.2)
 
     @staticmethod
     def _bi(layer: LSTMParams, x: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..nn.basic import Dropout
 from ..nn.gnn_blocks import GCNLayer
 from ..nn.recurrent import LSTMLayer
 from ..ops.edge_count import record_edges
@@ -50,7 +51,7 @@ class SCL(nn.Module):
         super().__init__()
         self.gcn1 = GCNLayer(1, hidden_dim, activation="none")
         self.gcn2 = GCNLayer(hidden_dim, hidden_dim, activation="none")
-        self.dropout = nn.Dropout(0.5)
+        self.dropout = Dropout(0.5)
         self.conv1d = nn.Conv1d(hidden_dim, 1, 1)
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:

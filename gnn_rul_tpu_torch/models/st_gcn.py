@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..nn.basic import Dropout
 from ..nn.gnn_blocks import MPNNmk
 from ..nn.tcn import TemporalConvNet
 from ..ops.graphs import pearson_graph
@@ -32,7 +33,7 @@ class SGTCN(nn.Module):
         self.layers = nn.ModuleList(
             nn.ModuleList([MPNNmk(num_patch, num_patch, k=1),
                            TemporalConvNet(_FEATURES, _FEATURES, 2),
-                           nn.Dropout(dropout)])
+                           Dropout(dropout)])
             for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.edge_count import record_edges
+from .basic import Dropout
 from ..ops.graphs import leaky_relu
 from ..ops.kernels.fused_gat import fused_gat
 
@@ -41,7 +42,7 @@ class GraphAttentionLayer(nn.Module):
         self.final_leaky_relu = final_leaky_relu
         self.linear = nn.Linear(in_features, out_features)
         self.attention = nn.Linear(2 * out_features, 1)
-        self.attn_drop = nn.Dropout(dropout)
+        self.attn_drop = Dropout(dropout)
 
     def forward(self, h: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
         d = self.out_features

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .basic import BatchNormNCL
+from .basic import BatchNormNCL, Dropout
 
 
 class FeatureExtractor1DCNNRUL(nn.Module):
@@ -65,7 +65,7 @@ class FeatureExtractor1DCNN(nn.Module):
                 nn.MaxPool1d(2, 2, padding=1), *tail)
 
         self.conv_block1 = block(in_channels, num_hidden, kernel_size, stride,
-                                 nn.Dropout(dropout))
+                                 Dropout(dropout))
         self.conv_block2 = block(num_hidden, num_hidden * 2, 8, 1)
         self.conv_block3 = block(num_hidden * 2, num_hidden * 4, 8, 1)
 

@@ -28,6 +28,13 @@ kernel. Its vmap rule runs each seed's call in turn, since each seed has
 its own weights; its backward recomputes the call and differentiates it.
 Outside vmap the layers run ``torch.nn.LSTM``'s and ``torch.nn.GRU``'s own
 forward, as before.
+
+At bf16 (``--precision bf16``) the card's cuDNN takes no bf16 RNN
+(``torch.backends.cudnn.is_acceptable`` is False for a bf16 tensor on the
+H100): ``torch.nn.LSTM`` and ``torch.nn.GRU`` then run PyTorch's own CUDA
+recurrence in bf16, a cuBLAS product and an elementwise cell kernel a
+step, as the JAX layers' ``lax.scan`` runs at bf16. :func:`bilstm_fused`
+runs the recurrence kernels' bf16 instantiation.
 """
 
 from __future__ import annotations

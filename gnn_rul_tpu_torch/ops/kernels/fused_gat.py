@@ -6,9 +6,12 @@ version.
 
 wh ``(B, N, D)``, f1 and f2 ``(B, N)``, adj ``(B, N, N)`` or one ``(N, N)``
 shared by every graph, bias a one-element tensor, slope a float ->
-``(B, N, D)``, fp32. For seed-parallel runs (``train/vectorized.py``) adj
-may also be ``(A, N, N)`` and bias ``(G,)``, with A and G dividing B: the
-batch is then A (or G) equal groups of graphs, group a's graphs on
+``(B, N, D)``, all fp32, or all bf16 (``--precision bf16``: read in bf16,
+the softmax's statistics and the products in fp32, the output rounded once
+to bf16, as the Pallas kernel computes it). For seed-parallel runs
+(``train/vectorized.py``) adj may also be ``(A, N, N)`` and bias
+``(G,)``, with A and G dividing B: the batch is then A (or G) equal
+groups of graphs, group a's graphs on
 ``adj[a]`` (group g's with ``bias[g]``). adj ``(B, N, N)`` is the case A =
 B; one bias and an ``(N, N)`` adj are the one call of before, on the same
 plans. Under ``torch.func.vmap`` the operator's rule folds the seeds into
@@ -49,6 +52,7 @@ _TARGET_BLOCKS = 132  # kTargetBlocks in the source: an H100's SMs
 _WORK_PER_BLOCK = 2048  # kWorkPerBlock: pairs or outputs a block
 _BUDGET = 48 * 1024 // 4  # kBudget: shared floats a block
 MAX_N = 3069  # the largest N whose one row and one wh column fit _BUDGET
+DTYPES = (torch.float32, torch.bfloat16)  # the kernel's instantiations
 
 
 def _round4(n: int) -> int:
@@ -110,18 +114,22 @@ def fused_gat_plain(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
                     slope: float) -> torch.Tensor:
     """Plain PyTorch version, in the order of the JAX
     ``fused_gat_reference``; a grouped bias or adj applies to each graph of
-    its group."""
+    its group. bf16 operands are computed on in fp32 and the output
+    rounded once to bf16."""
+    dtype = wh.dtype
+    if dtype == torch.bfloat16:
+        wh, f1, f2, adj, bias = (t.float() for t in (wh, f1, f2, adj, bias))
     b = wh.shape[0]
     if adj.dim() == 3 and adj.shape[0] != b:
         adj = _per_graph(adj, b)
     if bias.numel() == 1:
-        return _attend(wh, f1, f2, adj, bias, slope)
+        return _attend(wh, f1, f2, adj, bias, slope).to(dtype)
     g = bias.shape[0]
     grouped = (t.unflatten(0, (g, -1)) for t in (wh, f1, f2))
     if adj.dim() == 3:
         adj = adj.unflatten(0, (g, -1))
     return _attend(*grouped, adj, bias[:, None, None, None],
-                   slope).flatten(0, 1)
+                   slope).flatten(0, 1).to(dtype)
 
 
 def _attend(wh, f1, f2, adj, bias, slope):
@@ -134,10 +142,13 @@ def _attend(wh, f1, f2, adj, bias, slope):
 def _check(wh: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
            adj: torch.Tensor, bias: torch.Tensor) -> None:
     named = (("wh", wh), ("f1", f1), ("f2", f2), ("adj", adj), ("bias", bias))
+    if wh.dtype not in DTYPES:
+        raise TypeError(f"fused_gat: wh must be float32 or bfloat16, got "
+                        f"{wh.dtype}")
     for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_gat: {name} must be float32, got "
-                            f"{t.dtype}")
+        if t.dtype != wh.dtype:
+            raise TypeError(f"fused_gat: {name} is {t.dtype}, wh {wh.dtype}; "
+                            f"every tensor takes one dtype")
         if not t.is_contiguous():
             raise ValueError(f"fused_gat: {name} must be contiguous")
         if t.device != wh.device:
@@ -222,11 +233,13 @@ _op.register_autograd(_backward, setup_context=_setup_context)
 
 
 class FusedGat:
-    """The wrapper. ``launches`` counts launches of the kernel; nothing else
-    adds to it."""
+    """The wrapper. ``launches`` counts launches of the kernel at either
+    dtype and ``bf16_launches`` the bf16 instantiation's share; nothing
+    else adds to them."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.bf16_launches = 0
         self._lib: Optional[ctypes.CDLL] = None
 
     def load(self) -> str:
@@ -236,10 +249,11 @@ class FusedGat:
             return ""
         built = build_libraries()
         lib = ctypes.CDLL(str(built["fused_gat"][0]))
-        lib.fused_gat_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.fused_gat_fwd.restype = ctypes.c_int
+        for fn in (lib.fused_gat_fwd, lib.fused_gat_fwd_bf16):
+            fn.argtypes = ([ctypes.c_void_p] * 5
+                           + [ctypes.c_float, ctypes.c_void_p]
+                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         lib.fused_gat_error_string.argtypes = [ctypes.c_int]
         lib.fused_gat_error_string.restype = ctypes.c_char_p
         lib.fused_gat_plan.argtypes = (
@@ -287,9 +301,12 @@ class FusedGat:
         out = torch.empty_like(wh)
         if b == 0:
             return out
+        bf16 = wh.dtype == torch.bfloat16
+        entry = self._lib.fused_gat_fwd_bf16 if bf16 else \
+            self._lib.fused_gat_fwd
         with torch.cuda.device(wh.device):
             stream = torch.cuda.current_stream(wh.device).cuda_stream
-            err = self._lib.fused_gat_fwd(
+            err = entry(
                 wh.data_ptr(), f1.data_ptr(), f2.data_ptr(), adj.data_ptr(),
                 bias.data_ptr(), slope, out.data_ptr(), b, n, d,
                 adj_groups(adj), bias.numel(), stream)
@@ -298,6 +315,7 @@ class FusedGat:
             raise RuntimeError(f"fused_gat launch failed (B={b}, N={n}, "
                                f"D={d}): {msg}")
         self.launches += 1
+        self.bf16_launches += bf16
         return out
 
 

@@ -2,7 +2,11 @@
 
     out = ((softmax(leaky_relu(h h^T - 1e8 I, 0.01)) + I) * mask) @ x
 
-h ``(B, N, D)``, x ``(B, N, F)``, mask ``(N, N)`` -> ``(B, N, F)``, fp32. The
+h ``(B, N, D)``, x ``(B, N, F)``, mask ``(N, N)`` -> ``(B, N, F)``, all fp32
+or all bf16 (``--precision bf16``): a bf16 call reads bf16, computes in
+fp32 and rounds the output once to bf16, as the Pallas kernel does with
+``preferred_element_type=jnp.float32``; its backward writes dh, dx and the
+mask's gradient in bf16 from fp32 sums. The
 mask may also be ``(G, N, N)`` with B a multiple of G: the batch is then G
 equal groups of graphs, group g masked by ``mask[g]`` (seed-parallel runs,
 ``train/vectorized.py``: a seed's graphs are one group). G = 1, or a
@@ -47,6 +51,7 @@ from .batching import fold, groups, unfold
 from .build import build_libraries
 
 MAX_FEAT = 128  # kMaxFeat in the sources: the limit on D and on F
+DTYPES = (torch.float32, torch.bfloat16)  # the kernels' instantiations
 _ROWS_PER_BLOCK = 8  # kRowsPerBlock in the sources
 SMEM_LIMIT = 232448  # shared memory a block may use on an H100
 _TARGET_BLOCKS = 132  # kTargetBlocks in fused_gnn.cu: an H100's SMs
@@ -128,6 +133,12 @@ def bwd_launches_per_call(n: int, d: int, f: int) -> int:
     return bwd_plan(n, d, f)["launches"]
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 operand in fp32, the kernels' working precision; any other
+    dtype as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def _grouped(*tensors: torch.Tensor, mask: torch.Tensor):
     """A grouped call's tensors as ``(G, B / G, ...)`` and its mask as
     ``(G, 1, N, N)``, to broadcast per group."""
@@ -139,17 +150,20 @@ def fused_dot_graph_spmm_plain(h: torch.Tensor, x: torch.Tensor,
                                mask: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the chain, in the order of the JAX
     ``fused_dot_graph_spmm_reference``; a grouped mask broadcasts over its
-    group's graphs."""
+    group's graphs. bf16 operands are computed on in fp32 and the output
+    rounded once to bf16."""
+    dtype = x.dtype
+    h, x, mask = _wide(h), _wide(x), _wide(mask)
     if mask.dim() == 3:
         return fused_dot_graph_spmm_plain(*_grouped(h, x, mask=mask)
-                                          ).flatten(0, 1)
+                                          ).flatten(0, 1).to(dtype)
     n = h.shape[-2]
     eye = torch.eye(n, dtype=h.dtype, device=h.device)
     s = torch.einsum("...nd,...md->...nm", h, h)
     s = F.leaky_relu(s - eye * 1e8, 0.01)
     a = torch.softmax(s, dim=-1) + eye
     a = a * mask
-    return torch.einsum("...nm,...md->...nd", a, x)
+    return torch.einsum("...nm,...md->...nd", a, x).to(dtype)
 
 
 def fused_dot_graph_spmm_bwd_plain(
@@ -158,11 +172,15 @@ def fused_dot_graph_spmm_bwd_plain(
     """Plain PyTorch version of the backward, step by step as the JAX
     ``_bwd_kernel`` writes it. Returns ``(dh, dx, dmask_per_sample)``; the
     last is ``(B, N, N)``, to be summed over the batch (over each group's
-    graphs for a grouped mask) for the mask's gradient."""
+    graphs for a grouped mask) for the mask's gradient. bf16 operands are
+    computed on in fp32 and each result rounded once to its operand's
+    dtype."""
+    dtypes = h.dtype, x.dtype, mask.dtype
+    h, x, mask, g = _wide(h), _wide(x), _wide(mask), _wide(g)
     if mask.dim() == 3:
         h, x, g, mask = _grouped(h, x, g, mask=mask)
-        return tuple(t.flatten(0, 1)
-                     for t in fused_dot_graph_spmm_bwd_plain(h, x, mask, g))
+        return tuple(t.flatten(0, 1).to(dt) for t, dt in zip(
+            fused_dot_graph_spmm_bwd_plain(h, x, mask, g), dtypes))
     n = h.shape[-2]
     eye = torch.eye(n, dtype=h.dtype, device=h.device)
     s = torch.einsum("...nd,...md->...nm", h, h) - eye * 1e8
@@ -177,7 +195,7 @@ def fused_dot_graph_spmm_bwd_plain(
     ds = dz * torch.where(s >= 0, 1.0, 0.01).to(s.dtype)
     dh = (torch.einsum("...nm,...md->...nd", ds, h)
           + torch.einsum("...nm,...nd->...md", ds, h))
-    return dh, dx, dmask
+    return dh.to(dtypes[0]), dx.to(dtypes[1]), dmask.to(dtypes[2])
 
 
 def _check(h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
@@ -185,10 +203,13 @@ def _check(h: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     named = [("h", h), ("x", x), ("mask", mask)]
     if g is not None:
         named.append(("g", g))
+    if h.dtype not in DTYPES:
+        raise TypeError(f"fused_dot_graph_spmm: h must be float32 or "
+                        f"bfloat16, got {h.dtype}")
     for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_dot_graph_spmm: {name} must be float32, "
-                            f"got {t.dtype}")
+        if t.dtype != h.dtype:
+            raise TypeError(f"fused_dot_graph_spmm: {name} is {t.dtype}, h "
+                            f"{h.dtype}; every operand takes one dtype")
         if not t.is_contiguous():
             raise ValueError(f"fused_dot_graph_spmm: {name} must be contiguous")
         if t.device != h.device:
@@ -280,13 +301,16 @@ _op.register_autograd(_backward, setup_context=_setup_context)
 
 class FusedDotGraphSpmm:
     """The wrapper. ``launches`` counts launches of the forward's kernels and
-    ``bwd_launches`` those of the backward's, as each C entry reports them;
-    nothing else adds to them. ``bwd_calls`` counts the backward calls
-    that launched."""
+    ``bwd_launches`` those of the backward's, as each C entry reports them,
+    at either dtype; ``bf16_launches`` and ``bf16_bwd_launches`` count the
+    bf16 instantiations' share of them; nothing else adds to them.
+    ``bwd_calls`` counts the backward's calls that launched."""
 
     def __init__(self) -> None:
         self.launches = 0
         self.bwd_launches = 0
+        self.bf16_launches = 0
+        self.bf16_bwd_launches = 0
         self.bwd_calls = 0
         self._plans: dict = {}
         self._fwd: Optional[ctypes.CDLL] = None
@@ -299,10 +323,11 @@ class FusedDotGraphSpmm:
             return ""
         built = build_libraries()
         fwd = ctypes.CDLL(str(built["fused_gnn"][0]))
-        fwd.fused_dot_graph_spmm_fwd.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-            + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
-        fwd.fused_dot_graph_spmm_fwd.restype = ctypes.c_int
+        for fn in (fwd.fused_dot_graph_spmm_fwd,
+                   fwd.fused_dot_graph_spmm_fwd_bf16):
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+            fn.restype = ctypes.c_int
         fwd.fused_dot_graph_spmm_fwd_plan.argtypes = (
             [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)])
         fwd.fused_dot_graph_spmm_fwd_plan.restype = ctypes.c_int
@@ -313,6 +338,12 @@ class FusedDotGraphSpmm:
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
             + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         bwd.fused_dot_graph_spmm_bwd.restype = ctypes.c_int
+        # The bf16 entry takes one pointer more: the two-launch plan's fp32
+        # (B, N, D) scratch for dh's row term.
+        bwd.fused_dot_graph_spmm_bwd_bf16.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        bwd.fused_dot_graph_spmm_bwd_bf16.restype = ctypes.c_int
         bwd.fused_dot_graph_spmm_bwd_plan.argtypes = (
             [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)])
         bwd.fused_dot_graph_spmm_bwd_plan.restype = ctypes.c_int
@@ -346,12 +377,17 @@ class FusedDotGraphSpmm:
         if b == 0:
             return out
         launched = ctypes.c_int()
+        bf16 = h.dtype == torch.bfloat16
+        entry = (self._fwd.fused_dot_graph_spmm_fwd_bf16 if bf16
+                 else self._fwd.fused_dot_graph_spmm_fwd)
         with torch.cuda.device(h.device):
             stream = torch.cuda.current_stream(h.device).cuda_stream
-            err = self._fwd.fused_dot_graph_spmm_fwd(
+            err = entry(
                 h.data_ptr(), x.data_ptr(), mask.data_ptr(), out.data_ptr(),
                 b, n, d, f, _groups(mask), stream, ctypes.byref(launched))
         self.launches += launched.value
+        if bf16:
+            self.bf16_launches += launched.value
         if err != 0:
             msg = self._fwd.fused_dot_graph_spmm_error_string(err).decode()
             raise RuntimeError(f"fused_dot_graph_spmm launch failed "
@@ -400,22 +436,32 @@ class FusedDotGraphSpmm:
         f = x.shape[2]
         dh = torch.empty_like(h)
         dx = torch.empty_like(x)
-        dmask = (torch.empty((b, n, n), dtype=h.dtype, device=h.device)
+        dmask = (torch.empty((b, n, n), dtype=mask.dtype, device=h.device)
                  if need_dmask else None)
         if b == 0:
             return dh, dx, dmask
-        stats = (torch.empty((b, n, 3), dtype=h.dtype, device=h.device)
-                 if self.kernel_plan(n, d, f)["launches"] == 2 else None)
+        two = self.kernel_plan(n, d, f)["launches"] == 2
+        stats = (torch.empty((b, n, 3), dtype=torch.float32, device=h.device)
+                 if two else None)
+        bf16 = h.dtype == torch.bfloat16
         launched = ctypes.c_int()
-        with torch.cuda.device(h.device):
-            stream = torch.cuda.current_stream(h.device).cuda_stream
-            err = self._bwd.fused_dot_graph_spmm_bwd(
-                h.data_ptr(), x.data_ptr(), mask.data_ptr(), g.data_ptr(),
+        args = [h.data_ptr(), x.data_ptr(), mask.data_ptr(), g.data_ptr(),
                 dh.data_ptr(), dx.data_ptr(),
                 dmask.data_ptr() if need_dmask else None,
-                stats.data_ptr() if stats is not None else None,
-                b, n, d, f, _groups(mask), stream, ctypes.byref(launched))
+                stats.data_ptr() if stats is not None else None]
+        if bf16:
+            part = (torch.empty((b, n, d), dtype=torch.float32,
+                                device=h.device) if two else None)
+            args.append(part.data_ptr() if part is not None else None)
+        entry = (self._bwd.fused_dot_graph_spmm_bwd_bf16 if bf16
+                 else self._bwd.fused_dot_graph_spmm_bwd)
+        with torch.cuda.device(h.device):
+            stream = torch.cuda.current_stream(h.device).cuda_stream
+            err = entry(*args, b, n, d, f, _groups(mask), stream,
+                        ctypes.byref(launched))
         self.bwd_launches += launched.value
+        if bf16:
+            self.bf16_bwd_launches += launched.value
         if err != 0:
             msg = self._bwd.fused_dot_graph_spmm_bwd_error_string(err).decode()
             raise RuntimeError(f"fused_dot_graph_spmm backward launch failed "

@@ -6,7 +6,12 @@ plain versions.
 
 xg holds the projected gate inputs ``x @ w_ih + b_ih + b_hh`` of both
 directions, direction 1 already flipped in time; w_hh is in the JAX layout
-(rows h, columns the gates [i, f, g, o]); h and c start at zero; fp32.
+(rows h, columns the gates [i, f, g, o]); h and c start at zero; all fp32,
+or all bf16 (``--precision bf16``), where the Pallas kernel's semantics
+hold: h and c carried in fp32, ys and cs stored in bf16 each step (c_fin
+is the last cs), the backward recomputing the gates from the stored bf16
+ys and cs, its carry and dgates in fp32, dxg written in bf16 and dw_hh
+summed in fp64 and rounded once to bf16.
 w_hh may also be ``(G, 2, H, 4H)`` with B a multiple of G: the batch
 columns are then G equal groups, group g run with ``w_hh[g]``
 (seed-parallel runs, ``train/vectorized.py``: a seed's columns are one
@@ -52,11 +57,18 @@ from .batching import fold, groups, unfold
 from .build import build_libraries
 
 MAX_HIDDEN = 1024  # kMaxHidden in the sources
+DTYPES = (torch.float32, torch.bfloat16)  # the kernels' instantiations
 # the gate pass, the reverse sweep, dW partials, dW reduction
 BWD_LAUNCHES_PER_CALL = 4
 PLAN_FIELDS = ("lanes", "cluster", "units", "threads", "iters", "w_mode",
                "smem")
 W_MODES = ("global memory", "shared memory", "registers")  # w_mode 0, 1, 2
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 operand in fp32, the kernels' working precision; any other
+    dtype as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def _gates(gates: torch.Tensor):
@@ -76,7 +88,10 @@ def _times_w(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def lstm_trajectory_plain(xg: torch.Tensor, w_hh: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(ys, cs)``, both ``(T, 2, B, H)``: the time loop of the JAX
-    ``lstm_recurrence_reference``, keeping every step's c."""
+    ``lstm_recurrence_reference``, keeping every step's c. At bf16 the
+    carry stays fp32 and each step's h and c are stored rounded."""
+    dtype = xg.dtype
+    xg, w_hh = _wide(xg), _wide(w_hh)
     _, _, b, _ = xg.shape
     h = xg.new_zeros((2, b, w_hh.shape[-2]))
     c = torch.zeros_like(h)
@@ -85,8 +100,8 @@ def lstm_trajectory_plain(xg: torch.Tensor, w_hh: torch.Tensor
         i, f, g, o = _gates(xt + _times_w(h, w_hh))
         c = f * c + i * g
         h = o * torch.tanh(c)
-        ys.append(h)
-        cs.append(c)
+        ys.append(h.to(dtype))
+        cs.append(c.to(dtype))
     return torch.stack(ys), torch.stack(cs)
 
 
@@ -107,7 +122,9 @@ def lstm_gates_plain(xg: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor
     """Plain PyTorch version of the backward's gate pass: the activated
     gates ``act(xg[t] + ys[t-1] @ w_hh)`` of every step, (T, 2, B, 4H), with
     zero in place of ``ys[-1]``; they depend on the saved trajectory alone,
-    not on the backward's carry."""
+    not on the backward's carry. fp32 at bf16 operands, as the kernel
+    keeps them."""
+    xg, w_hh, ys = _wide(xg), _wide(w_hh), _wide(ys)
     i, f, g, o = _gates(xg + _times_w(_h_prev(ys), w_hh))
     return torch.cat([i, f, g, o], dim=-1)
 
@@ -120,7 +137,11 @@ def lstm_sweep_plain(
     the activated gates of :func:`lstm_gates_plain`: the carry's recurrence
     as the JAX ``_bwd_kernel`` writes it, dc seeded from ``dc_fin``, then
     dW_hh as one product over the T*B rows (of each group's columns for a
-    grouped w_hh). Returns ``(dxg, dw_hh)``."""
+    grouped w_hh). Returns ``(dxg, dw_hh)``; at bf16 both are rounded
+    once from the fp32 dgates and sums."""
+    dtype = ys.dtype
+    w_hh, ys, cs, dys, dc_fin = (_wide(t) for t in (w_hh, ys, cs, dys,
+                                                    dc_fin))
     zeros = torch.zeros_like(ys[0])
     dh, dc = zeros, dc_fin
     dxg = torch.empty_like(gates)
@@ -137,11 +158,17 @@ def lstm_sweep_plain(
         dxg[t] = dgates
         dh = _times_w(dgates, w_hh.transpose(-1, -2))
         dc = dc * f
+    # At bf16 dW sums in fp64, as the kernel's partials do, and is rounded
+    # through fp32 to bf16 as the kernel rounds it.
+    rows = [_h_prev(ys), dxg]
+    if dtype == torch.bfloat16:
+        rows = [t.double() for t in rows]
     if w_hh.dim() == 3:
-        return dxg, torch.einsum("tdbh,tdbg->dhg", _h_prev(ys), dxg)
-    by_group = [t.unflatten(2, (w_hh.shape[0], -1))
-                for t in (_h_prev(ys), dxg)]
-    return dxg, torch.einsum("tdpbh,tdpbg->pdhg", *by_group)
+        dw = torch.einsum("tdbh,tdbg->dhg", *rows)
+    else:
+        by_group = [t.unflatten(2, (w_hh.shape[0], -1)) for t in rows]
+        dw = torch.einsum("tdpbh,tdpbg->pdhg", *by_group)
+    return dxg.to(dtype), dw.float().to(dtype)
 
 
 def lstm_recurrence_bwd_plain(
@@ -158,10 +185,13 @@ def lstm_recurrence_bwd_plain(
 def _check(xg: torch.Tensor, w_hh: torch.Tensor, **extra: torch.Tensor
            ) -> None:
     named = [("xg", xg), ("w_hh", w_hh), *extra.items()]
+    if xg.dtype not in DTYPES:
+        raise TypeError(f"lstm_recurrence: xg must be float32 or bfloat16, "
+                        f"got {xg.dtype}")
     for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"lstm_recurrence: {name} must be float32, got "
-                            f"{t.dtype}")
+        if t.dtype != xg.dtype:
+            raise TypeError(f"lstm_recurrence: {name} is {t.dtype}, xg "
+                            f"{xg.dtype}; every operand takes one dtype")
         if not t.is_contiguous():
             raise ValueError(f"lstm_recurrence: {name} must be contiguous")
         if t.device != xg.device:
@@ -254,13 +284,17 @@ _op.register_autograd(_backward, setup_context=_setup_context)
 
 class FusedLstmRecurrence:
     """The wrapper. ``launches`` counts launches of the forward kernel and
-    ``bwd_launches`` those of the backward's four kernels; nothing else
-    adds to them. The kernels choose how a recurrence is cut (:meth:`plan`)
-    from H, B and the device."""
+    ``bwd_launches`` those of the backward's four kernels, at either dtype;
+    ``bf16_launches`` and ``bf16_bwd_launches`` count the bf16
+    instantiations' share; nothing else adds to them. The kernels choose
+    how a recurrence is cut (:meth:`plan`) from H, B and the device, the
+    same at either dtype (W_hh is held in fp32 on chip)."""
 
     def __init__(self) -> None:
         self.launches = 0
         self.bwd_launches = 0
+        self.bf16_launches = 0
+        self.bf16_bwd_launches = 0
         self._fwd: Optional[ctypes.CDLL] = None
         self._bwd: Optional[ctypes.CDLL] = None
 
@@ -274,10 +308,18 @@ class FusedLstmRecurrence:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         signatures = [
             (fwd.fused_lstm_fwd, [ptr] * 5 + [i32] * 4 + [ptr]),
+            (fwd.fused_lstm_fwd_bf16, [ptr] * 5 + [i32] * 4 + [ptr]),
             (bwd.fused_lstm_bwd_gates, [ptr] * 4 + [i32] * 4 + [ptr]),
+            (bwd.fused_lstm_bwd_gates_bf16, [ptr] * 4 + [i32] * 4 + [ptr]),
             (bwd.fused_lstm_bwd_sweep, [ptr] * 5 + [i32] * 4 + [ptr]),
+            # ... and the bf16 dxg beside the fp32 dgates
+            (bwd.fused_lstm_bwd_sweep_bf16, [ptr] * 6 + [i32] * 4 + [ptr]),
             (bwd.fused_lstm_bwd_dw_partial, [ptr] * 3 + [i32] * 4 + [ptr]),
+            (bwd.fused_lstm_bwd_dw_partial_bf16,
+             [ptr] * 3 + [i32] * 4 + [ptr]),
             (bwd.fused_lstm_bwd_dw_reduce, [ptr] * 2 + [i32] * 4 + [ptr]),
+            (bwd.fused_lstm_bwd_dw_reduce_bf16,
+             [ptr] * 2 + [i32] * 4 + [ptr]),
             (bwd.fused_lstm_bwd_dw_chunks, [i32] * 3),
             (fwd.fused_lstm_fwd_plan, [i32] * 2 + [ptr]),
             (bwd.fused_lstm_bwd_plan, [i32] * 2 + [ptr]),
@@ -339,34 +381,43 @@ class FusedLstmRecurrence:
         ys = torch.empty((t, 2, b, hid), dtype=xg.dtype, device=xg.device)
         cs = torch.empty_like(ys)
         c_fin = torch.empty((2, b, hid), dtype=xg.dtype, device=xg.device)
+        bf16 = xg.dtype == torch.bfloat16
+        entry = self._fwd.fused_lstm_fwd_bf16 if bf16 else \
+            self._fwd.fused_lstm_fwd
         with torch.cuda.device(xg.device):
             stream = torch.cuda.current_stream(xg.device).cuda_stream
-            err = self._fwd.fused_lstm_fwd(
+            err = entry(
                 xg.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), cs.data_ptr(),
                 c_fin.data_ptr(), t, b, hid, _groups(w_hh), stream)
         if err != 0:
             self._raise(self._fwd, err, "forward", xg)
         self.launches += 1
+        self.bf16_launches += bf16
         return ys, cs, c_fin
 
     def gates(self, xg: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor
               ) -> torch.Tensor:
         """The backward's gate pass alone: the gate kernel on CUDA,
-        :func:`lstm_gates_plain` on the CPU."""
+        :func:`lstm_gates_plain` on the CPU; the gates in fp32 at either
+        dtype."""
         _check(xg, w_hh, ys=ys)
         if xg.device.type == "cpu":
             return lstm_gates_plain(xg, w_hh, ys)
         self.load()
         t, _, b, g = xg.shape
-        out = torch.empty_like(xg)
+        out = torch.empty(xg.shape, dtype=torch.float32, device=xg.device)
+        bf16 = xg.dtype == torch.bfloat16
+        entry = self._bwd.fused_lstm_bwd_gates_bf16 if bf16 else \
+            self._bwd.fused_lstm_bwd_gates
         with torch.cuda.device(xg.device):
             stream = torch.cuda.current_stream(xg.device).cuda_stream
-            err = self._bwd.fused_lstm_bwd_gates(
+            err = entry(
                 xg.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), out.data_ptr(),
                 t, b, g // 4, _groups(w_hh), stream)
         if err != 0:
             self._raise(self._bwd, err, "backward gate", xg)
         self.bwd_launches += 1
+        self.bf16_bwd_launches += bf16
         return out
 
     def backward(self, xg: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor,
@@ -377,9 +428,12 @@ class FusedLstmRecurrence:
         _check(xg, w_hh, ys=ys, cs=cs, dys=dys, dc_fin=dc_fin)
         if xg.device.type == "cpu":
             return lstm_recurrence_bwd_plain(xg, w_hh, ys, cs, dys, dc_fin)
-        # The gate pass writes the activated gates into dxg's buffer; the
-        # sweep overwrites them with the dgates.
-        dxg = self.gates(xg, w_hh, ys)
+        # The gate pass writes the activated gates into an fp32 buffer (at
+        # fp32, dxg's); the sweep overwrites them with the dgates, and at
+        # bf16 also writes them rounded into dxg. dW sums the fp32 dgates.
+        work = self.gates(xg, w_hh, ys)
+        bf16 = xg.dtype == torch.bfloat16
+        dxg = torch.empty_like(xg) if bf16 else work
         t, _, b, g = xg.shape
         hid = g // 4
         lib = self._bwd
@@ -388,17 +442,18 @@ class FusedLstmRecurrence:
         chunks = lib.fused_lstm_bwd_dw_chunks(t, b // grp, hid)
         partial = torch.empty((grp, 2, chunks, hid, g), dtype=torch.float64,
                               device=xg.device)  # the dW sums run in fp64
+        sweep_out = [work.data_ptr()] + ([dxg.data_ptr()] if bf16 else [])
+        sfx = "_bf16" if bf16 else ""
         with torch.cuda.device(xg.device):
             stream = torch.cuda.current_stream(xg.device).cuda_stream
             launches = (
-                lambda: lib.fused_lstm_bwd_sweep(
+                lambda: getattr(lib, "fused_lstm_bwd_sweep" + sfx)(
                     w_hh.data_ptr(), cs.data_ptr(), dys.data_ptr(),
-                    dc_fin.data_ptr(), dxg.data_ptr(), t, b, hid, grp,
-                    stream),
-                lambda: lib.fused_lstm_bwd_dw_partial(
-                    ys.data_ptr(), dxg.data_ptr(), partial.data_ptr(), t, b,
+                    dc_fin.data_ptr(), *sweep_out, t, b, hid, grp, stream),
+                lambda: getattr(lib, "fused_lstm_bwd_dw_partial" + sfx)(
+                    ys.data_ptr(), work.data_ptr(), partial.data_ptr(), t, b,
                     hid, grp, stream),
-                lambda: lib.fused_lstm_bwd_dw_reduce(
+                lambda: getattr(lib, "fused_lstm_bwd_dw_reduce" + sfx)(
                     partial.data_ptr(), dw.data_ptr(), t, b, hid, grp,
                     stream))
             for launch in launches:
@@ -406,6 +461,7 @@ class FusedLstmRecurrence:
                 if err != 0:
                     self._raise(lib, err, "backward", xg)
                 self.bwd_launches += 1
+                self.bf16_bwd_launches += bf16
         return dxg, dw
 
 

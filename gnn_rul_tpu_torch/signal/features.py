@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from .stft import fft_input
+
 
 def _std_unbiased(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.sqrt(_var_unbiased(x, dim))
@@ -76,7 +78,7 @@ def frequency_features_8(x: torch.Tensor) -> torch.Tensor:
     # ``np.fft.fftfreq(n)`` rounded to x's dtype, formed on x's device.
     freqs = torch.fft.fftfreq(n, dtype=torch.float64,
                               device=x.device).to(x.dtype)
-    amp = torch.fft.fft(x, dim=-1).abs()
+    amp = torch.fft.fft(fft_input(x), dim=-1).abs().to(x.dtype)
     psd = amp * amp / n
 
     psd_sum = torch.sum(psd, dim=-1)
@@ -159,7 +161,7 @@ def sed_features(x: torch.Tensor, interval: int, band_width: int
     """Spectral energy difference ``(B, L)`` -> ``(B, (L - interval) //
     band_width)``: reference models/STMSGCN/Model.py:7-31."""
     b = x.shape[0]
-    spec = torch.fft.fft(x, dim=-1)
+    spec = torch.fft.fft(fft_input(x), dim=-1)
     sd = spec[:, interval:] - spec[:, :-interval]
-    sq = sd.real ** 2 + sd.imag ** 2
+    sq = (sd.real ** 2 + sd.imag ** 2).to(x.dtype)
     return torch.sum(sq.reshape(b, -1, band_width), dim=-1)

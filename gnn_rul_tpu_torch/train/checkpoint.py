@@ -1,19 +1,34 @@
-"""Final checkpoint in the reference's ``checkpoint.pt`` layout.
+"""Checkpoints in the reference's ``checkpoint.pt`` layout, periodic and
+asynchronous, and resume (counterpart of
+``gnn_rul_tpu/train/checkpoint.py``).
 
 The payload is ``{"hparams", "train_params", "model_dict", "optimizer",
-"epoch", "run_id"}``, every tensor on the CPU. ``model_dict`` carries the
-reference's keys, so ``gnn_rul_tpu_torch.export.serving_model`` loads it and
-so does the JAX package's ``import_torch_checkpoint``. The file is written
-to a temporary name and renamed, so a crash mid-write leaves no partial
-checkpoint. :func:`load_checkpoint` reads a checkpoint of the port or of
-the reference, and :func:`load_model_dict` loads its ``model_dict`` into
-a model, the keys as either writes them. Periodic asynchronous checkpoints
-and resume are not ported yet (ROADMAP.md).
+"epoch", "run_id", "scheduler", "precision"}``, every tensor on the CPU.
+``model_dict`` carries the reference's keys, so
+``gnn_rul_tpu_torch.export.serving_model`` loads it and so does the JAX
+package's ``import_torch_checkpoint``; ``scheduler`` is LOGO_bearing's
+MultiStepLR state (None elsewhere). The file is written to a temporary
+name and renamed, so a crash mid-write leaves the previous checkpoint.
+:func:`load_checkpoint` reads a checkpoint of the port or of the
+reference, :func:`load_model_dict` loads its ``model_dict`` into a model,
+the keys as either writes them, and :func:`restore` puts a run's model,
+Adam and scheduler back for ``--resume``.
+
+:class:`AsyncCheckpointer` writes periodic checkpoints off the training
+thread. JAX hands its immutable arrays to the writer; torch's tensors are
+rewritten in place by the next ``optimizer.step()``, so :meth:`save`
+snapshots them first, on the training thread: a copy of each CUDA tensor
+into pinned host memory on a side stream that waits for the current
+stream, the current stream then waiting for the copies (so no later
+kernel overwrites a tensor before it is copied) and an event recorded
+after them; a CPU tensor is cloned. The writer thread waits on the event
+and runs ``torch.save``; the training thread never waits for the disk.
 """
 
 from __future__ import annotations
 
 import os
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -32,23 +47,117 @@ def _to_cpu(obj):
     return obj
 
 
-def save_checkpoint(path: str, model: nn.Module,
-                    optimizer: torch.optim.Optimizer, *, epoch: int,
-                    run_id: int, hparams: Dict[str, Any],
-                    train_params: Dict[str, Any]) -> str:
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    payload = {
+def _payload(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
+             epoch: int, run_id: int, hparams: Dict[str, Any],
+             train_params: Dict[str, Any], precision: str) -> Dict[str, Any]:
+    return {
         "hparams": dict(hparams),
         "train_params": dict(train_params),
-        "model_dict": _to_cpu(model.state_dict()),
-        "optimizer": _to_cpu(optimizer.state_dict()),
+        "model_dict": model.state_dict(),
+        "optimizer": optimizer.state_dict(),
         "epoch": int(epoch),
         "run_id": int(run_id),
+        "scheduler": scheduler.state_dict() if scheduler is not None else None,
+        "precision": precision,
     }
+
+
+def _write(path: str, payload: Dict[str, Any]) -> str:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
+
+
+def save_checkpoint(path: str, model: nn.Module,
+                    optimizer: torch.optim.Optimizer, *, epoch: int,
+                    run_id: int, hparams: Dict[str, Any],
+                    train_params: Dict[str, Any], scheduler=None,
+                    precision: str = "fp32") -> str:
+    """Writes the checkpoint now, on the calling thread."""
+    return _write(path, _to_cpu(_payload(model, optimizer, scheduler, epoch,
+                                         run_id, hparams, train_params,
+                                         precision)))
+
+
+class _Snapshot:
+    """Host copies of a payload's tensors, complete once ``ready()``
+    returns."""
+
+    def __init__(self, payload: Dict[str, Any]):
+        self.event: Optional[torch.cuda.Event] = None
+        self._side: Optional[torch.cuda.Stream] = None
+        self.payload = self._copy(payload)
+        if self._side is not None:
+            self.event = torch.cuda.Event()
+            self.event.record(self._side)
+            # Later work on the current stream (the next optimizer step)
+            # waits for the copies, so none overwrites a tensor first.
+            torch.cuda.current_stream().wait_stream(self._side)
+
+    def _copy(self, obj):
+        if isinstance(obj, torch.Tensor):
+            t = obj.detach()
+            if not t.is_cuda:
+                return t.clone()
+            if self._side is None:
+                self._side = torch.cuda.Stream(device=t.device)
+                self._side.wait_stream(torch.cuda.current_stream(t.device))
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            with torch.cuda.stream(self._side):
+                host.copy_(t, non_blocking=True)
+            t.record_stream(self._side)
+            return host
+        if isinstance(obj, dict):
+            return {k: self._copy(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(self._copy(v) for v in obj)
+        return obj
+
+    def ready(self) -> Dict[str, Any]:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.payload
+
+
+class AsyncCheckpointer:
+    """Periodic checkpoints written by one background thread.
+
+    :meth:`save` snapshots the run's state on the training thread (see
+    the module's docstring) and returns; the write runs on the thread. At
+    most one write is in flight: a save first waits out the one before,
+    so checkpoints land in order and host memory stays bounded.
+    :meth:`wait` and :meth:`close` re-raise a writer's error."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="gnnrul-ckpt")
+        self._inflight: Optional[Future] = None
+
+    def save(self, path: str, model: nn.Module,
+             optimizer: torch.optim.Optimizer, *, epoch: int, run_id: int,
+             hparams: Dict[str, Any], train_params: Dict[str, Any],
+             scheduler=None, precision: str = "fp32") -> Future:
+        self.wait()
+        snap = _Snapshot(_payload(model, optimizer, scheduler, epoch, run_id,
+                                  hparams, train_params, precision))
+        self._inflight = self._pool.submit(
+            lambda: _write(path, snap.ready()))
+        return self._inflight
+
+    def wait(self) -> None:
+        """Blocks until the write in flight, if any, is on disk; re-raises
+        its error."""
+        if self._inflight is not None:
+            fut, self._inflight = self._inflight, None
+            fut.result()
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown(wait=True)
 
 
 def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Optional[Dict]]:
@@ -89,3 +198,18 @@ def load_model_dict(model: nn.Module,
     model.load_state_dict({k: v for k, v in keys.items()
                            if not k.startswith(dead)}, strict=True)
     return model
+
+
+def restore(path: str, model: nn.Module, optimizer: torch.optim.Optimizer,
+            scheduler=None) -> int:
+    """Puts the run of ``path`` (a checkpoint of :func:`save_checkpoint` or
+    :class:`AsyncCheckpointer`) back into ``model``, ``optimizer`` and
+    ``scheduler``; returns the epoch it was saved after."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    load_model_dict(model, payload["model_dict"])
+    optimizer.load_state_dict(payload["optimizer"])
+    if scheduler is not None:
+        if payload.get("scheduler") is None:
+            raise ValueError(f"{path} holds no scheduler state")
+        scheduler.load_state_dict(payload["scheduler"])
+    return int(payload["epoch"])

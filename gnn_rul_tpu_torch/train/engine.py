@@ -20,6 +20,18 @@ The permutation comes from a ``torch.Generator`` on the device seeded from
 ``(seed, epoch)``. JAX's ``jax.random.permutation`` cannot be reproduced in
 PyTorch, so with ``shuffle=True`` the two packages see the batches in
 different orders; with ``shuffle=False`` they see the same.
+
+Dropout is keyed (``nn/basic.py``): step ``i`` of epoch ``e`` of the run
+of seed ``s`` draws its masks from :func:`~..nn.basic.step_key` ``(s, e,
+i)``, so a run resumed after epoch k from the model, Adam and the
+scheduler replays the uninterrupted run. A step called on its own, outside
+:meth:`Engine.run_epoch`, takes the key ``(s, 0, n)`` of its engine's n-th
+step.
+
+``precision="bf16"`` runs each step's forward and backward in bfloat16 on
+fp32 master parameters (``train/precision.py``); the loss, Adam and the
+BatchNorm running statistics stay fp32, and :meth:`Engine.evaluate`
+returns fp32.
 """
 
 from __future__ import annotations
@@ -31,7 +43,9 @@ import torch
 from torch import nn
 
 from ..export import resolve_device
+from ..nn.basic import dropout_key, step_key
 from .algorithms import AlgorithmSpec, resolve_aux_weight
+from .precision import bf16_forward, cast_buffer_names, check_precision
 
 
 MILESTONES, GAMMA = (5, 10, 20, 25), 0.5  # reference algorithms.py:618
@@ -49,8 +63,9 @@ class Engine:
     def __init__(self, model: nn.Module, spec: AlgorithmSpec,
                  train_params: Dict, seed: int = 0,
                  eval_batch_size: Optional[int] = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", precision: str = "fp32"):
         self.device = resolve_device(device)
+        self.precision = check_precision(precision)
         self.model = model.to(self.device)
         self.spec = spec
         self.train_params = dict(train_params)
@@ -58,6 +73,8 @@ class Engine:
         self.eval_batch_size = int(eval_batch_size or self.batch_size)
         self.aux_weight = resolve_aux_weight(spec, train_params)
         self.seed = seed
+        self.step_count = 0
+        self._cast = cast_buffer_names(self.model)
         self.optimizer = torch.optim.Adam(
             self.model.parameters(), lr=float(train_params["learning_rate"]),
             weight_decay=float(train_params.get("weight_decay", 0.0)),
@@ -76,12 +93,30 @@ class Engine:
             loss = loss + self.aux_weight * aux
         return loss
 
-    def train_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
+        """The model's forward at the engine's precision; its output in
+        fp32 (``train/precision.py::bf16_forward``)."""
+        if self.precision == "fp32":
+            return self.model(x)
+        return bf16_forward(self.model, dict(self.model.named_parameters()),
+                            dict(self.model.named_buffers()), self._cast, x)
+
+    def train_step(self, x: torch.Tensor, y: torch.Tensor,
+                   key: Optional[int] = None) -> torch.Tensor:
         """One optimizer step on a batch on the device; returns the loss,
-        detached and still on the device."""
+        detached and still on the device. ``key`` keys the step's dropout
+        (:func:`~..nn.basic.step_key`; by default that of this engine's
+        n-th step, ``(seed, 0, n)``)."""
+        if key is None:
+            key = step_key(self.seed, 0, self.step_count)
+        self.step_count += 1
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(self.model(x), y)
+        # A fill, not a copy from the host: a blocking copy would wait for
+        # the card to finish the steps before.
+        with dropout_key(torch.full((), key, dtype=torch.int64,
+                                    device=self.device)):
+            loss = self._loss(self.forward(x), y)
         loss.backward()
         self.optimizer.step()
         if self.scheduler is not None:
@@ -109,9 +144,10 @@ class Engine:
         else:
             perm = torch.arange(n, device=self.device)
         total = torch.zeros((), dtype=torch.float64, device=self.device)
-        for start in range(0, n, self.batch_size):
+        for i, start in enumerate(range(0, n, self.batch_size)):
             idx = perm[start:start + self.batch_size]
-            loss = self.train_step(x_all[idx], y_all[idx])
+            loss = self.train_step(x_all[idx], y_all[idx],
+                                   key=step_key(self.seed, epoch, i))
             total += loss.double() * idx.shape[0]
         return float(total) / max(n, 1)
 
@@ -136,7 +172,7 @@ class Engine:
         self.model.eval()
         preds = []
         for i in range(n_batches):
-            out = self.model(x[i * ebs:(i + 1) * ebs])
+            out = self.forward(x[i * ebs:(i + 1) * ebs])
             preds.append((out[0] if isinstance(out, tuple) else out)
                          .reshape(-1))
         return torch.cat(preds)[:n].cpu().numpy()

@@ -15,11 +15,20 @@ The reference's GNN_RUL_trainer contract (trainer.py:25-262):
     :class:`~.vectorized.VectorizedEngine`, with the same artifacts per
     run (each run's ``checkpoint.pt`` is its seed's slice);
   - each run's log gives its edges per sample (``ops/edge_count.py``) and
-    each epoch's samples/s and edges/s.
+    each epoch's samples/s and edges/s;
+  - ``checkpoint_every=K`` writes ``checkpoint.pt`` after every K-th epoch
+    through the :class:`~.checkpoint.AsyncCheckpointer`; ``resume=True``
+    restarts each run from its ``checkpoint.pt`` where one exists (weights,
+    BatchNorm statistics, Adam, the scheduler, the next epoch), and one
+    saved at or past the last epoch is evaluated once. With the keyed
+    permutations and dropout (``engine.py``) the resumed run equals the
+    uninterrupted one. The vectorized runs write their final checkpoints
+    only and do not resume, as the JAX package's;
+  - ``precision="bf16"`` trains in bfloat16 on fp32 state
+    (``train/precision.py``) and logs the measured guidance.
 
 Runs on ``device="cuda"`` unless told ``device="cpu"``, and raises where
-CUDA is absent. Periodic checkpoints, resume, meshes, bf16 and profiling
-are not ported yet (ROADMAP.md).
+CUDA is absent. Meshes and profiling are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,9 +49,11 @@ from ..data.loader import DataBundle
 from ..export import resolve_device
 from ..ops.edge_count import edges_per_sample
 from .algorithms import get_algorithm_spec
-from .checkpoint import load_model_dict, save_checkpoint
+from .checkpoint import (AsyncCheckpointer, load_model_dict, restore,
+                         save_checkpoint)
 from .engine import Engine
 from .metrics import calc_metrics
+from .precision import bf16_guidance, check_precision, vectorized_guidance
 from .vectorized import VectorizedEngine
 
 METRIC_NAMES = ("Score_v1", "Score_v2", "MAE", "RMSE")
@@ -106,9 +117,24 @@ class Trainer:
                  train_params: Optional[Dict] = None,
                  model_hparams: Optional[Dict] = None,
                  num_epochs_override: Optional[int] = None,
-                 device: str = "cuda", vectorized_runs: bool = False):
+                 device: str = "cuda", vectorized_runs: bool = False,
+                 precision: str = "fp32", resume: bool = False,
+                 checkpoint_every: int = 0):
         self.device = resolve_device(device)
         self.vectorized_runs = vectorized_runs
+        self.precision = check_precision(precision)
+        if vectorized_runs and resume:
+            raise ValueError("vectorized runs do not resume (the runs advance "
+                             "in lockstep; resume a run on the sequential "
+                             "path)")
+        self.resume = resume
+        self.checkpoint_every = int(checkpoint_every)
+        for msg in ((bf16_guidance(method, dataset)
+                     if precision == "bf16" else None),
+                    (vectorized_guidance(method, dataset)
+                     if vectorized_runs else None)):
+            if msg:
+                logging.getLogger(__name__).warning(msg)
         self.method = method
         self.dataset = dataset
         self.dataset_id = dataset_id
@@ -132,7 +158,7 @@ class Trainer:
     def _build_engine(self, seed: int) -> Engine:
         torch.manual_seed(seed)
         return Engine(self._model(), self.spec, self.train_params, seed=seed,
-                      device=str(self.device))
+                      device=str(self.device), precision=self.precision)
 
     def _tests(self):
         """``(key, x, y, max_rul)`` of each test set (one, or one per key
@@ -184,7 +210,7 @@ class Trainer:
         model = load_model_dict(self.spec.model_cls(**self.model_hparams),
                                 state_dict).eval().to(self.device)
         engine = Engine(model, self.spec, self.train_params, seed=0,
-                        device=str(self.device))
+                        device=str(self.device), precision=self.precision)
         keys = list(self.data.test) if self.data.is_dict_test else [None]
         trackers = {k: BestTracker(run_dir, key=k) for k in keys}
         self._evaluate_and_track(engine, trackers, logger)
@@ -194,37 +220,61 @@ class Trainer:
         """Run every seed; returns ``{run_id: {key_or_None: best 4-tuple}}``."""
         if self.vectorized_runs:
             return self._train_vectorized()
-        all_results = {}
+        ckptr = AsyncCheckpointer()
+        try:
+            return {run_id: self._train_run(run_id, ckptr)
+                    for run_id in range(self.num_runs)}
+        finally:
+            ckptr.close()
+
+    def _save(self, save, path: str, engine: Engine, epoch: int,
+              run_id: int):
+        return save(path, engine.model, engine.optimizer, epoch=epoch,
+                    run_id=run_id, hparams=self.model_hparams,
+                    train_params=self.train_params,
+                    scheduler=engine.scheduler, precision=self.precision)
+
+    def _train_run(self, run_id: int, ckptr: AsyncCheckpointer) -> Dict:
+        """One sequential run; returns ``{key_or_None: best 4-tuple}``."""
         num_epochs = int(self.train_params["num_epochs"])
         shuffle = self.dataset_config.shuffle
         n_train = int(self.data.train_x.shape[0])
-        for run_id in range(self.num_runs):
-            run_dir = os.path.join(self.exp_log_dir,
-                                   f"{self.method}_run_{run_id}")
-            engine = self._build_engine(seed=run_id)
-            # Static per (method, hparams): one forward on the meta device.
-            edges = edges_per_sample(engine.model, self.data.train_x)
-            logger = self._header(run_dir, run_id, self.method, edges)
-            keys = list(self.data.test) if self.data.is_dict_test else [None]
-            trackers = {k: BestTracker(run_dir, key=k) for k in keys}
-            for epoch in range(1, num_epochs + 1):
-                t0 = time.perf_counter()
-                loss = engine.run_epoch(self.data.train_x, self.data.train_y,
-                                        epoch, shuffle=shuffle)
-                dt = time.perf_counter() - t0  # the loss read synchronised
-                sps = n_train / max(dt, 1e-9)
-                logger.debug(f"[Epoch : {epoch}/{num_epochs}]")
-                logger.debug(f"loss\t: {loss:2.4f}\t({dt:.2f}s | "
-                             f"{sps:,.0f} samples/s | {sps * edges:,.3g} "
-                             f"edges/s)")
-                self._evaluate_and_track(engine, trackers, logger)
-                logger.debug("-" * 37)
-            save_checkpoint(os.path.join(run_dir, "checkpoint.pt"),
-                            engine.model, engine.optimizer, epoch=num_epochs,
-                            run_id=run_id, hparams=self.model_hparams,
-                            train_params=self.train_params)
-            all_results[run_id] = {k: t.best for k, t in trackers.items()}
-        return all_results
+        run_dir = os.path.join(self.exp_log_dir,
+                               f"{self.method}_run_{run_id}")
+        ckpt_path = os.path.join(run_dir, "checkpoint.pt")
+        engine = self._build_engine(seed=run_id)
+        # Static per (method, hparams): one forward on the meta device.
+        edges = edges_per_sample(engine.model, self.data.train_x)
+        logger = self._header(run_dir, run_id, self.method, edges)
+        start_epoch = 1
+        if self.resume and os.path.exists(ckpt_path):
+            start_epoch = restore(ckpt_path, engine.model,
+                                  engine.optimizer, engine.scheduler) + 1
+            logger.debug(f"Resumed from epoch {start_epoch - 1}")
+        keys = list(self.data.test) if self.data.is_dict_test else [None]
+        trackers = {k: BestTracker(run_dir, key=k) for k in keys}
+        for epoch in range(start_epoch, num_epochs + 1):
+            t0 = time.perf_counter()
+            loss = engine.run_epoch(self.data.train_x, self.data.train_y,
+                                    epoch, shuffle=shuffle)
+            dt = time.perf_counter() - t0  # the loss read synchronised
+            sps = n_train / max(dt, 1e-9)
+            logger.debug(f"[Epoch : {epoch}/{num_epochs}]")
+            logger.debug(f"loss\t: {loss:2.4f}\t({dt:.2f}s | "
+                         f"{sps:,.0f} samples/s | {sps * edges:,.3g} "
+                         f"edges/s)")
+            self._evaluate_and_track(engine, trackers, logger)
+            logger.debug("-" * 37)
+            if self.checkpoint_every and epoch % self.checkpoint_every == 0:
+                self._save(ckptr.save, ckpt_path, engine, epoch, run_id)
+        if start_epoch > num_epochs:
+            # A checkpoint at or past the last epoch: nothing to train;
+            # its weights are evaluated once for the run's artifacts.
+            self._evaluate_and_track(engine, trackers, logger)
+        ckptr.wait()
+        self._save(save_checkpoint, ckpt_path, engine,
+                   max(num_epochs, start_epoch - 1), run_id)
+        return {k: t.best for k, t in trackers.items()}
 
     def _train_vectorized(self) -> Dict[int, Dict]:
         """Every run at once, seed = run index: one epoch of all seeds a
@@ -233,7 +283,8 @@ class Trainer:
         ``checkpoint.pt`` (its seed's slice of the state)."""
         seeds = list(range(self.num_runs))
         engine = VectorizedEngine(self._model, self.spec, self.train_params,
-                                  seeds, device=str(self.device))
+                                  seeds, device=str(self.device),
+                                  precision=self.precision)
         edges = edges_per_sample(engine.model, self.data.train_x)
         keys = list(self.data.test) if self.data.is_dict_test else [None]
         run_dirs, loggers, trackers = [], [], []
@@ -278,6 +329,7 @@ class Trainer:
             save_checkpoint(os.path.join(run_dirs[run_id], "checkpoint.pt"),
                             model, optimizer, epoch=num_epochs, run_id=run_id,
                             hparams=self.model_hparams,
-                            train_params=self.train_params)
+                            train_params=self.train_params,
+                            precision=self.precision)
         return {run_id: {k: t.best for k, t in trackers[run_id].items()}
                 for run_id in seeds}

@@ -22,10 +22,13 @@ elementwise, so it is S Adams; LOGO_bearing's per-batch MultiStepLR, every
 seed at the same step. The forward runs under vmap and the backward is an
 ordinary ``backward()`` of the sum of the seeds' losses, outside vmap (the
 operators' registered backwards cannot run under ``torch.func.grad``).
-The seeds differ from S sequential runs only by the rounding of batched
-products, and in one way more: dropout under vmap draws every seed's
-masks from one stream, so with dropout on, seed s does not replay its
-sequential run's masks (the JAX package's does; ROADMAP.md Queue 3).
+Dropout is keyed (``nn/basic.py``): each step passes the (S,) keys of
+:func:`~..nn.basic.step_key` ``(seed, epoch, step)`` into the vmapped
+loss, so seed s draws exactly the masks of its sequential run, and the
+vmap runs with ``randomness="error"``: no draw from a generator. The seeds
+differ from S sequential runs only by the rounding of batched products.
+``precision="bf16"`` casts each seed's parameters, constants and input as
+the sequential :class:`~.engine.Engine` does (``train/precision.py``).
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ from torch import nn
 from torch.func import functional_call, stack_module_state, vmap
 
 from ..export import resolve_device
+from ..nn.basic import dropout_key, step_key
 from .algorithms import AlgorithmSpec, resolve_aux_weight
 from .engine import GAMMA, MILESTONES, mse
+from .precision import bf16_forward, cast_buffer_names, check_precision
 
 
 def _constant_names(model: nn.Module) -> List[str]:
@@ -59,8 +64,10 @@ class VectorizedEngine:
     def __init__(self, model_fn: Callable[[], nn.Module],
                  spec: AlgorithmSpec, train_params: Dict,
                  seeds: List[int], eval_batch_size: Optional[int] = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", precision: str = "fp32"):
         self.device = resolve_device(device)
+        self.precision = check_precision(precision)
+        self.step_count = 0
         self.spec = spec
         self.train_params = dict(train_params)
         self.batch_size = int(train_params["batch_size"])
@@ -73,6 +80,7 @@ class VectorizedEngine:
             models.append(model_fn().to(self.device))
         # The structure functional_call runs; every tensor is replaced.
         self.model = models[0]
+        self._cast = cast_buffer_names(self.model)
         constants = _constant_names(self.model)
         params, buffers = stack_module_state(models)
         self.params = params
@@ -95,25 +103,38 @@ class VectorizedEngine:
         self._data: tuple = ()
 
     def _forward(self, params, buffers, x):
-        return functional_call(self.model, (params, buffers, self.constants),
-                               (x,))
+        if self.precision == "fp32":
+            return functional_call(self.model,
+                                   (params, buffers, self.constants), (x,))
+        return bf16_forward(self.model, params,
+                            {**buffers, **self.constants}, self._cast, x)
 
-    def _loss(self, params, buffers, x, y):
-        out = self._forward(params, buffers, x)
+    def _loss(self, params, buffers, x, y, key):
+        with dropout_key(key):
+            out = self._forward(params, buffers, x)
         pred, aux = out if isinstance(out, tuple) else (out, None)
         loss = mse(pred, y)
         if aux is not None and self.aux_weight != 0.0:
             loss = loss + self.aux_weight * aux
         return loss
 
-    def train_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def train_step(self, x: torch.Tensor, y: torch.Tensor,
+                   keys: Optional[List[int]] = None) -> torch.Tensor:
         """One optimizer step of every seed on its batch, ``x (S, B, ...)``
         and ``y (S, B, 1)`` on the device; returns the (S,) losses,
-        detached and still on the device."""
+        detached and still on the device. ``keys`` are the seeds' dropout
+        keys (by default those of each seed's n-th step, ``(seed, 0,
+        n)``, as the sequential Engine's)."""
+        if keys is None:
+            keys = [step_key(s, 0, self.step_count) for s in self.seeds]
+        self.step_count += 1
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        losses = vmap(self._loss, randomness="different")(
-            self.params, self.buffers, x, y)
+        # Fills, not a copy from the host (which would wait for the card).
+        keys = torch.stack([torch.full((), k, dtype=torch.int64,
+                                       device=self.device) for k in keys])
+        losses = vmap(self._loss, randomness="error")(
+            self.params, self.buffers, x, y, keys)
         losses.sum().backward()
         self.optimizer.step()
         if self.scheduler is not None:
@@ -150,9 +171,11 @@ class VectorizedEngine:
         perm = self.permutations(n, epoch, shuffle)
         total = torch.zeros(len(self.seeds), dtype=torch.float64,
                             device=self.device)
-        for start in range(0, n, self.batch_size):
+        for i, start in enumerate(range(0, n, self.batch_size)):
             idx = perm[:, start:start + self.batch_size]
-            loss = self.train_step(x_all[idx], y_all[idx])
+            loss = self.train_step(x_all[idx], y_all[idx],
+                                   [step_key(s, epoch, i)
+                                    for s in self.seeds])
             total += loss.double() * idx.shape[1]
         return total.cpu().numpy() / max(n, 1)
 
@@ -170,7 +193,7 @@ class VectorizedEngine:
             x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
         self.model.eval()
         forward = vmap(self._forward, in_dims=(0, 0, None),
-                       randomness="different")
+                       randomness="error")
         preds = []
         for i in range(n_batches):
             out = forward(self.params, self.buffers,

@@ -298,10 +298,22 @@ def test_cli_exports_a_checkpoint(tmp_path, capsys, prefix):
 
 
 def test_bf16_raises_naming_roadmap():
+    """bf16 export is ported (it raised until then, naming ROADMAP): its
+    program takes and returns fp32 and serves as the live bf16 model; a
+    precision other than fp32 or bf16 raises."""
     sd = from_jax_variables("FC_STGNN", seeded_variables("FC_STGNN"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    meta, program = export.export_serving("FC_STGNN", "CMAPSS", "FD001", sd,
+                                          precision="bf16", device="cpu")
+    assert meta["precision"] == "bf16"
+    x = _x(5, seed=4)
+    got = program.module()(torch.from_numpy(x)).detach().numpy()
+    live = export.serving_model("FC_STGNN", "CMAPSS", "FD001", sd,
+                                precision="bf16", device="cpu")
+    assert got.dtype == np.float32 and live(x).dtype == np.float32
+    np.testing.assert_array_equal(got, live(x))
+    with pytest.raises(ValueError, match="precision"):
         export.export_serving("FC_STGNN", "CMAPSS", "FD001", sd,
-                              precision="bf16", device="cpu")
+                              precision="fp16", device="cpu")
 
 
 def test_load_rejects_a_foreign_file(tmp_path):

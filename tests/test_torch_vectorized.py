@@ -354,27 +354,37 @@ def _data(n=10, shape=(14, 50), seed=0):
             r.uniform(size=(n, 1)).astype(np.float32))
 
 
-def _model_fn(method):
+def _model_fn(method, dropout=False):
+    if dropout:
+        return lambda: build_model(method, *cell(method))
     return lambda: no_dropout(build_model(method, *cell(method)))
 
 
-@pytest.mark.parametrize("method", ["FC_STGNN", "LOGO"])
-def test_vectorized_engine_matches_sequential_engines(method):
+@pytest.mark.parametrize("method,dropout", [
+    ("FC_STGNN", False), ("LOGO", False), ("FC_STGNN", True),
+    ("STFA", True)])
+def test_vectorized_engine_matches_sequential_engines(method, dropout):
     """Three seeds, 2 epochs of 10 rows at batch 4 (a remainder batch of
-    2), shuffle on, dropout off: each seed's epoch losses and predictions
-    are its own sequential Engine's (tests/test_vectorized.py:35-105)."""
+    2), shuffle on: each seed's epoch losses and predictions are its own
+    sequential Engine's (tests/test_vectorized.py:35-105), with dropout
+    off and with the bank's dropout on (FC_STGNN's pe_dropout 0.1, STFA's
+    attention dropout 0.2): each seed draws its sequential run's keyed
+    masks (tests/test_vectorized.py:35-42)."""
     spec = get_algorithm_spec(method)
     x, y = _data()
     xt, _ = _data(n=6, seed=9)
+    make = _model_fn(method, dropout)
+    drops = [m.p for m in make().modules()
+             if isinstance(m, torch.nn.Dropout)]
+    assert (max(drops, default=0.0) > 0) == dropout
     seq_losses, seq_preds = [], []
     for s in SEEDS:
         torch.manual_seed(s)
-        eng = Engine(_model_fn(method)(), spec, TP, seed=s, device="cpu")
+        eng = Engine(make(), spec, TP, seed=s, device="cpu")
         seq_losses.append([eng.run_epoch(x, y, e, shuffle=True)
                            for e in (1, 2)])
         seq_preds.append(eng.evaluate(xt))
-    veng = VectorizedEngine(_model_fn(method), spec, TP, SEEDS,
-                            device="cpu")
+    veng = VectorizedEngine(make, spec, TP, SEEDS, device="cpu")
     v_losses = [veng.run_epoch(x, y, e, shuffle=True) for e in (1, 2)]
     v_preds = veng.evaluate(xt)
     assert v_preds.shape == (len(SEEDS), len(xt))
@@ -384,6 +394,42 @@ def test_vectorized_engine_matches_sequential_engines(method):
                                    err_msg=f"seed {s}")
         np.testing.assert_allclose(v_preds[i], seq_preds[i], rtol=PRED_RTOL,
                                    atol=PRED_ATOL, err_msg=f"seed {s}")
+
+
+def test_keyed_dropout_mask_rate_and_independence():
+    """The keyed mask keeps 1 - p of the elements, and differs across the
+    sites of one forward, across steps and across seeds; the same key
+    gives the same mask, under vmap too (one key a seed)."""
+    from gnn_rul_tpu_torch.nn.basic import (Dropout, dropout_key,
+                                            keep_mask, step_key)
+    drop = Dropout(0.3).train()
+    x = torch.ones(200_000)
+    masks = {}
+    for seed, step in ((0, 0), (0, 1), (1, 0)):
+        with dropout_key(step_key(seed, 1, step)):
+            first, second = drop(x) != 0, drop(x) != 0
+        masks[seed, step] = first
+        for m in (first, second):
+            assert abs(m.double().mean().item() - 0.7) < 0.005
+        assert 0.55 < (first == second).double().mean().item() < 0.6
+    kept = masks[0, 0]
+    assert 0.55 < (kept == masks[0, 1]).double().mean().item() < 0.6
+    assert 0.55 < (kept == masks[1, 0]).double().mean().item() < 0.6
+    with dropout_key(step_key(0, 1, 0)):
+        out = drop(x)
+    assert torch.equal(out != 0, kept)
+    assert torch.equal(out[kept], x[kept] / 0.7)
+    assert not torch.equal(drop(x) != 0, kept)  # outside a key: a new draw
+    keys = torch.tensor([step_key(s, 1, 0) for s in (1, 0)])
+
+    def one(key, v):
+        with dropout_key(key):
+            return drop(v)
+    both = torch.func.vmap(one, in_dims=(0, None), randomness="error")(
+        keys, x)
+    assert torch.equal(both[0] != 0, masks[1, 0])
+    assert torch.equal(both[1] != 0, kept)
+    assert keep_mask(torch.tensor(5), (3, 4), 0.5, x.device).shape == (3, 4)
 
 
 def test_vectorized_init_and_permutations_are_the_sequential_ones():
