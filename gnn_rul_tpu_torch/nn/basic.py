@@ -8,9 +8,11 @@ an integer key and the element index, as JAX's ``fold_in`` keys make it:
 the engines open :func:`dropout_key` around each step with the key of
 ``(run seed, epoch, step in the epoch)`` (:func:`step_key`), and the n-th
 dropout call of the forward hashes that key with n, then with each
-element's index (splitmix64 in int64 tensor ops). So a mask is the same
-bits on the CPU and on the card, and under ``torch.func.vmap`` a key of
-one entry per seed gives seed s the mask its sequential run draws.
+element's index (splitmix64; the operator of
+``ops/kernels/keyed_dropout.py``, one launch a call on the card). So a
+mask is the same bits on the CPU and on the card, and under
+``torch.func.vmap`` a key of one entry per seed gives seed s the mask its
+sequential run draws.
 
 :class:`BatchNorm1d` and :class:`BatchNormNCL` take a bfloat16 input as
 flax's ``BatchNorm`` does: statistics and normalisation in fp32, the
@@ -29,44 +31,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-_MASK64 = (1 << 64) - 1
-_GOLDEN = 0x9E3779B97F4A7C15
-_MIX1, _MIX2 = 0xBF58476D1CE4E5B9, 0x94D049BB133111EB
-
-
-def _signed(v: int) -> int:
-    """A 64-bit pattern as the int64 that holds it."""
-    v &= _MASK64
-    return v - (1 << 64) if v >> 63 else v
-
-
-def _mix_int(z: int) -> int:
-    """splitmix64's finaliser on a Python int (64-bit wrapping)."""
-    z &= _MASK64
-    z = ((z ^ (z >> 30)) * _MIX1) & _MASK64
-    z = ((z ^ (z >> 27)) * _MIX2) & _MASK64
-    return z ^ (z >> 31)
-
-
-def _srl(z: torch.Tensor, n: int) -> torch.Tensor:
-    """Logical right shift of int64 ``z``: torch's ``>>`` is arithmetic,
-    so the sign bits it brings in are masked off."""
-    return (z >> n) & ((1 << (64 - n)) - 1)
-
-
-def _mix(z: torch.Tensor) -> torch.Tensor:
-    """splitmix64's finaliser on int64 tensors; the products wrap."""
-    z = (z ^ _srl(z, 30)) * _signed(_MIX1)
-    z = (z ^ _srl(z, 27)) * _signed(_MIX2)
-    return z ^ _srl(z, 31)
+from ..ops.kernels.keyed_dropout import GOLDEN, keyed_dropout, mix_int, signed
 
 
 def step_key(seed: int, epoch: int, step: int) -> int:
     """The int64 key of optimizer step ``step`` (0-based in its epoch) of
     epoch ``epoch`` of the run of seed ``seed``."""
-    z = _mix_int(int(seed) * _GOLDEN + 1)
-    z = _mix_int(z + int(epoch) * _GOLDEN)
-    return _signed(_mix_int(z + int(step) * _GOLDEN))
+    z = mix_int(int(seed) * GOLDEN + 1)
+    z = mix_int(z + int(epoch) * GOLDEN)
+    return signed(mix_int(z + int(step) * GOLDEN))
 
 
 class _Stream:
@@ -96,40 +69,26 @@ def dropout_key(key: Union[int, Sequence[int], torch.Tensor]
         _STREAM.reset(token)
 
 
-def keep_mask(key: torch.Tensor, shape, p: float,
-              device: torch.device) -> torch.Tensor:
-    """The keep mask of ``shape`` for ``key`` (an int64 tensor): element e
-    is kept where the top 24 bits of ``mix(key + e * golden)`` reach
-    ``p * 2^24``, so with probability 1 - p."""
-    n = 1
-    for s in shape:
-        n *= int(s)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    bits = _mix(key.to(device) + idx * _signed(_GOLDEN))
-    return (_srl(bits, 40) >= round(p * (1 << 24))).reshape(shape)
-
-
 class Dropout(nn.Dropout):
     """``nn.Dropout`` with the keyed mask: in train mode ``where(keep, x /
-    (1 - p), 0)``, flax's form. Inside :func:`dropout_key` the n-th call
-    of the block uses ``mix(key + n * golden)``; outside one, each call
-    draws its key from torch's global generator, so a plain
-    ``model.train(); model(x)`` still drops out."""
+    (1 - p), 0)``, flax's form, through ``keyed_dropout``. Inside
+    :func:`dropout_key` the n-th call of the block uses ``(key, n)``;
+    outside one, each call draws its key from torch's global generator, so
+    a plain ``model.train(); model(x)`` still drops out."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         stream = _STREAM.get()
         if stream is None:
-            key = torch.randint(-(1 << 63), (1 << 63) - 1, (),
-                                dtype=torch.int64, device=x.device)
+            key, call = torch.randint(-(1 << 63), (1 << 63) - 1, (),
+                                      dtype=torch.int64, device=x.device), 0
         else:
-            key = _mix(stream.key + _signed(stream.calls * _GOLDEN))
+            key, call = stream.key, stream.calls
             stream.calls += 1
         if self.p == 1.0:
             return torch.zeros_like(x)
-        keep = keep_mask(key, x.shape, self.p, x.device)
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+        return keyed_dropout(x, key, call, self.p)
 
 
 class GELU(nn.Module):

@@ -400,8 +400,8 @@ def test_keyed_dropout_mask_rate_and_independence():
     """The keyed mask keeps 1 - p of the elements, and differs across the
     sites of one forward, across steps and across seeds; the same key
     gives the same mask, under vmap too (one key a seed)."""
-    from gnn_rul_tpu_torch.nn.basic import (Dropout, dropout_key,
-                                            keep_mask, step_key)
+    from gnn_rul_tpu_torch.nn.basic import Dropout, dropout_key, step_key
+    from gnn_rul_tpu_torch.ops.kernels.keyed_dropout import keep_mask
     drop = Dropout(0.3).train()
     x = torch.ones(200_000)
     masks = {}
