@@ -4161,9 +4161,9 @@ def main() -> None:
             # HAGCN's three layers at a batch of 100 (H = 60, 120) and its
             # widest at a request of 1000 (T = 14,000).
             # LOGO's, HAGCN's and LOGO_bearing's shapes, at PHM2012 and at
-            # XJTU-SY (B = 544, ROADMAP Queue 2's debt); PR 5's (100, 70,
-            # 24) and (1000, 70, 48) and LOGO_bearing's H = 60 layer are
-            # cut (a timing depth, PERF.md §4).
+            # XJTU-SY (B = 544, ROADMAP Queue 2's debt); (100, 70, 24),
+            # (1000, 70, 48) and LOGO_bearing's H = 60 layer are cut (a
+            # timing depth, PERF.md §4).
             lstm = _lstm_times([(100, 70, 48), (1400, 5, 60),
                                 (1400, 5, 120), (14000, 5, 120),
                                 (100, 200, 30), (100, 544, 30)])
