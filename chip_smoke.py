@@ -116,8 +116,8 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    in the sequential ones; FC_STGNN: each term of its gradient at every
    step, the vectorized run's (leaky) ReLU masks replayed, and its
    losses); one vectorized epoch of FD001's
-   (FEMTO's) real size against 5 sequential epochs (5 times the mean of
-   2 timed), samples/s over all
+   (FEMTO's) real size against 5 sequential epochs (5 times one
+   timed), samples/s over all
    seeds, and the card's busy share of a traced vectorized step;
 11. bf16 (``--precision bf16``): each kernel's bf16 instantiation against
    its plain bf16 version (within one bf16 ulp) and against its own fp32
@@ -139,14 +139,34 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    ``Trainer`` and ``resume=True``: parameters and predictions held at the
    5-step tolerances, bit-equal tensors counted; how long an
    ``AsyncCheckpointer.save`` blocks the training thread, and that the
-   step after a save never reaches its file.
+   step after a save never reaches its file;
+13. mesh (``--mesh``, ``parallel/``): a job of two ranks on this one card
+   (``GNNRUL_*``, ``parallel/_dist_worker.py::launch``; gloo by the backend
+   rule, NCCL taking one rank a device), :func:`_mesh_rank`:
+   ``cli.main --mesh data=2`` trains FC_STGNN and LOGO 2 epochs on 2,000
+   FD001 windows, each kernel's launches counted on each rank (the same as
+   one process's: every step still launches), every step's loss and
+   summed gradient held at the job's weights against one process's (FC_STGNN's
+   (leaky) ReLU masks replayed, SIGNED), the free-running runs' drift
+   printed; rank 0's final weights evaluated over the data axis
+   (``--eval_torch_checkpoint --mesh data=2``) against one process, the
+   predictions at MESH_PRED_ATOL and each rank the whole vector's metrics;
+   rank 1 writes nothing; FC_STGNN trained 1
+   epoch and resumed to 2 lands on the straight run; on ``data=1,
+   model=2`` the four node-sharded engines at HierCorrPool's, STFA's and
+   FC_STGNN's full-width shapes, forward and gradients, against the local
+   computation on the card, and one FC_STGNN step through its hook against
+   the step without it; ``--profile`` of FC_STGNN's epoch 2 (rank 0) names
+   ``fused_dot_graph_spmm``, its ten longest device operations printed;
+   ``complexity_computation`` of FC_STGNN equal on the card and the CPU.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (ten
 entries, the five kernels at fp32 and at bf16; the grouped kernels' times
 and the vectorized launches beside each fp32 one), the ones before it
-``{"resume": {...}}`` (phase 12), ``{"vectorized": {...}}`` (phase 10's
-epochs) and ``{"bf16_train": {...}}`` (phase 11's step and epoch
-ratios); the last line is ``{"ok": true, "device": {...}}``.
+``{"resume": {...}}`` (phase 12), ``{"mesh": {...}}`` (phase 13),
+``{"vectorized": {...}}`` (phase 10's epochs) and ``{"bf16_train":
+{...}}`` (phase 11's step and epoch ratios); the last line is ``{"ok":
+true, "device": {...}}``.
 
 ``python3 -c "import chip_smoke as c; c._turns('build/parent')"`` times
 the dot-graph forward and backward and the attention of an earlier commit
@@ -3095,9 +3115,10 @@ def _dropout_step_times() -> dict:
     call. Returns both."""
     from gnn_rul_tpu_torch.nn import basic
 
-    def plain(x, key, call, p):
+    def plain(x, key, call, p, offset=0):
         return keyed_dropout.keyed_dropout_plain(x.contiguous(),
-                                                 key.to(x.device), call, p)
+                                                 key.to(x.device), call, p,
+                                                 offset)
 
     def torch_dropout(self, x):
         return torch.nn.functional.dropout(x, self.p, self.training)
@@ -3361,9 +3382,9 @@ def _vectorized(method: str) -> dict:
 
 
 # Sequential epochs timed against a vectorized one: SEEDS times their mean
-# stands for the SEEDS sequential epochs (PR 13 timed all 5; each seed's
-# epoch is the same work; a depth cut of PR 14, PERF.md §4).
-SEQUENTIAL_TIMED = 2
+# stands for the SEEDS sequential epochs (each seed's epoch is the same
+# work). One is timed: a timing-depth cut, never a check (PERF.md §4).
+SEQUENTIAL_TIMED = 1
 
 
 def _vectorized_times(method: str, data: _Processed) -> dict:
@@ -4100,6 +4121,521 @@ def _resume(data: dict, tmp: str) -> dict:
     return out
 
 
+# Phase 13, "mesh": training across the ranks of a torch.distributed job.
+# The job is two ranks on the one card, over gloo by the backend rule (NCCL
+# takes one rank a device): it proves the data axis and the node-sharded
+# engines on the card, not their speed. MESH_WINDOWS training windows of
+# FD001 (cut data), 2 epochs a run.
+MESH_WINDOWS = 2000
+MESH_METHODS = ("FC_STGNN", "LOGO")
+MESH_RANKS = 2
+MESH_TIMEOUT = 300
+# Predictions of the same weights evaluated over the data axis against one
+# process (tests/test_torch_mesh_training.py's PRED_ATOL).
+MESH_PRED_ATOL = 1e-4
+
+
+def _mesh_args(method: str, root: str, save_dir: str, epochs: int):
+    return ["--GNN_method", method, "--dataset", "CMAPSS", "--dataset_id",
+            "FD001", "--data_path", root, "--save_dir", save_dir,
+            "--epochs", str(epochs), "--num_runs", "1",
+            "--checkpoint_every", "1"]
+
+
+def _mesh_eval(method: str, root: str, save_dir: str, ckpt: str,
+               mesh: bool) -> list:
+    """``cli.main --eval_torch_checkpoint`` of ``ckpt`` on the test set
+    (over ``--mesh data=2`` where ``mesh``); the metrics it returns."""
+    argv = _mesh_args(method, root, save_dir, 2) + [
+        "--eval_torch_checkpoint", ckpt]
+    return list(map(float, cli.main(argv + (["--mesh", "data=2"] if mesh
+                                            else []))[None]))
+
+
+def _mesh_data(data: _Processed, tmp: str) -> str:
+    """FD001's first MESH_WINDOWS training windows and its test set, as
+    the preprocessor writes them; returns the data root."""
+    from gnn_rul_tpu_torch.data.loader import load_dataset, resolve_data_path
+    bundle = load_dataset(resolve_data_path(data.root, "CMAPSS", "FD001",
+                                            None))
+    root = os.path.join(tmp, "mesh", "Processed_dataset")
+    out = os.path.join(root, "CMAPSS", "FD001")
+    (tx, ty), cut = bundle.test, slice(0, MESH_WINDOWS)
+    save_processed(out, "train", bundle.train_x[cut].transpose(0, 2, 1),
+                   bundle.train_y[cut], bundle.max_ruls)
+    save_processed(out, "test", tx.transpose(0, 2, 1), ty, bundle.max_ruls)
+    return root
+
+
+def _mesh_launches() -> dict:
+    """Each wrapper's (forward, backward) launches since :func:`_reset`,
+    the keyed dropout's forward and backward alike."""
+    out = {type(k).__name__: _counts(k) for k in WRAPPERS.values()}
+    out["KeyedDropout"] = (keyed_dropout.keyed_dropout.launches, 0)
+    return out
+
+
+def _mesh_hold(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """``got`` against ``want`` at the kernels' tolerance; the error."""
+    err = (got - want).abs()
+    if not bool((err <= TOL_ATOL + TOL_RTOL * want.abs()).all()) \
+            or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: off by {err.max().item():.3e}")
+    return err.max().item()
+
+
+def _mesh_engine_cases():
+    """The four node-sharded engines at the full-width shapes of their
+    methods' hooks at a batch of 100: ``A @ X`` at HierCorrPool's, the
+    attention panel at STFA's, the dot-graph chain (and its ring) at
+    FC_STGNN's with its decay mask. ``(name, engine, inputs)``, seeded on
+    the CPU and moved to the card."""
+    rng = np.random.default_rng(13)
+
+    def arr(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    hcp = build_model("HierCorrPool", "CMAPSS", "FD001")
+    n_hcp = model_hparams("CMAPSS", "FD001", "HierCorrPool")["num_nodes"]
+    d_hcp = hcp.gc1.Graph_Clustering.dimension_mapping.in_features
+    bt = SERVE_BATCH * _STFA_HP["num_patch"]
+    n_fc, d_fc, f_fc = FC_STGNN_NDF
+    mask = decay_mask(_FC_HP["num_node"], 2, 0.7)
+    cases = [
+        ("spmm HierCorrPool", "spmm",
+         {"adj": torch.softmax(arr(SERVE_BATCH, n_hcp, n_hcp), -1),
+          "x": arr(SERVE_BATCH, n_hcp, d_hcp)}),
+        ("gat STFA", "gat",
+         {"wh": arr(bt, 14, _STFA_HP["output_dim"]), "f1": arr(bt, 14),
+          "f2": arr(bt, 14), "adj": prior_knowledge_graph()}),
+        ("dot graph FC_STGNN", "dot_graph",
+         {"x": arr(SERVE_BATCH, n_fc, d_fc), "v": arr(SERVE_BATCH, n_fc, f_fc),
+          "mask": mask}),
+        ("ring FC_STGNN", "ring",
+         {"x": arr(SERVE_BATCH, n_fc, d_fc), "v": arr(SERVE_BATCH, n_fc, f_fc),
+          "mask": mask}),
+    ]
+    for _, _, t in cases:
+        out_shape = (t.get("wh", t.get("x")).shape[:-1]
+                     + (t.get("wh", t.get("v", t.get("x"))).shape[-1],))
+        t["cot"] = arr(*out_shape)
+    return [(name, engine, {k: v.cuda() for k, v in t.items()})
+            for name, engine, t in cases]
+
+
+def _mesh_engine(engine: str, t: dict, mesh=None):
+    """The engine over ``mesh``'s model axis, or (None) the local
+    computation, on the inputs ``t``."""
+    from gnn_rul_tpu_torch.parallel import graph_partition as gp
+    if engine == "spmm":
+        return (gp.node_sharded_spmm(t["adj"], t["x"], mesh) if mesh
+                else torch.einsum("bnm,bmd->bnd", t["adj"], t["x"]))
+    if engine == "gat":
+        slope, bias = 0.1, 0.3
+        if mesh:
+            return gp.node_sharded_gat(t["wh"], t["f1"], t["f2"], t["adj"],
+                                       bias, slope, mesh)
+        e = torch.nn.functional.leaky_relu(
+            t["f1"][:, :, None] + t["f2"][:, None, :] + bias, slope)
+        return torch.einsum("bnm,bmd->bnd", torch.softmax(e, -1) * t["adj"],
+                            t["wh"])
+    if mesh:
+        fn = (gp.node_sharded_dot_graph_spmm if engine == "dot_graph"
+              else gp.ring_dot_graph_spmm)
+        return fn(t["x"], t["v"], mesh, mask=t["mask"])
+    return fused_gnn.fused_dot_graph_spmm_plain(t["x"], t["v"], t["mask"])
+
+
+def _mesh_engines(mesh) -> dict:
+    """Each engine's output and its inputs' gradients (of ``sum(out *
+    cot)``) over the model axis, against the local computation on the card:
+    the largest error, held at the kernels' tolerance."""
+    errs = {}
+    for name, engine, t in _mesh_engine_cases():
+        results = []
+        for where in (mesh, None):
+            leaves = {k: v.clone().requires_grad_(k not in ("mask", "cot",
+                                                            "adj"))
+                      for k, v in t.items()}
+            out = _mesh_engine(engine, leaves, where)
+            (out * leaves["cot"]).sum().backward()
+            results.append([out.detach()] + [leaves[k].grad for k in
+                                             sorted(leaves)
+                                             if leaves[k].grad is not None])
+        errs[name] = max(_mesh_hold(f"mesh {name}", got, want)
+                         for got, want in zip(*results))
+    return errs
+
+
+def _mesh_hooked_step(mesh, root: str) -> float:
+    """One FC_STGNN training step at a batch of 100 through the hook on
+    ``mesh`` (model=2) against the step without it, from the same weights
+    on the same rows: the loss and every gradient at the kernels'
+    tolerance; returns the largest gradient error."""
+    from gnn_rul_tpu_torch.data.loader import load_dataset, resolve_data_path
+    from gnn_rul_tpu_torch.parallel.graph_partition import spmm_hook_kwargs
+    bundle = load_dataset(resolve_data_path(root, "CMAPSS", "FD001", None))
+    x = torch.from_numpy(bundle.train_x[:SERVE_BATCH]).cuda()
+    y = torch.from_numpy(bundle.train_y[:SERVE_BATCH]).cuda()
+    grads, losses = [], []
+    for hook in (spmm_hook_kwargs("FC_STGNN", mesh), {}):
+        torch.manual_seed(0)
+        model = fc_stgnn.FCSTGNN(**_FC_HP, **hook)
+        engine = Engine(model, get_algorithm_spec("FC_STGNN"),
+                        train_params("CMAPSS", "FD001", "FC_STGNN"),
+                        mesh=mesh if hook else None)
+        losses.append(engine.train_step(x, y, key=step_key(0, 1, 0)))
+        grads.append({k: p.grad for k, p in model.named_parameters()})
+    _mesh_hold("mesh hooked step loss", losses[0], losses[1])
+    return max(_mesh_hold(f"mesh hooked step {k}", grads[0][k], g)
+               for k, g in grads[1].items())
+
+
+def _packed(mask: torch.Tensor) -> tuple:
+    return tuple(mask.shape), np.packbits(mask.numpy().reshape(-1))
+
+
+def _unpacked(shape: tuple, bits: np.ndarray) -> torch.Tensor:
+    n = int(np.prod(shape))
+    return torch.from_numpy(np.unpackbits(bits)[:n].astype(bool)).reshape(
+        shape)
+
+
+@contextlib.contextmanager
+def _recording_steps(record: list, sel, rank: int):
+    """Inside the block, each training step of an Engine appends ``(state,
+    gradients, loss, masks)`` to ``record``: on rank 0 the model's state
+    before the step, its gradients summed over the ranks and the global
+    loss (else None), and the (leaky) ReLU masks that ``sel`` (a SIGNED
+    recorder, or None) took in the step's forward, packed, on this rank's
+    rows."""
+    step = Engine.train_step
+
+    def recording(self, x, y, key=None):
+        state = ({k: v.detach().cpu().clone()
+                  for k, v in self.model.state_dict().items()}
+                 if rank == 0 else None)
+        start = len(sel.card) if sel else 0
+        with _during(sel, "record"):
+            loss = step(self, x, y, key)
+        grads = ({k: p.grad.detach().cpu().clone()
+                  for k, p in self.model.named_parameters()
+                  if p.grad is not None} if rank == 0 else None)
+        total = loss.clone()
+        torch.distributed.all_reduce(total, group=self.data_group)
+        masks = ([(name, *_packed(chosen))
+                  for name, _, chosen, _ in sel.card[start:]] if sel else [])
+        record.append((state, grads, float(total), masks))
+        return loss
+
+    Engine.train_step = recording
+    try:
+        yield
+    finally:
+        Engine.train_step = step
+
+
+def _mesh_run(method: str) -> str:
+    """A run's directory under its save_dir."""
+    return os.path.join("GNN_RUL", "run_1", f"{method}_run_0")
+
+
+def _mesh_rank(out: str, root: str) -> None:
+    """One rank of phase 13's job (``GNNRUL_*`` set by
+    ``_dist_worker.launch``): ``cli.main --mesh data=2`` trains FC_STGNN
+    (with ``--profile``) and LOGO for 2 epochs, each rank writing under its
+    own save_dir, the launches counted from 0 before each, and rank 0
+    recording every step's weights and summed gradients
+    and both ranks their (leaky) ReLU masks (:func:`_recording_steps`,
+    ``<out>/steps_<method>_<rank>.pt``); each rank then evaluates rank 0's
+    final checkpoint over the data axis (``--eval_torch_checkpoint``, rank
+    0 writing the predictions); FC_STGNN again
+    for 1 epoch and resumed to 2; then, on ``data=1, model=2``, the four
+    engines and a training step through FC_STGNN's hook. Writes
+    ``<out>/rank<r>.json``."""
+    import torch.distributed as dist
+    from gnn_rul_tpu_torch.parallel.mesh import make_mesh
+    from gnn_rul_tpu_torch.parallel.multihost import initialize_from_env
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # The resumed run to land on the straight one bit for bit, as phase 12.
+    torch.backends.cudnn.deterministic = True
+    if not initialize_from_env("cuda"):
+        raise RuntimeError("phase 13's rank found no GNNRUL_* job")
+    rank = dist.get_rank()
+    mine = os.path.join(out, f"rank{rank}")
+    res = {"rank": rank, "backend": dist.get_backend(), "runs": {}}
+    for method in MESH_METHODS:
+        argv = _mesh_args(method, root, mine, 2) + ["--mesh", "data=2"]
+        if method == "FC_STGNN":
+            argv += ["--profile", os.path.join(out, "trace")]
+        record = []
+        _reset()
+        t0 = time.perf_counter()
+        with _recording_steps(record, _signs(method) if method in SIGNED
+                              else None, rank):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        res["runs"][method] = {"s": time.perf_counter() - t0,
+                               "launches": _mesh_launches()}
+        torch.save(record, os.path.join(out, f"steps_{method}_{rank}.pt"))
+        dist.barrier()  # rank 0's final checkpoint is on disk
+        res["runs"][method]["eval"] = _mesh_eval(
+            method, root, mine, os.path.join(out, "rank0", _mesh_run(method),
+                                             "checkpoint.pt"), True)
+    resumed = os.path.join(out, f"resumed{rank}")
+    cli.main(_mesh_args("FC_STGNN", root, resumed, 1) + ["--mesh", "data=2"])
+    cli.main(_mesh_args("FC_STGNN", root, resumed, 2)
+             + ["--mesh", "data=2", "--resume"])
+    model_mesh = make_mesh(1, MESH_RANKS, device="cuda")
+    res["engines"] = _mesh_engines(model_mesh)
+    res["hooked_step"] = _mesh_hooked_step(model_mesh, root)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _mesh_gradients(method: str, root: str, out: str) -> tuple:
+    """Every step of the job's ``method`` run held as GRADIENT_HELD holds
+    phase 6's: one process's loss and gradient at the job's weights before
+    the step, on the step's global batch (the permutation of
+    ``Engine.run_epoch``, seeded by ``(seed, epoch)``) under the step's
+    dropout key, against the job's global loss (at the 5-step tolerance)
+    and summed gradient (at the kernels'). For a SIGNED method
+    the one process replays the job's (leaky) ReLU masks, the ranks' blocks
+    joined in row order (the data axis computes BatchNorm's statistics in
+    another order, so an input within rounding of 0 can take the other
+    side, as between phase 10's vectorized and sequential runs). Returns
+    the steps, the largest error and the masks that differ."""
+    from gnn_rul_tpu_torch.data.loader import load_dataset, resolve_data_path
+    record, other = (torch.load(os.path.join(out, f"steps_{method}_{r}.pt"),
+                                weights_only=False) for r in (0, 1))
+    bundle = load_dataset(resolve_data_path(root, "CMAPSS", "FD001", None))
+    x_all = torch.from_numpy(bundle.train_x).cuda()
+    y_all = torch.from_numpy(bundle.train_y).cuda()
+    n, bs = len(x_all), SERVE_BATCH
+    per_epoch = -(-n // bs)
+    engine = Engine(build_model(method, "CMAPSS", "FD001"),
+                    get_algorithm_spec(method),
+                    train_params("CMAPSS", "FD001", method))
+    err, flips = 0.0, 0
+    for k, ((state, grads, loss, masks), (_, _, _, masks1)) in enumerate(
+            zip(record, other)):
+        epoch, i = k // per_epoch + 1, k % per_epoch
+        sel = None
+        if masks:
+            sel = _signs(method)
+            sel.card = []
+            for (name, shape, bits), (_, shape1, bits1) in zip(masks, masks1):
+                mask = torch.cat([_unpacked(shape, bits),
+                                  _unpacked(shape1, bits1)])
+                sel.card.append((name, (mask.shape,), mask, None))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0 * 1_000_003 + epoch)
+        idx = torch.randperm(n, generator=gen, device="cuda")[i * bs:
+                                                             (i + 1) * bs]
+        engine.model.load_state_dict(state)
+        with _during(sel, "replay"):
+            want = engine.train_step(x_all[idx], y_all[idx],
+                                     key=step_key(0, epoch, i))
+        np.testing.assert_allclose(loss, float(want), rtol=LOSS_RTOL,
+                                   atol=LOSS_ATOL)
+        if sel:
+            flips += sel.report(method, f"step {k} of the 2-rank job")
+        for name, p in engine.model.named_parameters():
+            err = max(err, _mesh_hold(f"mesh {method} step {k} {name}",
+                                      grads[name].cuda(), p.grad))
+    if len(record) != 2 * per_epoch:
+        raise AssertionError(f"mesh {method}: {len(record)} steps recorded")
+    return len(record), err, flips
+
+
+def _epoch_times(run_dir: str) -> list:
+    """``(s, samples/s)`` of each epoch, read from a run's log."""
+    with open(os.path.join(run_dir, "logs_run_0.log")) as f:
+        return [(float(s), float(sps.replace(",", "")))
+                for s, sps in re.findall(r"\((\S+)s \| (\S+) samples/s",
+                                         f.read())]
+
+
+def _mesh_trace_top(trace_dir: str, n: int = 10) -> tuple:
+    """The ``n`` longest device operations of the trace and the ``n``
+    device kernels of most total time (name, us, calls); fails where the
+    trace names no dot-graph operator or holds no device operation."""
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+             if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"--profile wrote {files}")
+    with open(files[0]) as f:
+        text = f.read()
+    if "gnn_rul_tpu_torch::fused_dot_graph_spmm" not in text:
+        raise AssertionError("the trace names no fused_dot_graph_spmm")
+    events = [e for e in json.loads(text)["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not events:
+        raise AssertionError("the trace holds no device operation")
+    events.sort(key=lambda e: -e.get("dur", 0))
+    totals: dict = {}
+    for e in events:
+        us, calls = totals.get(e["name"], (0.0, 0))
+        totals[e["name"]] = (us + e.get("dur", 0), calls + 1)
+    by_total = sorted(totals.items(), key=lambda kv: -kv[1][0])[:n]
+    return ([(e["name"][:80], e["dur"]) for e in events[:n]],
+            [(name[:80], round(us, 1), calls)
+             for name, (us, calls) in by_total])
+
+
+def _mesh(data: dict, tmp: str) -> dict:
+    """Phase "mesh": the 2-rank job of :func:`_mesh_rank` on this card,
+    held against the same runs in this process; ``complexity_computation``
+    of FC_STGNN on the card and the CPU."""
+    from gnn_rul_tpu_torch.parallel._dist_worker import launch
+    from gnn_rul_tpu_torch.utils import complexity_computation
+    t_phase = time.perf_counter()
+    root = _mesh_data(data["CMAPSS"], tmp)
+    single = os.path.join(tmp, "mesh", "single")
+    runs = {}
+    for method in MESH_METHODS:
+        _reset()
+        t0 = time.perf_counter()
+        cli.main(_mesh_args(method, root, single, 2))
+        torch.cuda.synchronize()
+        runs[method] = {"s": time.perf_counter() - t0,
+                        "launches": _mesh_launches()}
+    out = os.path.join(tmp, "mesh", "job")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    launch(["-c", f"import chip_smoke as c; c._mesh_rank({out!r}, "
+                  f"{root!r})"], MESH_RANKS, MESH_TIMEOUT,
+           log_dir=os.path.join(out, "logs"))
+    job_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"backends {[r['backend'] for r in ranks]}")
+    for r in ranks[1:]:
+        if os.path.exists(os.path.join(out, f"rank{r['rank']}")) \
+                or os.path.exists(os.path.join(out, f"resumed{r['rank']}")):
+            raise AssertionError(f"rank {r['rank']} wrote artifacts")
+    result = {"ranks": MESH_RANKS, "backend": "gloo", "windows": MESH_WINDOWS,
+              "job_s": job_s}
+    for method in MESH_METHODS:
+        want = {k: tuple(v) for k, v in runs[method]["launches"].items()}
+        for r in ranks:
+            got = {k: tuple(v)
+                   for k, v in r["runs"][method]["launches"].items()}
+            if got != want:
+                raise AssertionError(f"mesh {method} rank {r['rank']} "
+                                     f"launched {got}, one process {want}")
+        if not any(v != (0, 0) for v in want.values()):
+            raise AssertionError(f"mesh {method}: no kernel launched")
+        run = _mesh_run(method)
+        ckpt = os.path.join(out, "rank0", run, "checkpoint.pt")
+        a = torch.load(ckpt, map_location="cpu",
+                       weights_only=True)["model_dict"]
+        b = torch.load(os.path.join(single, run, "checkpoint.pt"),
+                       map_location="cpu", weights_only=True)["model_dict"]
+        diff = max((a[k].double() - b[k].double()).abs().max().item()
+                   for k in b if b[k].is_floating_point())
+        rows = [np.array(_results_rows(os.path.join(d, run), None)[-1],
+                         dtype=float) for d in (os.path.join(out, "rank0"),
+                                                single)]
+        rdiff = float(np.max(np.abs(rows[0] - rows[1]) / np.abs(rows[1])))
+        # The same weights, rank 0's final ones, evaluated over the data
+        # axis (each rank, LOGO's Bi-LSTM over the gathered rows) and in
+        # this process: the predictions at MESH_PRED_ATOL, and every rank
+        # the whole vector's metrics.
+        metrics = _mesh_eval(method, root, single, ckpt, False)
+        preds = [np.load(os.path.join(d, "GNN_RUL", "run_1",
+                                      f"{method}_eval", "results.npz"))
+                 for d in (os.path.join(out, "rank0"), single)]
+        if not np.array_equal(preds[0]["real"], preds[1]["real"]):
+            raise AssertionError(f"mesh {method}: eval labels differ")
+        np.testing.assert_allclose(preds[0]["pre"], preds[1]["pre"],
+                                   atol=MESH_PRED_ATOL, rtol=0)
+        pred_err = float(np.max(np.abs(preds[0]["pre"] - preds[1]["pre"])))
+        for r in ranks:
+            np.testing.assert_allclose(r["runs"][method]["eval"],
+                                       ranks[0]["runs"][method]["eval"],
+                                       rtol=1e-6)
+        steps, grad_err, flips = _mesh_gradients(method, root, out)
+        epochs = [_epoch_times(os.path.join(d, run))
+                  for d in (os.path.join(out, "rank0"), single)]
+        print(f"mesh {method} [{SMI}]: cli.main --mesh data=2 as 2 ranks on "
+              f"one card (gloo) against one process, 2 epochs of "
+              f"{MESH_WINDOWS} windows: each of {steps} steps' summed "
+              f"gradient at the job's weights within atol={TOL_ATOL}, "
+              f"rtol={TOL_RTOL} of one process's (max |err| "
+              f"{grad_err:.3e}; {flips} (leaky) ReLU masks replayed that "
+              f"differ) and each step's loss within rtol={LOSS_RTOL}, "
+              f"atol={LOSS_ATOL}; free-running after the 2 epochs (not held: "
+              f"Adam moves a weight whose gradient is rounding noise by the "
+              f"learning rate either way, and the runs part; ROADMAP Queue 3 "
+              f"entry 19): max |param diff| {diff:.3e}, best row relative "
+              f"diff {rdiff:.3e}; rank 0's final weights evaluated over the "
+              f"data axis against one process: {len(preds[0]['pre'])} "
+              f"predictions within {MESH_PRED_ATOL} (max |err| "
+              f"{pred_err:.3e}), metrics {ranks[0]['runs'][method]['eval']} "
+              f"on each rank, one process {metrics}; epochs (s, samples/s) on rank 0 "
+              f"{epochs[0]}, one process {epochs[1]}; launches a rank "
+              f"{ {k: v for k, v in want.items() if v != (0, 0)} }, equal on "
+              f"each rank and one process; wall s of the run a rank "
+              f"{[round(r['runs'][method]['s'], 3) for r in ranks]}, one "
+              f"process {runs[method]['s']:.3f} (two ranks sharing one card: "
+              f"not a scaling figure)")
+        result[method] = {"steps_held": steps, "grad_err": grad_err,
+                          "epochs_rank0": epochs[0], "epochs_single": epochs[1],
+                          "relu_flips": flips,
+                          "param_diff": diff, "row_rdiff": rdiff,
+                          "eval_pred_err": pred_err,
+                          "launches": {k: v for k, v in want.items()
+                                       if v != (0, 0)},
+                          "rank_s": [r["runs"][method]["s"] for r in ranks],
+                          "single_s": runs[method]["s"]}
+    result["held_s"] = time.perf_counter() - t0
+    run = _mesh_run("FC_STGNN")
+    a, b = (torch.load(os.path.join(out, d, run, "checkpoint.pt"),
+                       map_location="cpu", weights_only=True)["model_dict"]
+            for d in ("resumed0", "rank0"))
+    resume_diff = max((a[k].double() - b[k].double()).abs().max().item()
+                      for k in b if b[k].is_floating_point())
+    # The resumed job records nothing: its epochs are the clean 2-rank ones.
+    clean = _epoch_times(os.path.join(out, "resumed0", run))
+    print(f"mesh resume: FC_STGNN 1 epoch then --resume to 2 on the 2-rank "
+          f"job against its straight 2 epochs: max |param diff| "
+          f"{resume_diff:.3e}; its epochs (s, samples/s) {clean} [{SMI}, two "
+          f"ranks sharing one card over gloo]")
+    if resume_diff > PARAM_MAX_DIFF:
+        raise AssertionError("mesh: the resumed job misses the straight one")
+    print(f"mesh engines (model=2, 2 ranks on one card) against the local "
+          f"computation on the card, outputs and gradients at atol="
+          f"{TOL_ATOL}, rtol={TOL_RTOL}: max |err| "
+          f"{ranks[0]['engines']}; FC_STGNN's step through the hook: max "
+          f"|grad err| {ranks[0]['hooked_step']:.3e}")
+    top, by_total = _mesh_trace_top(os.path.join(out, "trace"))
+    print(f"mesh profile [{SMI}]: --profile of FC_STGNN's epoch 2 on rank 0 "
+          f"of the 2-rank job names fused_dot_graph_spmm; its ten longest "
+          f"device operations (us): {top}; the ten kernels of most total "
+          f"time (us, calls): {by_total}")
+    model = build_model("FC_STGNN", "CMAPSS", "FD001")
+    counts = [complexity_computation(model.to(dev), 14, 50)
+              for dev in ("cuda", "cpu")]
+    print(f"mesh complexity_computation FC_STGNN (1, 14, 50): card "
+          f"{counts[0]}, CPU {counts[1]} (flops, params)")
+    if counts[0] != counts[1] or counts[0][0] <= 0:
+        raise AssertionError("complexity_computation differs card to CPU")
+    result.update(resume_param_diff=resume_diff, resume_epochs=clean,
+                  trace_by_total=by_total, engines=ranks[0]["engines"],
+                  hooked_step_grad_err=ranks[0]["hooked_step"],
+                  trace_top=top, flops=counts[0][0], params=counts[0][1],
+                  phase_s=time.perf_counter() - t_phase)
+    return result
+
+
 class _Phases:
     """The wall time of each phase of :func:`main`, printed at its end."""
 
@@ -4198,6 +4734,8 @@ def main() -> None:
         phases.mark("bf16")
         resumed = _resume(data, tmp)
         phases.mark("resume")
+        mesh = _mesh(data, tmp)
+        phases.mark("mesh")
     phases.report()
 
     def entry(name, times, max_abs_err, launches, **extra):
@@ -4283,6 +4821,7 @@ def main() -> None:
     drop_replaces = ("gnn_rul_tpu/train/engine.py:234 (no Pallas kernel: "
                      "flax Dropout's jax.random masks inside XLA)")
     print(json.dumps({"vectorized": vec_times}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"resume": resumed}))
     print(json.dumps({"kernels": [
         entry("fused_dot_graph_spmm", fwd[KERNEL_CASES[0]], max_err,

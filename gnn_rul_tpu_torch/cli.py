@@ -13,7 +13,20 @@ it trains all ``--num_runs`` seeds at once (``train/vectorized.py``), each
 run's artifacts as a sequential run writes them; ``--precision bf16``
 trains in bfloat16 on fp32 state (``train/precision.py``);
 ``--checkpoint_every K`` writes each run's ``checkpoint.pt`` after every
-K-th epoch, asynchronously, and ``--resume`` restarts each run from it. The methods are
+K-th epoch, asynchronously, and ``--resume`` restarts each run from it;
+``--profile DIR`` writes a ``torch.profiler`` trace of the second epoch
+run; ``--mesh data=N,model=M`` trains across the N x M ranks of a
+``torch.distributed`` job that the ``GNNRUL_*`` variables describe
+(``parallel/multihost.py``; one process is a job of one): each batch's
+rows split over the data ranks, a hooked method's graph algebra over the
+model ranks (``parallel/``), rank 0 alone writing artifacts. One line a
+rank, here two on the CPU::
+
+    GNNRUL_COORDINATOR=localhost:29500 GNNRUL_NUM_PROCESSES=2 \\
+    GNNRUL_PROCESS_ID=0 python -m gnn_rul_tpu_torch.cli --mesh data=2 \\
+        --device cpu ...   # and GNNRUL_PROCESS_ID=1 the same
+
+A job without ``--mesh`` splits the rows over every rank. The methods are
 ``models.MODELS``, all 21 of the reference: the twelve aero-engine methods
 (FC_STGNN, LOGO, HAGCN, RGCNU, STAGNN, STFA, GRU_CM, STGNN, DVGTformer,
 HierCorrPool, ASTGCNN, ST_Conv) and the nine bearing methods
@@ -31,6 +44,8 @@ import argparse
 
 from .data.loader import load_dataset, resolve_data_path
 from .export import resolve_device
+from .parallel.mesh import make_mesh
+from .parallel.multihost import initialize_from_env
 from .train.checkpoint import load_checkpoint
 from .train.trainer import Trainer
 
@@ -63,7 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the port always runs its kernels on the card; auto "
                         "and on are accepted, off is not ported")
     p.add_argument("--mesh", default=None, metavar="data=N,model=M",
-                   help="device mesh: not ported yet")
+                   help="train over a (data, model) mesh of the job's "
+                        "ranks, e.g. 'data=2,model=2' (GNNRUL_COORDINATOR, "
+                        "GNNRUL_NUM_PROCESSES and GNNRUL_PROCESS_ID a "
+                        "rank; default: one process)")
     p.add_argument("--epochs", type=int, default=0,
                    help="override the hparam bank's num_epochs (0 = keep)")
     p.add_argument("--vectorized_runs", action="store_true",
@@ -73,7 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "included; each run's artifacts as a sequential "
                         "run's)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="profiler trace of an epoch: not ported yet")
+                   help="write a torch.profiler trace of the second epoch "
+                        "run into DIR (TensorBoard's profiler plugin, "
+                        "chrome://tracing or Perfetto read it)")
     p.add_argument("--eval_torch_checkpoint", default=None, metavar="PT",
                    help="evaluate the weights of a checkpoint.pt (the "
                         "port's or the reference's) on the test set instead "
@@ -89,11 +109,11 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     if args.checkpoint_every < 0:
         raise ValueError(f"--checkpoint_every must be >= 0, got "
                          f"{args.checkpoint_every}")
-    unported = {
-        "--mesh": args.mesh is not None,
-        "--profile": args.profile is not None,
-        "--fused off": args.fused == "off",
-    }
+    if args.vectorized_runs and args.mesh is not None:
+        raise ValueError("--vectorized_runs is a single-device capability "
+                         "(it fills one chip with the seed axis); drop "
+                         "--mesh or the flag")
+    unported = {"--fused off": args.fused == "off"}
     for flag, asked in unported.items():
         if asked:
             raise NotImplementedError(
@@ -101,12 +121,33 @@ def _refuse_unported(args: argparse.Namespace) -> None:
                 "ROADMAP.md")
 
 
+def parse_mesh_arg(spec: str, device: str = "cuda"):
+    """``'data=N,model=M'`` (either part may be left out, as 1) -> the mesh
+    of ``parallel/mesh.py::make_mesh`` over the job's ranks."""
+    sizes = {"data": 1, "model": 1}
+    for part in spec.split(","):
+        k, _, v = part.partition("=")
+        k = k.strip()
+        if k not in sizes or not v.strip().isdigit() or int(v) < 1:
+            raise ValueError(
+                f"bad --mesh component {part!r} (want data=N,model=M)")
+        sizes[k] = int(v)
+    return make_mesh(n_data=sizes["data"], n_model=sizes["model"],
+                     device=device)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    # Joins the job the GNNRUL_* variables describe, before the first
+    # device query; a single process is untouched.
+    distributed = initialize_from_env(args.device)
     resolve_device(args.device)  # before the data is read
     data = load_dataset(resolve_data_path(args.data_path, args.dataset,
                                           args.dataset_id, args.bearing_id))
+    mesh = parse_mesh_arg(args.mesh, args.device) if args.mesh else None
+    if distributed and mesh is None:
+        mesh = make_mesh(device=args.device)  # the rows over every rank
     trainer = Trainer(
         method=args.GNN_method,
         dataset=args.dataset,
@@ -122,6 +163,8 @@ def main(argv=None):
         precision=args.precision,
         resume=args.resume,
         checkpoint_every=args.checkpoint_every,
+        mesh=mesh,
+        profile_dir=args.profile,
     )
     if args.eval_torch_checkpoint:
         state_dict, _ = load_checkpoint(args.eval_torch_checkpoint)

@@ -1,8 +1,12 @@
 // Keyed dropout for Hopper (sm_90a): the mask and the scale in one pass.
 //
 //   k_g    = mix(key[g] + call * golden)            one key a group
-//   bits_e = mix(k_g + e * golden)                  e the element's index in
-//                                                   its group
+//   bits_e = mix(k_g + (offset + e) * golden)       e the element's index in
+//                                                   its group, offset that of
+//                                                   the first (a rank's first
+//                                                   element in the global
+//                                                   batch under the data axis,
+//                                                   else 0)
 //   out    = bits_e >> 40 >= threshold ? x / q : 0  q = 1 - p as a float
 //
 //   x (G * n) contiguous, key G int64 values in device memory (G = 1 for a
@@ -52,7 +56,7 @@ __global__ void __launch_bounds__(kThreads)
     keyed_dropout_kernel(const T* __restrict__ x,
                          const long long* __restrict__ key, long long call,
                          float q, unsigned threshold, T* __restrict__ out,
-                         long long n, long long total) {
+                         long long n, long long total, long long offset) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
@@ -63,7 +67,7 @@ __global__ void __launch_bounds__(kThreads)
         mix(static_cast<unsigned long long>(key[g]) +
             static_cast<unsigned long long>(call) * kGolden);
     const unsigned long long bits =
-        mix(k + static_cast<unsigned long long>(e) * kGolden);
+        mix(k + static_cast<unsigned long long>(offset + e) * kGolden);
     const float v = dtype::to_float(x[i]);
     out[i] = dtype::from_float<T>((bits >> 40) >= threshold ? v / q : 0.0f);
   }
@@ -72,8 +76,9 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 int launch(const T* x, const long long* key, long long call, float q,
            unsigned threshold, T* out, long long n, long long groups,
-           void* stream) {
-  if (n <= 0 || groups <= 0) return static_cast<int>(cudaErrorInvalidValue);
+           long long offset, void* stream) {
+  if (n <= 0 || groups <= 0 || offset < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long total = n * groups;
   const long long blocks =
       (total + kThreads - 1) / kThreads < kMaxBlocks
@@ -81,7 +86,7 @@ int launch(const T* x, const long long* key, long long call, float q,
           : kMaxBlocks;
   keyed_dropout_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-      x, key, call, q, threshold, out, n, total);
+      x, key, call, q, threshold, out, n, total, offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -91,19 +96,20 @@ extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError(): nonzero when the launch
 // was refused. x and out hold `groups` slices of n elements, key `groups`
-// int64 values; `threshold` is round(p * 2^24), q is 1 - p. Does not
-// synchronise and allocates nothing.
+// int64 values; `threshold` is round(p * 2^24), q is 1 - p; element e of a
+// group draws the bits of index offset + e. Does not synchronise and
+// allocates nothing.
 int keyed_dropout_fwd(const float* x, const long long* key, long long call,
                       float q, unsigned threshold, float* out, long long n,
-                      long long groups, void* stream) {
-  return launch(x, key, call, q, threshold, out, n, groups, stream);
+                      long long groups, long long offset, void* stream) {
+  return launch(x, key, call, q, threshold, out, n, groups, offset, stream);
 }
 
 int keyed_dropout_fwd_bf16(const dtype::bf16* x, const long long* key,
                            long long call, float q, unsigned threshold,
                            dtype::bf16* out, long long n, long long groups,
-                           void* stream) {
-  return launch(x, key, call, q, threshold, out, n, groups, stream);
+                           long long offset, void* stream) {
+  return launch(x, key, call, q, threshold, out, n, groups, offset, stream);
 }
 
 const char* keyed_dropout_error_string(int err) {

@@ -10,9 +10,11 @@
 
 Submodule names are the original torch reference's, so ``state_dict()``
 carries the reference keys (``gnn_rul_tpu/compat/torch_import.py`` reads
-them). The dot-graph chain always goes through
-``ops/kernels/fused_gnn.py``: the CUDA kernel on the card, its plain version
-on the CPU.
+them). The dot-graph chain goes through ``ops/kernels/fused_gnn.py``: the
+CUDA kernel on the card, its plain version on the CPU; a model given
+``spmm_fn`` (the node-sharded engine, ``parallel/graph_partition.py``)
+calls ``spmm_fn(h, nodes, mask=mask)`` for the chain instead, as the JAX
+model does.
 """
 
 from __future__ import annotations
@@ -53,8 +55,10 @@ class GraphConvPoolMPNN(nn.Module):
     Linear -> BN -> leaky_relu -> mean over window time."""
 
     def __init__(self, input_dim: int, output_dim: int, num_node: int,
-                 time_window: int, stride: int, decay: float = 0.7):
+                 time_window: int, stride: int, decay: float = 0.7,
+                 spmm_fn=None):
         super().__init__()
+        self.spmm_fn = spmm_fn
         self.output_dim = output_dim
         self.time_window = time_window
         self.stride = stride
@@ -71,7 +75,10 @@ class GraphConvPoolMPNN(nn.Module):
         nodes = w.reshape(b * nw, tw * n, f)
         h = self.graph_construction.mapping(nodes)
         nodes = self.BN(nodes)
-        agg = fused_dot_graph_spmm(h, nodes, self.mask)
+        if self.spmm_fn is not None:
+            agg = self.spmm_fn(h, nodes, mask=self.mask)
+        else:
+            agg = fused_dot_graph_spmm(h, nodes, self.mask)
         out = self.MPNN.bn1(self.MPNN.theta[0](agg))
         out = leaky_relu(out)
         out = out.reshape(b, nw, tw, n, self.output_dim)
@@ -109,7 +116,7 @@ class FCSTGNN(nn.Module):
                  decay: float = 0.7,
                  moving_window: Tuple[int, int] = (2, 2),
                  stride: Tuple[int, int] = (1, 2),
-                 pe_dropout: float = 0.1):
+                 pe_dropout: float = 0.1, spmm_fn=None):
         super().__init__()
         del num_sequential, num_windows
         self.patch_size = patch_size
@@ -125,9 +132,11 @@ class FCSTGNN(nn.Module):
             persistent=False)
         self.pe_dropout = Dropout(pe_dropout)
         self.MPNN1 = GraphConvPoolMPNN(feat, hidden_dim, num_node,
-                                       moving_window[0], stride[0], decay)
+                                       moving_window[0], stride[0], decay,
+                                       spmm_fn)
         self.MPNN2 = GraphConvPoolMPNN(feat, hidden_dim, num_node,
-                                       moving_window[1], stride[1], decay)
+                                       moving_window[1], stride[1], decay,
+                                       spmm_fn)
         nw = sum((num_patch - w) // s + 1 for w, s in zip(moving_window, stride))
         self.fc = _Head(nw * num_node * hidden_dim, hidden_dim)
 

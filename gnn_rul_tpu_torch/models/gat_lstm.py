@@ -42,17 +42,18 @@ def path_graph(n: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
 
 class GATLSTM(nn.Module):
     """Input ``(B, 1, num_patch * patch_size)`` -> ``(B, 1)``. Takes the
-    hparam bank's keyword arguments."""
+    hparam bank's keyword arguments; ``gat_fn`` replaces the attention
+    panel (the node-sharded engine, ``parallel/graph_partition.py``)."""
 
     def __init__(self, num_patch: int, patch_size: int,
                  hidden_dim: Sequence[int], lstm_hidden_dim: Sequence[int],
-                 dropout: float = 0.1, alpha: float = 0.1):
+                 dropout: float = 0.1, alpha: float = 0.1, gat_fn=None):
         super().__init__()
         self.num_patch, self.patch_size = num_patch, patch_size
         dims = [FEATURES, *hidden_dim]
         self.gat_layers = nn.ModuleList(
             GraphAttentionLayer(i, o, dropout, negative_slope=alpha,
-                                final_leaky_relu=True)
+                                final_leaky_relu=True, gat_fn=gat_fn)
             for i, o in zip(dims, dims[1:]))
         lstm_dims = [dims[-1], *lstm_hidden_dim]
         self.lstm_layers = nn.ModuleList(

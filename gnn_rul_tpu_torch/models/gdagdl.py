@@ -33,6 +33,7 @@ from ..nn.attention import GraphAttentionLayer
 from ..nn.basic import MLP
 from ..nn.recurrent import LSTMLayer
 from ..ops.edge_count import record_edges
+from ..parallel.data_axis import batch_mean
 from ..signal.stft import stft_magnitude
 
 THRESHOLD = 0.0  # the reference joins the nodes of importance > 0
@@ -103,7 +104,7 @@ class GDAGDL(nn.Module):
         y_o = h.reshape(b, t, -1)
 
         enc = self.encoder(y_o)
-        recon = torch.mean((y_o - self.decoder(enc)) ** 2)
+        recon = batch_mean((y_o - self.decoder(enc)) ** 2)
         lstm_out, _ = self.lstm(enc)
         pred = self.linear(lstm_out.reshape(b, -1))
         if self.training:

@@ -23,6 +23,7 @@ from torch import nn
 
 from ..ops.graphs import cosine_graph, leaky_relu, top_indices
 from ..ops.message_passing import spmm
+from ..parallel.data_axis import global_rows, mean_of_sum
 from .logo import BiLSTMStandard
 
 
@@ -72,8 +73,8 @@ class SAGPool(nn.Module):
         x_out = leaky_relu(self.model(ax))
         p = torch.softmax(self.mlp(x), dim=1)[..., 0]
         score = torch.softmax(self.rank(ax), dim=1)[..., 0]
-        kl = torch.sum(torch.xlogy(score, score) - score * torch.log(p)) \
-            / x.shape[0]
+        kl = mean_of_sum(torch.sum(torch.xlogy(score, score)
+                                   - score * torch.log(p)), x.shape[0])
         top = top_indices(score, self.n)                        # (G, n)
         x_sel = torch.gather(
             x_out, 1, top[..., None].expand(-1, -1, x_out.shape[-1]))
@@ -108,9 +109,10 @@ class HAGCN(nn.Module):
         b, n, _ = x.shape
         t, p = self.num_patch, self.patch_size
         # (B*N, T, P) -> (T, B*N, P), fed to a batch_first Bi-LSTM: the
-        # recurrence runs over the B*N rows.
-        seq = x.reshape(b * n, t, p).transpose(0, 1)
-        td = self.TD(seq).transpose(0, 1).reshape(b, n, t, -1)
+        # recurrence runs over the B*N rows (the global batch's).
+        td = global_rows(lambda z: self.TD(
+            z.reshape(-1, t, p).transpose(0, 1)).transpose(0, 1).reshape(
+                z.shape[0], n, t, -1), x)
         nodes = td.transpose(1, 2).reshape(b * t, n, -1)   # (B*T, N, H)
         adj0 = cosine_graph(nodes, eps=1e-12)
 

@@ -33,13 +33,14 @@ class ClusterAssignment(nn.Module):
     axis, so each cluster's column sums to 1 over the nodes."""
 
     def __init__(self, in_features: int, num_nodes: int, hidden_dim: int,
-                 out_nodes: int):
+                 out_nodes: int, spmm_fn=None):
         super().__init__()
+        self.spmm_fn = spmm_fn if spmm_fn is not None else spmm
         self.dimension_mapping = nn.Linear(in_features, hidden_dim)
         self.matrix = nn.Linear(num_nodes + hidden_dim, out_nodes)
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        h = torch.sigmoid(self.dimension_mapping(spmm(adj, x)))
+        h = torch.sigmoid(self.dimension_mapping(self.spmm_fn(adj, x)))
         s = self.matrix(torch.cat([adj, h], dim=-1))
         return torch.softmax(s, dim=-2)
 
@@ -49,11 +50,13 @@ class GraphClassificationBlock(nn.Module):
     ``X' = S^T X``, ``A' = S^T A S``, then a 1-hop MPNN on them."""
 
     def __init__(self, in_features: int, num_nodes: int, out_dim: int,
-                 out_nodes: int):
+                 out_nodes: int, spmm_fn=None):
         super().__init__()
         self.Graph_Clustering = ClusterAssignment(in_features, num_nodes,
-                                                  out_nodes, out_nodes)
-        self.Message_Passing = MPNNmk(in_features, out_dim, k=1)
+                                                  out_nodes, out_nodes,
+                                                  spmm_fn)
+        self.Message_Passing = MPNNmk(in_features, out_dim, k=1,
+                                      spmm_fn=spmm_fn)
 
     def forward(self, adj: torch.Tensor, x: torch.Tensor):
         s = self.Graph_Clustering(x, adj)
@@ -69,12 +72,13 @@ class HierCorrPool(nn.Module):
     """Input ``(B, N, L)`` -> ``(B, 1)``. Takes the hparam bank's keyword
     arguments (``configs.hparams.model_hparams(dataset, sub_id,
     "HierCorrPool")``); ``input_dim`` is the reference's and unused, as it
-    is there."""
+    is there. ``spmm_fn(adj, x)`` replaces the graph block's ``A @ X``
+    products (the node-sharded engine, ``parallel/graph_partition.py``)."""
 
     def __init__(self, patch_size: int, num_patch: int, input_dim: int,
                  hidden_dim: int, embedding_dim: int, num_nodes: int,
                  encoder_conv_kernel: int, num_nodes_out: int,
-                 encoder_kernel_size: int = 8):
+                 encoder_kernel_size: int = 8, spmm_fn=None):
         super().__init__()
         del input_dim
         self.patch_size, self.num_patch = patch_size, num_patch
@@ -93,7 +97,7 @@ class HierCorrPool(nn.Module):
                 f"{encoder_conv_kernel} parts")
         self.gc1 = GraphClassificationBlock(
             node_dim, num_nodes, embedding_dim * encoder_conv_kernel * 3,
-            num_nodes_out)
+            num_nodes_out, spmm_fn)
         self.fc_0 = nn.Linear(
             num_nodes_out * embedding_dim * encoder_conv_kernel * 3,
             embedding_dim * 3)

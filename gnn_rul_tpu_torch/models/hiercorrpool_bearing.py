@@ -26,7 +26,8 @@ class HierCorrPoolBearing(HierCorrPool):
 
     def __init__(self, patch_size: int, num_patch: int, input_dim: int,
                  hidden_dim: int, embedding_dim: int, num_nodes: int,
-                 nperseg: int, encoder_conv_kernel: int, num_nodes_out: int):
+                 nperseg: int, encoder_conv_kernel: int, num_nodes_out: int,
+                 spmm_fn=None):
         bins, frames = nperseg // 2 + 1, 1 + patch_size // nperseg
         if num_nodes != bins:
             raise ValueError(f"HierCorrPool_bearing: num_nodes={num_nodes}, "
@@ -34,7 +35,7 @@ class HierCorrPoolBearing(HierCorrPool):
         # The trunk sees each bin as a node of `frames` features.
         super().__init__(frames, num_patch, input_dim, hidden_dim,
                          embedding_dim, bins, encoder_conv_kernel,
-                         num_nodes_out)
+                         num_nodes_out, spmm_fn=spmm_fn)
         self.signal_patch, self.nperseg = patch_size, nperseg
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,9 @@ The reference calls its batch_first Bi-LSTM on ``(num_node*num_patch, bs,
 d)`` (models/LOGO/Model.py:245-251), so the recurrence runs along the
 BATCH axis with the node-patches as its batch; the port keeps that
 dataflow. The model's answer for a row therefore depends on the other rows
-of its batch.
+of its batch: under the data axis the Bi-LSTM runs over the global rows
+(``parallel/data_axis.py::global_rows``), and the graph regularization's
+means are the global batch's.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ..nn.basic import Dropout
 from ..nn.gnn_blocks import MPNNmk
 from ..nn.recurrent import LSTMParams, bilstm_fused
 from ..ops.graphs import dot_graph_from_mapped, leaky_relu, pearson_graph
+from ..parallel.data_axis import batch_mean, global_mean, global_rows, share
 
 
 class GraphAttenBlock(nn.Module):
@@ -86,10 +89,12 @@ class BiLSTMStandard(nn.Module):
 def graph_regularization_loss(x: torch.Tensor, adj: torch.Tensor,
                               gamma: float = 1.0) -> torch.Tensor:
     """mean(||x_i - x_j||^2 * A_ij) + gamma * sqrt(mean(A^2))
-    (models/LOGO/Model.py:56-71)."""
+    (models/LOGO/Model.py:56-71), the means over the batch's graphs: under
+    the data axis, this rank's share of the global batch's value."""
     diff = x[..., :, None, :] - x[..., None, :, :]
     dist = torch.sum(diff * diff, dim=-1)
-    return torch.mean(dist * adj) + gamma * torch.sqrt(torch.mean(adj * adj))
+    return batch_mean(dist * adj) \
+        + gamma * share(torch.sqrt(global_mean(adj * adj)))
 
 
 class _Head(nn.Module):
@@ -109,12 +114,13 @@ class LOGOCore(nn.Module):
     and ``(pred, gl_loss)`` in ``train()`` mode."""
 
     def __init__(self, input_dim: int, hidden_dim: int, num_nodes: int,
-                 num_patch: int, gamma: float = 1.0):
+                 num_patch: int, gamma: float = 1.0, spmm_fn=None):
         super().__init__()
         self.gamma = gamma
         self.nonlin_map = nn.Linear(input_dim, 2 * input_dim)
         self.graph_attn_blk = GraphAttenBlock(num_nodes)
-        self.MPNN = MPNNmk(2 * input_dim, 3 * input_dim, k=1)
+        self.MPNN = MPNNmk(2 * input_dim, 3 * input_dim, k=1,
+                           spmm_fn=spmm_fn)
         self.TD = BiLSTMStandard(3 * input_dim, 3 * hidden_dim)
         self.fc = _Head(num_nodes * num_patch * 3 * hidden_dim)
         self.cls = nn.Linear(8, 1)
@@ -128,9 +134,10 @@ class LOGOCore(nn.Module):
         fused = self.graph_attn_blk(local_corr, g)
         mp = self.MPNN(mapped, fused)
         # (B, T*N, d) -> (T*N, B, d), fed to a batch_first Bi-LSTM: the
-        # recurrence runs over the B rows.
-        td = self.TD(mp.reshape(b, n * t, -1).transpose(0, 1))
-        out = self.cls(self.fc(td.transpose(0, 1).reshape(b, -1)))
+        # recurrence runs over the B rows (the global batch's).
+        td = global_rows(lambda z: self.TD(z.transpose(0, 1)).transpose(0, 1),
+                         mp.reshape(b, n * t, -1))
+        out = self.cls(self.fc(td.reshape(b, -1)))
         if self.training:
             return out, graph_regularization_loss(nodes, fused, self.gamma)
         return out
@@ -139,11 +146,14 @@ class LOGOCore(nn.Module):
 class LOGO(LOGOCore):
     """Input ``(B, N, L)`` -> ``(B, 1)``; ``(pred, gl_loss)`` in
     ``train()`` mode. Takes the hparam bank's keyword arguments
-    (``configs.hparams.model_hparams(dataset, sub_id, "LOGO")``)."""
+    (``configs.hparams.model_hparams(dataset, sub_id, "LOGO")``);
+    ``spmm_fn`` replaces the MPNN's ``A @ X`` (the node-sharded engine,
+    ``parallel/graph_partition.py``)."""
 
     def __init__(self, patch_size: int, num_patch: int, num_nodes: int,
-                 hidden_dim: int, gamma: float = 1.0):
-        super().__init__(patch_size, hidden_dim, num_nodes, num_patch, gamma)
+                 hidden_dim: int, gamma: float = 1.0, spmm_fn=None):
+        super().__init__(patch_size, hidden_dim, num_nodes, num_patch, gamma,
+                         spmm_fn)
         self.patch_size = patch_size
         self.num_patch = num_patch
 

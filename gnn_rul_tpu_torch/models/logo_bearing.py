@@ -36,14 +36,14 @@ class LOGOBearing(LOGOCore):
 
     def __init__(self, patch_size: int, num_patch: int, input_dim: int,
                  num_nodes: int, nperseg: int, hidden_dim: int,
-                 gamma: float = 1.0):
+                 gamma: float = 1.0, spmm_fn=None):
         bins, frames = nperseg // 2 + 1, 1 + patch_size // nperseg
         if (num_nodes, input_dim) != (bins, frames):
             raise ValueError(
                 f"LOGO_bearing: num_nodes={num_nodes}, input_dim={input_dim}"
                 f", but nperseg={nperseg} at patch_size={patch_size} gives "
                 f"{bins} bins of {frames} frames")
-        super().__init__(frames, hidden_dim, bins, num_patch, gamma)
+        super().__init__(frames, hidden_dim, bins, num_patch, gamma, spmm_fn)
         self.patch_size, self.num_patch, self.nperseg = (patch_size,
                                                          num_patch, nperseg)
 

@@ -22,6 +22,7 @@ from ..nn.basic import Dropout
 from ..nn.gnn_blocks import GCNLayer
 from ..nn.recurrent import LSTMLayer
 from ..ops.edge_count import record_edges
+from ..parallel import data_axis
 
 
 class AdjConstruction(nn.Module):
@@ -92,6 +93,18 @@ class FusionModule(nn.Module):
         return self.fc1(m), self.fc2(m)
 
 
+def _paired(a: torch.Tensor, length: int) -> torch.Tensor:
+    """``a.repeat(length, 1, 1)``: graph ``k % B`` at flat index ``k = b *
+    length + t``. Inside a split batch, B and k are the global batch's:
+    this rank's rows read the gathered graphs at their global indices."""
+    shard = data_axis.current()
+    if shard is None:
+        return a.repeat(length, 1, 1)
+    k = shard.start * length + torch.arange(shard.rows * length,
+                                            device=a.device)
+    return data_axis.gather_rows(a, shard)[k % shard.total]
+
+
 class RGCNU(nn.Module):
     """Input ``(B, N, L)`` -> ``(B, 1)``; ``(pred, std)`` in ``train()``
     mode. Takes the hparam bank's keyword arguments
@@ -109,8 +122,9 @@ class RGCNU(nn.Module):
     def forward(self, x: torch.Tensor):
         b, n, l = x.shape
         # The A.repeat(L, 1, 1) pairing: flat index k = b*L + l reads
-        # A[k % B].
-        adj = self.adj(x).repeat(l, 1, 1)                # (B*L, N, N)
+        # A[k % B], another row's graph; under the data axis, the global
+        # batch's.
+        adj = _paired(self.adj(x), l)                    # (B*L, N, N)
         xt = x.transpose(1, 2).reshape(b * l, n, 1)
         spatial = self.scl(xt, adj).reshape(b, l, n)    # (B, L, N)
         pred, std = self.fusion(x, self.tdl(spatial))

@@ -46,16 +46,18 @@ class STFA(nn.Module):
     hard-coded). Takes the hparam bank's keyword arguments
     (``configs.hparams.model_hparams(dataset, sub_id, "STFA")``);
     ``hidden_dim`` is accepted for that and unused, as in the JAX
-    package."""
+    package; ``gat_fn`` replaces the attention panel (the node-sharded
+    engine, ``parallel/graph_partition.py``)."""
 
     def __init__(self, patch_size: int, num_patch: int, num_nodes: int,
                  hidden_dim: int, output_dim: int, encoder_hidden_dim: int,
-                 num_heads: int, dropout: float):
+                 num_heads: int, dropout: float, gat_fn=None):
         super().__init__()
         del hidden_dim
         self.patch_size = patch_size
         self.num_patch = num_patch
-        self.gat = GAT(patch_size, output_dim, num_heads, dropout)
+        self.gat = GAT(patch_size, output_dim, num_heads, dropout,
+                       gat_fn=gat_fn)
         self.v = nn.Linear(num_nodes * output_dim, 1)
         self.lstm = LSTMLayer(num_patch + num_nodes * output_dim,
                               encoder_hidden_dim)

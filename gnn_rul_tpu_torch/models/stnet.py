@@ -24,6 +24,7 @@ from ..nn.basic import MLP
 from ..nn.gnn_blocks import ChebNet
 from ..nn.recurrent import LSTMLayer
 from ..ops.edge_count import record_edges
+from ..parallel.data_axis import batch_mean
 from ..signal.stft import stft_magnitude
 
 THRESHOLD = 0.7  # models/STNet/Model.py:133
@@ -79,7 +80,7 @@ class STNet(nn.Module):
         y_o = h.reshape(b, t, -1)
 
         enc = self.encoder(y_o)
-        recon = torch.mean((y_o - self.decoder(enc)) ** 2)
+        recon = batch_mean((y_o - self.decoder(enc)) ** 2)
         lstm_out, _ = self.lstm(enc)
         pred = self.linear(lstm_out.reshape(b, -1))
         if self.training:

@@ -11,7 +11,9 @@ the chain from the logits to the aggregation is ``ops/kernels/fused_gat.py``:
 the CUDA kernel on the card, its plain version on the CPU, as the JAX layer
 takes its fused path under the same condition. Otherwise the ``(N, N)``
 panel is materialised and the dropout applies to it before the adjacency
-mask. The node-sharded hook ``gat_fn`` and the ``fused=`` switch are not
+mask. A layer given ``gat_fn`` (the node-sharded panel,
+``parallel/graph_partition.py::node_sharded_gat``) takes it instead of
+either path, its dropout module passed along. The ``fused=`` switch is not
 ported (ROADMAP.md).
 """
 
@@ -35,8 +37,9 @@ class GraphAttentionLayer(nn.Module):
 
     def __init__(self, in_features: int, out_features: int,
                  dropout: float = 0.0, negative_slope: float = 0.1,
-                 final_leaky_relu: bool = False):
+                 final_leaky_relu: bool = False, gat_fn=None):
         super().__init__()
+        self.gat_fn = gat_fn
         self.out_features = out_features
         self.negative_slope = negative_slope
         self.final_leaky_relu = final_leaky_relu
@@ -52,7 +55,10 @@ class GraphAttentionLayer(nn.Module):
         f2 = wh @ a[d:]
         bias = self.attention.bias[0]
         record_edges(wh.shape[:-1] + (wh.shape[-2],))
-        if not self.training or self.attn_drop.p == 0.0:
+        if self.gat_fn is not None:
+            out = self.gat_fn(wh, f1, f2, adj, bias, self.negative_slope,
+                              dropout=self.attn_drop)
+        elif not self.training or self.attn_drop.p == 0.0:
             out = fused_gat(wh, f1, f2, adj, bias, self.negative_slope)
         else:
             e = leaky_relu(f1[..., :, None] + f2[..., None, :] + bias,
@@ -67,12 +73,12 @@ class GAT(nn.Module):
     the heads are ``attention_{i}``, the reference's keys."""
 
     def __init__(self, in_features: int, out_features: int, num_heads: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, gat_fn=None):
         super().__init__()
         self.num_heads = num_heads
         for i in range(num_heads):
             self.add_module(f"attention_{i}", GraphAttentionLayer(
-                in_features, out_features, dropout))
+                in_features, out_features, dropout, gat_fn=gat_fn))
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
         heads = [getattr(self, f"attention_{i}")(x, adj)

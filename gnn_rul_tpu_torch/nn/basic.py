@@ -18,6 +18,13 @@ sequential run draws.
 flax's ``BatchNorm`` does: statistics and normalisation in fp32, the
 running statistics kept in their own dtype (fp32 in training), the output
 rounded once to the input's dtype.
+
+Under the data axis (``parallel/data_axis.py``) a batch's rows are split
+over ranks: in train mode both BatchNorms normalise by the global batch's
+statistics (each rank's mean and squared deviations gathered in one
+collective, the running variance updated with the global n - 1), and
+:class:`Dropout` keys each element by its index in the global batch, so
+each rank draws the single-process mask of its rows.
 """
 
 from __future__ import annotations
@@ -25,13 +32,19 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import Iterator, Sequence, Union
+from typing import Iterator, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels.keyed_dropout import GOLDEN, keyed_dropout, mix_int, signed
+from ..ops.kernels.keyed_dropout import (GOLDEN, call_key, keyed_dropout,
+                                         mix_int, signed)
+from ..parallel import data_axis
+
+
+# Folds a model rank into a dropout key as a call number no forward reaches.
+FOLD = 1 << 32
 
 
 def step_key(seed: int, epoch: int, step: int) -> int:
@@ -74,9 +87,14 @@ class Dropout(nn.Dropout):
     (1 - p), 0)``, flax's form, through ``keyed_dropout``. Inside
     :func:`dropout_key` the n-th call of the block uses ``(key, n)``;
     outside one, each call draws its key from torch's global generator, so
-    a plain ``model.train(); model(x)`` still drops out."""
+    a plain ``model.train(); model(x)`` still drops out. Inside a split
+    batch the elements count from this rank's first row's first element
+    in the global batch (``x``'s leading axes the rows, outermost).
+    ``fold`` (a rank of the model axis, ``parallel/graph_partition.py``)
+    mixes into the key: another stream for each rank's block of a panel."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fold: Optional[int] = None
+                ) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         stream = _STREAM.get()
@@ -86,9 +104,14 @@ class Dropout(nn.Dropout):
         else:
             key, call = stream.key, stream.calls
             stream.calls += 1
+        if fold is not None:
+            key = call_key(key, FOLD + fold)
         if self.p == 1.0:
             return torch.zeros_like(x)
-        return keyed_dropout(x, key, call, self.p)
+        shard = data_axis.current()
+        offset = 0 if shard is None else \
+            shard.start * (x.numel() // shard.rows)
+        return keyed_dropout(x, key, call, self.p, offset)
 
 
 class GELU(nn.Module):
@@ -107,7 +130,11 @@ class GELU(nn.Module):
 def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     """``bn``'s forward; a bfloat16 ``x`` is normalised in fp32 against the
     running statistics as they are stored (the fp32 ones of training are
-    updated in place) and the result rounded once to bfloat16."""
+    updated in place) and the result rounded once to bfloat16. Inside a
+    split batch in train mode, :func:`_global_batch_norm`."""
+    shard = data_axis.current()
+    if bn.training and shard is not None and shard.size > 1:
+        return _global_batch_norm(bn, x, shard)
     if x.dtype != torch.bfloat16:
         return nn.BatchNorm1d.forward(bn, x)
     if bn.training:
@@ -116,6 +143,48 @@ def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
         x.float(), bn.running_mean.float(), bn.running_var.float(),
         bn.weight.float(), bn.bias.float(), bn.training, bn.momentum,
         bn.eps).to(x.dtype)
+
+
+def _global_batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor,
+                       shard: data_axis.RowShard) -> torch.Tensor:
+    """Train-mode BatchNorm over the global batch of which ``x`` (``(M,
+    C)`` or ``(B, C, L)``, the rows outermost) holds this rank's rows. Each
+    rank's mean and sum of squared deviations (two passes over its rows)
+    are gathered in one collective and combined by Chan's rule: the global
+    mean, ``sum_r n_r mean_r / n``, and the global sum of squared
+    deviations, ``sum_r (m2_r + n_r (mean_r - mean)^2)``, with the counts
+    ``n_r`` from the blocks (0 for a stand-in row); the biased variance
+    normalises, the running variance takes ``var * n / (n - 1)``. In fp32
+    (fp64 for an fp64 ``x``), the output in ``x``'s dtype."""
+    dims = [0] + list(range(2, x.dim()))
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    per_row = xf.numel() // xf.shape[1] // shard.rows
+    local = xf.mean(dims)
+    dev = xf - local.reshape(shape)
+    stats = data_axis.all_gather_stats(
+        torch.stack([local, (dev * dev).sum(dims) * shard.weight]),
+        shard.group)                                      # (ranks, 2, C)
+    counts = torch.tensor([per_row * count for _, count in shard.blocks],
+                          dtype=xf.dtype, device=xf.device)[:, None]
+    n = per_row * shard.total
+    mean = (counts * stats[:, 0]).sum(0) / n
+    var = (stats[:, 1] + counts * (stats[:, 0] - mean) ** 2).sum(0) / n
+    out = (xf - mean.reshape(shape)) * torch.rsqrt(var + bn.eps).reshape(shape)
+    if bn.affine:
+        out = out * bn.weight.to(xf.dtype).reshape(shape) \
+            + bn.bias.to(xf.dtype).reshape(shape)
+    if bn.track_running_stats:
+        with torch.no_grad():
+            bn.num_batches_tracked.add_(1)
+            m = (1.0 / float(bn.num_batches_tracked) if bn.momentum is None
+                 else bn.momentum)
+            bn.running_mean.mul_(1 - m).add_(
+                mean.detach().to(bn.running_mean.dtype), alpha=m)
+            bn.running_var.mul_(1 - m).add_(
+                (var.detach() * (n / max(n - 1, 1))).to(bn.running_var.dtype),
+                alpha=m)
+    return out.to(x.dtype)
 
 
 class BatchNorm1d(nn.BatchNorm1d):

@@ -1,6 +1,5 @@
 """Graph-NN blocks shared across models (counterpart of
-``gnn_rul_tpu/nn/gnn_blocks.py``; the ``spmm_fn`` hook of ``MPNNmk`` comes
-with ``parallel/graph_partition.py``, ROADMAP.md)."""
+``gnn_rul_tpu/nn/gnn_blocks.py``)."""
 
 from __future__ import annotations
 
@@ -14,16 +13,19 @@ from ..ops.message_passing import chebyshev_terms, khop_aggregate, spmm
 class MPNNmk(nn.Module):
     """k-hop MPNN: ``leaky_relu(sum_k theta[k](A^k X))`` (reference MPNN_mk,
     models/LOGO/Model.py:130-160). The k Linears are ``theta.{k}``, the
-    reference's keys."""
+    reference's keys. ``spmm_fn(adj, x)`` replaces each ``A^j X`` (the
+    node-sharded engine, ``parallel/graph_partition.py``)."""
 
-    def __init__(self, input_dim: int, output_dim: int, k: int = 1):
+    def __init__(self, input_dim: int, output_dim: int, k: int = 1,
+                 spmm_fn=None):
         super().__init__()
         self.k = k
+        self.spmm_fn = spmm_fn
         self.theta = nn.ModuleList(nn.Linear(input_dim, output_dim)
                                    for _ in range(k))
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        hops = khop_aggregate(adj, x, self.k)
+        hops = khop_aggregate(adj, x, self.k, self.spmm_fn)
         out = sum(theta(h) for theta, h in zip(self.theta, hops))
         return leaky_relu(out)
 

@@ -1,9 +1,11 @@
 """Keyed dropout: a hand-written CUDA kernel and its plain version.
 
-    out = keep(key, call, e) ? x / (1 - p) : 0
+    out = keep(key, call, offset + e) ? x / (1 - p) : 0
 
 The keep mask is a pure function of an int64 key, the dropout call's number
-``call`` in its forward and each element's index ``e``: splitmix64's
+``call`` in its forward and each element's index ``offset + e``
+(``offset`` 0, or under the data axis the global index of this rank's
+first element, ``nn/basic.py``): splitmix64's
 finaliser of ``key + call * golden`` keys the call, and element e is kept
 where the top 24 bits of ``mix(call key + e * golden)`` reach ``p * 2^24``
 (:func:`keep_mask`, in int64 tensor ops with the right shifts masked, since
@@ -75,9 +77,12 @@ def threshold(p: float) -> int:
     return round(p * (1 << 24))
 
 
-def _keep(keys: torch.Tensor, n: int, p: float) -> torch.Tensor:
-    """``(G, n)`` keep masks, one a call key of ``keys (G, 1)``."""
-    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+def _keep(keys: torch.Tensor, n: int, p: float,
+          offset: int = 0) -> torch.Tensor:
+    """``(G, n)`` keep masks, one a call key of ``keys (G, 1)``, of the
+    elements ``offset .. offset + n - 1``."""
+    idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                       device=keys.device)
     return _srl(mix(keys + idx * signed(GOLDEN)), 40) >= threshold(p)
 
 
@@ -100,17 +105,18 @@ def call_key(key: torch.Tensor, call: int) -> torch.Tensor:
 
 
 def keyed_dropout_plain(x: torch.Tensor, key: torch.Tensor, call: int,
-                        p: float) -> torch.Tensor:
+                        p: float, offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version: the mask in int64 tensor ops, ``x / (1 - p)``
     where kept (bf16 divided in fp32 and rounded once), else 0."""
     g = key.numel()
     keys = call_key(key.reshape(g, 1).to(x.device), call)
-    keep = _keep(keys, x.numel() // g, p).reshape(x.shape)
+    keep = _keep(keys, x.numel() // g, p, offset).reshape(x.shape)
     scaled = x.float() / (1.0 - p)
     return torch.where(keep, scaled, torch.zeros_like(scaled)).to(x.dtype)
 
 
-def _check(x: torch.Tensor, key: torch.Tensor, p: float) -> None:
+def _check(x: torch.Tensor, key: torch.Tensor, p: float,
+           offset: int = 0) -> None:
     if x.dtype not in DTYPES:
         raise TypeError(f"keyed_dropout: x must be float32 or bfloat16, got "
                         f"{x.dtype}")
@@ -125,19 +131,21 @@ def _check(x: torch.Tensor, key: torch.Tensor, p: float) -> None:
                          f"{x.device}")
     if not 0.0 <= p < 1.0:
         raise ValueError(f"keyed_dropout: p must be in [0, 1), got {p}")
+    if offset < 0:
+        raise ValueError(f"keyed_dropout: offset must be >= 0, got {offset}")
     if not x.is_contiguous():
         raise ValueError("keyed_dropout: x must be contiguous")
     if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"keyed_dropout: no kernel for {x.device}")
 
 
-def _apply(x: torch.Tensor, key: torch.Tensor, call: int,
-           p: float) -> torch.Tensor:
+def _apply(x: torch.Tensor, key: torch.Tensor, call: int, p: float,
+           offset: int = 0) -> torch.Tensor:
     """The kernel on a CUDA tensor, the plain version on any other."""
-    _check(x, key, p)
+    _check(x, key, p, offset)
     if x.device.type == "cuda":
-        return keyed_dropout.forward(x, key, call, p)
-    return keyed_dropout_plain(x, key, call, p)
+        return keyed_dropout.forward(x, key, call, p, offset)
+    return keyed_dropout_plain(x, key, call, p, offset)
 
 
 class _KeyedDropout(torch.autograd.Function):
@@ -151,21 +159,22 @@ class _KeyedDropout(torch.autograd.Function):
     exported: serving runs in eval mode, where Dropout is the identity."""
 
     @staticmethod
-    def forward(x, key, call, p):
-        return _apply(x, key, call, p)
+    def forward(x, key, call, p, offset):
+        return _apply(x, key, call, p, offset)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, key, ctx.call, ctx.p = inputs
+        _, key, ctx.call, ctx.p, ctx.offset = inputs
         ctx.save_for_backward(key)
 
     @staticmethod
     def backward(ctx, g):
         key, = ctx.saved_tensors
-        return _apply(g.contiguous(), key, ctx.call, ctx.p), None, None, None
+        return (_apply(g.contiguous(), key, ctx.call, ctx.p, ctx.offset),
+                None, None, None, None)
 
     @staticmethod
-    def vmap(info, in_dims, x, key, call, p):
+    def vmap(info, in_dims, x, key, call, p, offset):
         """Each seed's x a slice of one call, its key (or keys, where the
         key was grouped already) that slice's: seed s, group g becomes
         group ``s * G + g``. An unmapped key is every seed's."""
@@ -175,7 +184,7 @@ class _KeyedDropout(torch.autograd.Function):
         keys = (key.reshape(-1).repeat(s) if kd is None
                 else key.movedim(kd, 0).reshape(-1))
         return _KeyedDropout.apply(x.contiguous(), keys.contiguous(), call,
-                                   p), 0
+                                   p, offset), 0
 
 
 class KeyedDropout:
@@ -200,7 +209,8 @@ class KeyedDropout:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_longlong, ctypes.c_float, ctypes.c_uint,
                            ctypes.c_void_p, ctypes.c_longlong,
-                           ctypes.c_longlong, ctypes.c_void_p]
+                           ctypes.c_longlong, ctypes.c_longlong,
+                           ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.keyed_dropout_error_string.argtypes = [ctypes.c_int]
         lib.keyed_dropout_error_string.restype = ctypes.c_char_p
@@ -208,15 +218,15 @@ class KeyedDropout:
         return "".join(log for _, log in built.values())
 
     def __call__(self, x: torch.Tensor, key: torch.Tensor, call: int,
-                 p: float) -> torch.Tensor:
+                 p: float, offset: int = 0) -> torch.Tensor:
         if not isinstance(key, torch.Tensor):
             raise TypeError(f"keyed_dropout: key must be a tensor, got "
                             f"{type(key).__name__}")
         return _KeyedDropout.apply(x.contiguous(), key.to(x.device),
-                                   int(call), float(p))
+                                   int(call), float(p), int(offset))
 
     def forward(self, x: torch.Tensor, key: torch.Tensor, call: int,
-                p: float) -> torch.Tensor:
+                p: float, offset: int = 0) -> torch.Tensor:
         """The kernel alone, on CUDA tensors that :func:`_check` accepts:
         one launch for all the groups, without autograd."""
         if x.device.type != "cuda":
@@ -239,7 +249,7 @@ class KeyedDropout:
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = entry(x.data_ptr(), key.contiguous().data_ptr(), int(call),
                         1.0 - p, threshold(p), out.data_ptr(),
-                        x.numel() // g, g, stream)
+                        x.numel() // g, g, int(offset), stream)
         if err != 0:
             msg = self._lib.keyed_dropout_error_string(err).decode()
             raise RuntimeError(f"keyed_dropout launch failed ({x.numel()} "

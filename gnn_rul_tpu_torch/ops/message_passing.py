@@ -1,10 +1,9 @@
 """Dense message passing (counterpart of
-``gnn_rul_tpu/ops/message_passing.py``; ``khop_aggregate``'s ``spmm_fn``
-hook comes with ``parallel/graph_partition.py``, ROADMAP.md)."""
+``gnn_rul_tpu/ops/message_passing.py``)."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import Callable, List, Optional
 
 import torch
 
@@ -14,16 +13,19 @@ def spmm(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...nm,...md->...nd", adj, x)
 
 
-def khop_aggregate(adj: torch.Tensor, x: torch.Tensor,
-                   k: int) -> List[torch.Tensor]:
+def khop_aggregate(adj: torch.Tensor, x: torch.Tensor, k: int,
+                   spmm_fn: Optional[Callable] = None) -> List[torch.Tensor]:
     """``[A X, A^2 X, ..., A^k X]``, with ``A^j`` chained as ``A_ = A_ @ A``
-    and then ``A_ @ X`` (reference models/FC_STGNN/Model_Base.py:89-94)."""
+    and then ``A_ @ X`` (reference models/FC_STGNN/Model_Base.py:89-94).
+    ``spmm_fn(adj, x)`` replaces the product with X (the node-sharded
+    engine, ``parallel/graph_partition.py``)."""
+    agg = spmm_fn if spmm_fn is not None else spmm
     outs = []
     a_pow = adj
     for j in range(k):
         if j > 0:
             a_pow = torch.einsum("...nm,...mk->...nk", a_pow, adj)
-        outs.append(spmm(a_pow, x))
+        outs.append(agg(a_pow, x))
     return outs
 
 

@@ -5,6 +5,10 @@ Every method trains with ``Adam(lr, weight_decay)`` and
 auxiliary output (graph regularization for LOGO, KL for HAGCN,
 reconstruction for STNet and GDAGDL; RGCNU's is unused, weight 0).
 LOGO_bearing also steps a MultiStepLR([5, 10, 20, 25], 0.5) per batch.
+Seven methods take a node-sharded engine for their dense ``(N, N)`` graph
+algebra (``supports_spmm_fn``: a ``spmm_fn`` or ``gat_fn`` constructor
+keyword, ``parallel/graph_partition.py::spmm_hook_kwargs``), as in the JAX
+package.
 The table names all 21 methods of the reference, each ported
 (``models.MODELS``: the twelve aero-engine methods and the nine bearing
 methods); any other name raises.
@@ -26,15 +30,17 @@ class AlgorithmSpec:
     aux_weight: Optional[str] = None
     # per-batch MultiStepLR([5, 10, 20, 25], 0.5) (LOGO_bearing only).
     per_batch_multistep: bool = False
+    # the model takes the node-sharded engine's hook (spmm_fn or gat_fn).
+    supports_spmm_fn: bool = False
 
 
 # name -> spec fields other than the model class
 _TABLE: Dict[str, Dict[str, Any]] = {
-    "FC_STGNN": {},
-    "HierCorrPool": {},
-    "LOGO": {"aux_weight": "theta"},
+    "FC_STGNN": {"supports_spmm_fn": True},
+    "HierCorrPool": {"supports_spmm_fn": True},
+    "LOGO": {"aux_weight": "theta", "supports_spmm_fn": True},
     "ASTGCNN": {},
-    "STFA": {},
+    "STFA": {"supports_spmm_fn": True},
     "ST_Conv": {},
     "HAGCN": {"aux_weight": "alpha"},
     "RGCNU": {"aux_weight": "__zero__"},
@@ -45,12 +51,13 @@ _TABLE: Dict[str, Dict[str, Any]] = {
     "SAGCN": {},
     "STNet": {"aux_weight": "__one__"},
     "ST_GCN": {},
-    "GAT_LSTM": {},
+    "GAT_LSTM": {"supports_spmm_fn": True},
     "GDAGDL": {"aux_weight": "__one__"},
     "STMSGCN": {},
     "AGCN_TF": {},
-    "LOGO_bearing": {"aux_weight": "theta", "per_batch_multistep": True},
-    "HierCorrPool_bearing": {},
+    "LOGO_bearing": {"aux_weight": "theta", "per_batch_multistep": True,
+                     "supports_spmm_fn": True},
+    "HierCorrPool_bearing": {"supports_spmm_fn": True},
 }
 
 

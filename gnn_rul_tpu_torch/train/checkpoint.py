@@ -205,7 +205,20 @@ def restore(path: str, model: nn.Module, optimizer: torch.optim.Optimizer,
     """Puts the run of ``path`` (a checkpoint of :func:`save_checkpoint` or
     :class:`AsyncCheckpointer`) back into ``model``, ``optimizer`` and
     ``scheduler``; returns the epoch it was saved after."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    return restore_payload(read_payload(path), model, optimizer, scheduler,
+                           path)
+
+
+def read_payload(path: str) -> Dict[str, Any]:
+    """The checkpoint at ``path``, every tensor on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore_payload(payload: Dict[str, Any], model: nn.Module,
+                    optimizer: torch.optim.Optimizer, scheduler=None,
+                    path: str = "the checkpoint") -> int:
+    """:func:`restore` from a checkpoint already read (:func:`read_payload`,
+    or one that rank 0 read and broadcast to the job)."""
     load_model_dict(model, payload["model_dict"])
     optimizer.load_state_dict(payload["optimizer"])
     if scheduler is not None:

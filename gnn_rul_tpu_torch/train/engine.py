@@ -32,6 +32,20 @@ step.
 fp32 master parameters (``train/precision.py``); the loss, Adam and the
 BatchNorm running statistics stay fp32, and :meth:`Engine.evaluate`
 returns fp32.
+
+Under a mesh (``parallel/mesh.py``) whose ``data`` axis has S > 1 ranks,
+each batch's rows are split over them in contiguous blocks, the remainder
+batch too (``parallel/data_axis.py``; every rank draws the same
+permutation from ``(seed, epoch)`` and keeps the whole training set on its
+device). Each rank's loss is its share of the global loss, its rows'
+squared errors over the global row count plus its share of the auxiliary
+loss; the gradients are summed over the data ranks (one all-reduce a step;
+DDP's mean over ranks would be wrong on uneven blocks); BatchNorm, dropout,
+the Bi-LSTM along the rows and the batch means in the losses are the
+global batch's. So a step equals the single process's. :meth:`evaluate`
+splits each eval batch likewise and returns the whole prediction vector on
+every rank. The ``model`` axis is the model's own (its hooks, built by the
+trainer); the engine feeds each model rank the same rows.
 """
 
 from __future__ import annotations
@@ -44,6 +58,8 @@ from torch import nn
 
 from ..export import resolve_device
 from ..nn.basic import dropout_key, step_key
+from ..parallel import data_axis
+from ..parallel.mesh import axis_size
 from .algorithms import AlgorithmSpec, resolve_aux_weight
 from .precision import bf16_forward, cast_buffer_names, check_precision
 
@@ -63,8 +79,11 @@ class Engine:
     def __init__(self, model: nn.Module, spec: AlgorithmSpec,
                  train_params: Dict, seed: int = 0,
                  eval_batch_size: Optional[int] = None,
-                 device: str = "cuda", precision: str = "fp32"):
+                 device: str = "cuda", precision: str = "fp32", mesh=None):
         self.device = resolve_device(device)
+        # The data group where the data axis splits the rows, else None.
+        self.data_group = (mesh.get_group("data")
+                           if axis_size(mesh, "data") > 1 else None)
         self.precision = check_precision(precision)
         self.model = model.to(self.device)
         self.spec = spec
@@ -87,8 +106,11 @@ class Engine:
         self._data: tuple = ()
 
     def _loss(self, out, y: torch.Tensor) -> torch.Tensor:
+        """The MSE plus the weighted auxiliary loss; inside a split batch,
+        this rank's share of the global batch's (``batch_mean``; the model
+        returns its auxiliary loss as a share)."""
         pred, aux = out if isinstance(out, tuple) else (out, None)
-        loss = mse(pred, y)
+        loss = data_axis.batch_mean((pred - y) ** 2)
         if aux is not None and self.aux_weight != 0.0:
             loss = loss + self.aux_weight * aux
         return loss
@@ -101,12 +123,25 @@ class Engine:
         return bf16_forward(self.model, dict(self.model.named_parameters()),
                             dict(self.model.named_buffers()), self._cast, x)
 
+    def _shard(self, total: int) -> Optional[data_axis.RowShard]:
+        """This rank's block of a batch of ``total`` rows (None off the
+        data axis)."""
+        if self.data_group is None:
+            return None
+        return data_axis.shard_of(total, self.data_group)
+
     def train_step(self, x: torch.Tensor, y: torch.Tensor,
                    key: Optional[int] = None) -> torch.Tensor:
         """One optimizer step on a batch on the device; returns the loss,
         detached and still on the device. ``key`` keys the step's dropout
         (:func:`~..nn.basic.step_key`; by default that of this engine's
-        n-th step, ``(seed, 0, n)``)."""
+        n-th step, ``(seed, 0, n)``). Under the data axis ``x`` and ``y``
+        are the global batch, the same on every rank, and the loss is this
+        rank's share of it."""
+        shard = self._shard(x.shape[0])
+        if shard is not None:
+            idx = shard.local_index(x.device)
+            x, y = x[idx], y[idx]
         if key is None:
             key = step_key(self.seed, 0, self.step_count)
         self.step_count += 1
@@ -115,13 +150,28 @@ class Engine:
         # A fill, not a copy from the host: a blocking copy would wait for
         # the card to finish the steps before.
         with dropout_key(torch.full((), key, dtype=torch.int64,
-                                    device=self.device)):
+                                    device=self.device)), \
+                data_axis.row_shard(shard):
             loss = self._loss(self.forward(x), y)
         loss.backward()
+        if shard is not None:
+            self._sum_gradients()
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
         return loss.detach()
+
+    def _sum_gradients(self) -> None:
+        """Each gradient summed over the data ranks, in one all-reduce of a
+        flat buffer. Every rank ran the same forward (a stand-in row where
+        it has none), so every rank holds gradients of the same
+        parameters."""
+        grads = [p.grad for p in self.model.parameters()
+                 if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        torch.distributed.all_reduce(flat, group=self.data_group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     def _device_data(self, x_train: np.ndarray, y_train: np.ndarray):
         if not self._data or self._data[0] is not x_train \
@@ -148,7 +198,9 @@ class Engine:
             idx = perm[start:start + self.batch_size]
             loss = self.train_step(x_all[idx], y_all[idx],
                                    key=step_key(self.seed, epoch, i))
-            total += loss.double() * idx.shape[0]
+            total += loss.double() * idx.shape[0]   # a share: summed below
+        if self.data_group is not None:
+            torch.distributed.all_reduce(total, group=self.data_group)
         return float(total) / max(n, 1)
 
     @torch.no_grad()
@@ -160,7 +212,9 @@ class Engine:
         without a recurrence along the batch axis (running BN statistics,
         no dropout): LOGO's and HAGCN's Bi-LSTMs run over the rows of the
         batch, so their backward direction carries the padding rows into
-        the real rows' answers."""
+        the real rows' answers. Under the data axis each eval batch's rows
+        are split as a training batch's, and the predictions gathered: every
+        rank returns the whole vector."""
         n = x_test.shape[0]
         ebs = min(self.eval_batch_size, n)
         n_batches = -(-n // ebs)
@@ -170,9 +224,31 @@ class Engine:
         if pad:
             x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
         self.model.eval()
+        shard = self._shard(ebs)
+        idx = None if shard is None else shard.local_index(self.device)
         preds = []
         for i in range(n_batches):
-            out = self.forward(x[i * ebs:(i + 1) * ebs])
+            xb = x[i * ebs:(i + 1) * ebs]
+            with data_axis.row_shard(shard):
+                out = self.forward(xb if idx is None else xb[idx])
             preds.append((out[0] if isinstance(out, tuple) else out)
                          .reshape(-1))
+        if shard is not None:
+            preds = self._gather_predictions(torch.stack(preds), shard)
         return torch.cat(preds)[:n].cpu().numpy()
+
+    @staticmethod
+    def _gather_predictions(local: torch.Tensor,
+                            shard: data_axis.RowShard):
+        """Each eval batch's predictions from every rank's block of it:
+        ``local`` ``(batches, rows)``, padded to the widest block for one
+        all-gather; returns one ``(ebs,)`` tensor a batch."""
+        pad = shard.widest - local.shape[1]
+        if pad > 0:
+            local = torch.cat([local, local.new_zeros(local.shape[0], pad)],
+                              dim=1)
+        blocks = data_axis.all_gather_blocks(local[:, :shard.widest],
+                                             shard.group)
+        glob = torch.cat([b[:, :count] for b, (_, count)
+                          in zip(blocks, shard.blocks)], dim=1)
+        return list(glob)

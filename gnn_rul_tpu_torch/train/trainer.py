@@ -25,14 +25,27 @@ The reference's GNN_RUL_trainer contract (trainer.py:25-262):
     uninterrupted one. The vectorized runs write their final checkpoints
     only and do not resume, as the JAX package's;
   - ``precision="bf16"`` trains in bfloat16 on fp32 state
-    (``train/precision.py``) and logs the measured guidance.
+    (``train/precision.py``) and logs the measured guidance;
+  - ``mesh`` (``parallel/mesh.py``) trains across the ranks of a
+    ``torch.distributed`` job: the ``data`` axis splits each batch's rows
+    (``train/engine.py``), a ``model`` axis above 1 routes a hooked
+    method's graph algebra through the node-sharded engines
+    (``parallel/graph_partition.py``; a method without a hook raises,
+    :meth:`Trainer._check_model_axis`). Only rank 0 writes artifacts (the
+    CSVs, npz, logs and checkpoints); with ``resume=True`` rank 0 decides
+    whether a checkpoint exists and sends its state and epoch to every
+    rank;
+  - ``profile_dir`` writes a ``torch.profiler`` trace of the epoch after
+    the first one run (``utils.profile_trace``): a run of one epoch writes
+    none, as in the JAX package.
 
 Runs on ``device="cuda"`` unless told ``device="cpu"``, and raises where
-CUDA is absent. Meshes and profiling are not ported yet (ROADMAP.md).
+CUDA is absent.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import logging
 import os
@@ -42,15 +55,19 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import hparams as hparams_bank
 from ..configs.data_configs import get_dataset_config
 from ..data.loader import DataBundle
 from ..export import resolve_device
 from ..ops.edge_count import edges_per_sample
+from ..parallel.mesh import TP_MIN_DIM, axis_size, sharded_params
+from ..parallel.multihost import is_main_process
+from ..utils import profile_trace
 from .algorithms import get_algorithm_spec
-from .checkpoint import (AsyncCheckpointer, load_model_dict, restore,
-                         save_checkpoint)
+from .checkpoint import (AsyncCheckpointer, load_model_dict, read_payload,
+                         restore_payload, save_checkpoint)
 from .engine import Engine
 from .metrics import calc_metrics
 from .precision import bf16_guidance, check_precision, vectorized_guidance
@@ -59,8 +76,10 @@ from .vectorized import VectorizedEngine
 METRIC_NAMES = ("Score_v1", "Score_v2", "MAE", "RMSE")
 
 
-def _make_logger(log_dir: str, run_id: int) -> logging.Logger:
-    """Per-run logger to stdout and ``logs_run_{run_id}.log``."""
+def _make_logger(log_dir: str, run_id: int,
+                 write: bool = True) -> logging.Logger:
+    """Per-run logger to stdout and ``logs_run_{run_id}.log``; a silent
+    one where ``write`` is False (a rank other than 0)."""
     name = os.path.join(log_dir, f"logs_run_{run_id}.log")
     logger = logging.getLogger(name)
     logger.setLevel(logging.DEBUG)
@@ -68,6 +87,9 @@ def _make_logger(log_dir: str, run_id: int) -> logging.Logger:
         handler.close()
     logger.handlers.clear()
     logger.propagate = False
+    if not write:
+        logger.addHandler(logging.NullHandler())
+        return logger
     os.makedirs(log_dir, exist_ok=True)
     fmt = logging.Formatter("%(message)s")
     for handler in (logging.StreamHandler(sys.stdout),
@@ -80,9 +102,12 @@ def _make_logger(log_dir: str, run_id: int) -> logging.Logger:
 class BestTracker:
     """Best-RMSE rows in the reference's CSV schema (trainer.py:196-262)."""
 
-    def __init__(self, save_path: str, key: Optional[Any] = None):
+    def __init__(self, save_path: str, key: Optional[Any] = None,
+                 write: bool = True):
         self.rows = []  # 4-tuples
         self.save_path = save_path
+        # Rank 0 alone writes; every rank tracks the same rows.
+        self.write = write
         # The reference writes float keys (N-CMAPSS unit ids) as ints in
         # artifact names (trainer.py:214-217).
         if isinstance(key, float):
@@ -93,8 +118,12 @@ class BestTracker:
         improved = not self.rows or metrics[3] < self.rows[-1][3]
         if improved:
             self.rows.append(tuple(metrics))
-            np.savez(os.path.join(self.save_path, f"{self.tag}results.npz"),
-                     pre=preds, real=reals, max_rul=max_rul)
+            if self.write:
+                np.savez(os.path.join(self.save_path,
+                                      f"{self.tag}results.npz"),
+                         pre=preds, real=reals, max_rul=max_rul)
+        if not self.write:
+            return improved
         with open(os.path.join(self.save_path, f"{self.tag}results.csv"),
                   "w", newline="") as f:
             writer = csv.writer(f)
@@ -105,6 +134,27 @@ class BestTracker:
     @property
     def best(self):
         return self.rows[-1] if self.rows else None
+
+
+def check_model_axis(method: str, model: torch.nn.Module,
+                     n_model: int) -> None:
+    """Refuses a ``model`` axis that would do nothing or is not ported: for
+    a method without the node-sharded hook, a model axis above 1 raises
+    JAX's ValueError where no parameter of ``model`` is wide enough to
+    shard, and ``NotImplementedError`` where one is (tensor-parallel
+    sharding is not ported, ROADMAP.md)."""
+    if n_model <= 1 or get_algorithm_spec(method).supports_spmm_fn:
+        return
+    if not sharded_params(model, n_model):
+        raise ValueError(
+            f"--mesh model={n_model} has no effect for {method}: no kernel "
+            f"is wide enough to shard (tp_min_dim={TP_MIN_DIM}) and the "
+            f"model has no spmm_fn hook. Use model=1 (pure data "
+            f"parallelism) instead.")
+    raise NotImplementedError(
+        f"--mesh model={n_model} for {method} needs tensor-parallel "
+        f"parameter sharding, which is not ported yet; the port's order of "
+        f"work is in ROADMAP.md")
 
 
 class Trainer:
@@ -119,10 +169,18 @@ class Trainer:
                  num_epochs_override: Optional[int] = None,
                  device: str = "cuda", vectorized_runs: bool = False,
                  precision: str = "fp32", resume: bool = False,
-                 checkpoint_every: int = 0):
+                 checkpoint_every: int = 0, mesh=None,
+                 profile_dir: Optional[str] = None):
         self.device = resolve_device(device)
         self.vectorized_runs = vectorized_runs
         self.precision = check_precision(precision)
+        self.mesh = mesh
+        self.profile_dir = profile_dir
+        self.is_main = is_main_process()
+        if vectorized_runs and mesh is not None:
+            raise ValueError(
+                "--vectorized_runs is a single-device capability (it fills "
+                "one chip with the seed axis); drop --mesh or the flag")
         if vectorized_runs and resume:
             raise ValueError("vectorized runs do not resume (the runs advance "
                              "in lockstep; resume a run on the sequential "
@@ -133,7 +191,7 @@ class Trainer:
                      if precision == "bf16" else None),
                     (vectorized_guidance(method, dataset)
                      if vectorized_runs else None)):
-            if msg:
+            if msg and self.is_main:
                 logging.getLogger(__name__).warning(msg)
         self.method = method
         self.dataset = dataset
@@ -148,17 +206,47 @@ class Trainer:
         self.model_hparams = dict(model_hparams or hparams_bank.model_hparams(
             dataset, dataset_id, method))
         self.spec = get_algorithm_spec(method)
+        # The method's model without the hook, on the meta device (no
+        # weights, no collectives): the model-axis check reads its shapes
+        # before any engine is built, on every rank alike, and the edge
+        # count runs its forward.
+        with torch.device("meta"):
+            self._shapes = self._model()
+        self._check_model_axis()
         self.exp_log_dir = os.path.join(save_dir, experiment_description,
                                         run_description)
-        os.makedirs(self.exp_log_dir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(self.exp_log_dir, exist_ok=True)
 
-    def _model(self) -> torch.nn.Module:
-        return self.spec.model_cls(**self.model_hparams)
+    def _model(self, hooked: bool = False) -> torch.nn.Module:
+        """The method's model; ``hooked``: with the node-sharded engine's
+        hook where the mesh's model axis is above 1."""
+        kwargs = dict(self.model_hparams)
+        if hooked and self._hooked():
+            from ..parallel.graph_partition import spmm_hook_kwargs
+            kwargs.update(spmm_hook_kwargs(self.method, self.mesh))
+        return self.spec.model_cls(**kwargs)
+
+    def _hooked(self) -> bool:
+        return (axis_size(self.mesh, "model") > 1
+                and self.spec.supports_spmm_fn)
 
     def _build_engine(self, seed: int) -> Engine:
         torch.manual_seed(seed)
-        return Engine(self._model(), self.spec, self.train_params, seed=seed,
-                      device=str(self.device), precision=self.precision)
+        return Engine(self._model(hooked=True), self.spec,
+                      self.train_params, seed=seed,
+                      device=str(self.device), precision=self.precision,
+                      mesh=self.mesh)
+
+    def tp_sharded_param_count(self, model: torch.nn.Module) -> int:
+        """The parameters that tensor parallelism would split over the
+        model axis (``parallel/mesh.py::param_sharding_rule``; 0 without a
+        model axis)."""
+        return len(sharded_params(model, axis_size(self.mesh, "model")))
+
+    def _check_model_axis(self) -> None:
+        check_model_axis(self.method, self._shapes,
+                         axis_size(self.mesh, "model"))
 
     def _tests(self):
         """``(key, x, y, max_rul)`` of each test set (one, or one per key
@@ -173,13 +261,18 @@ class Trainer:
 
     def _header(self, run_dir: str, run_id: int, method: str,
                 edges: int) -> logging.Logger:
-        logger = _make_logger(run_dir, run_id)
+        logger = _make_logger(run_dir, run_id, self.is_main)
         logger.debug("=" * 45)
         logger.debug(f"Dataset: {self.dataset}")
         logger.debug(f"Sub-dataset ID: {self.dataset_id}")
         logger.debug(f"Method: {method}")
         logger.debug(f"Run ID: {run_id}")
         logger.debug(f"Device: {self.device}")
+        if self.mesh is not None:
+            logger.debug(f"Mesh: data={axis_size(self.mesh, 'data')}, "
+                         f"model={axis_size(self.mesh, 'model')} over "
+                         f"{dist.get_world_size()} ranks "
+                         f"({dist.get_backend()})")
         logger.debug("=" * 45)
         logger.debug(f"Edges per sample: {edges}")
         return logger
@@ -206,15 +299,36 @@ class Trainer:
         ``{key_or_None: (Score_v1, Score_v2, MAE, RMSE)}``, as the JAX
         ``Trainer.evaluate_only`` does."""
         run_dir = os.path.join(self.exp_log_dir, f"{self.method}_eval")
-        logger = _make_logger(run_dir, 0)
-        model = load_model_dict(self.spec.model_cls(**self.model_hparams),
+        logger = _make_logger(run_dir, 0, self.is_main)
+        model = load_model_dict(self._model(hooked=True),
                                 state_dict).eval().to(self.device)
         engine = Engine(model, self.spec, self.train_params, seed=0,
-                        device=str(self.device), precision=self.precision)
-        keys = list(self.data.test) if self.data.is_dict_test else [None]
-        trackers = {k: BestTracker(run_dir, key=k) for k in keys}
+                        device=str(self.device), precision=self.precision,
+                        mesh=self.mesh)
+        trackers = self._trackers(run_dir)
         self._evaluate_and_track(engine, trackers, logger)
         return {k: t.best for k, t in trackers.items()}
+
+    def _trackers(self, run_dir: str) -> Dict:
+        keys = list(self.data.test) if self.data.is_dict_test else [None]
+        return {k: BestTracker(run_dir, key=k, write=self.is_main)
+                for k in keys}
+
+    def _resume_from(self, ckpt_path: str, engine: Engine) -> int:
+        """The first epoch to train: 1, or the one after the checkpoint's
+        when it exists. Under a mesh rank 0 decides whether it exists and
+        reads it, and every rank restores rank 0's payload."""
+        payload = None
+        if self.is_main and os.path.exists(ckpt_path):
+            payload = read_payload(ckpt_path)
+        if self.mesh is not None:
+            box = [payload]
+            dist.broadcast_object_list(box, src=0)
+            payload = box[0]
+        if payload is None:
+            return 1
+        return restore_payload(payload, engine.model, engine.optimizer,
+                               engine.scheduler, ckpt_path) + 1
 
     def train(self) -> Dict[int, Dict]:
         """Run every seed; returns ``{run_id: {key_or_None: best 4-tuple}}``."""
@@ -243,21 +357,28 @@ class Trainer:
                                f"{self.method}_run_{run_id}")
         ckpt_path = os.path.join(run_dir, "checkpoint.pt")
         engine = self._build_engine(seed=run_id)
-        # Static per (method, hparams): one forward on the meta device.
-        edges = edges_per_sample(engine.model, self.data.train_x)
+        # Static per (method, hparams): one forward on the meta device (of
+        # the model without the hook, whose collectives need real tensors).
+        edges = edges_per_sample(self._shapes, self.data.train_x)
         logger = self._header(run_dir, run_id, self.method, edges)
         start_epoch = 1
-        if self.resume and os.path.exists(ckpt_path):
-            start_epoch = restore(ckpt_path, engine.model,
-                                  engine.optimizer, engine.scheduler) + 1
-            logger.debug(f"Resumed from epoch {start_epoch - 1}")
-        keys = list(self.data.test) if self.data.is_dict_test else [None]
-        trackers = {k: BestTracker(run_dir, key=k) for k in keys}
+        if self.resume:
+            start_epoch = self._resume_from(ckpt_path, engine)
+            if start_epoch > 1:
+                logger.debug(f"Resumed from epoch {start_epoch - 1}")
+        trackers = self._trackers(run_dir)
         for epoch in range(start_epoch, num_epochs + 1):
+            profiled = (self.profile_dir is not None and self.is_main
+                        and epoch == start_epoch + 1)
             t0 = time.perf_counter()
-            loss = engine.run_epoch(self.data.train_x, self.data.train_y,
-                                    epoch, shuffle=shuffle)
+            with (profile_trace(self.profile_dir) if profiled
+                  else contextlib.nullcontext()):
+                loss = engine.run_epoch(self.data.train_x, self.data.train_y,
+                                        epoch, shuffle=shuffle)
             dt = time.perf_counter() - t0  # the loss read synchronised
+            if profiled:
+                logger.debug(f"Profiler trace of epoch {epoch} -> "
+                             f"{self.profile_dir}")
             sps = n_train / max(dt, 1e-9)
             logger.debug(f"[Epoch : {epoch}/{num_epochs}]")
             logger.debug(f"loss\t: {loss:2.4f}\t({dt:.2f}s | "
@@ -265,15 +386,17 @@ class Trainer:
                          f"edges/s)")
             self._evaluate_and_track(engine, trackers, logger)
             logger.debug("-" * 37)
-            if self.checkpoint_every and epoch % self.checkpoint_every == 0:
+            if (self.is_main and self.checkpoint_every
+                    and epoch % self.checkpoint_every == 0):
                 self._save(ckptr.save, ckpt_path, engine, epoch, run_id)
         if start_epoch > num_epochs:
             # A checkpoint at or past the last epoch: nothing to train;
             # its weights are evaluated once for the run's artifacts.
             self._evaluate_and_track(engine, trackers, logger)
         ckptr.wait()
-        self._save(save_checkpoint, ckpt_path, engine,
-                   max(num_epochs, start_epoch - 1), run_id)
+        if self.is_main:
+            self._save(save_checkpoint, ckpt_path, engine,
+                       max(num_epochs, start_epoch - 1), run_id)
         return {k: t.best for k, t in trackers.items()}
 
     def _train_vectorized(self) -> Dict[int, Dict]:
@@ -285,7 +408,7 @@ class Trainer:
         engine = VectorizedEngine(self._model, self.spec, self.train_params,
                                   seeds, device=str(self.device),
                                   precision=self.precision)
-        edges = edges_per_sample(engine.model, self.data.train_x)
+        edges = edges_per_sample(self._shapes, self.data.train_x)
         keys = list(self.data.test) if self.data.is_dict_test else [None]
         run_dirs, loggers, trackers = [], [], []
         for run_id in seeds:

@@ -89,11 +89,33 @@ def test_cli_raises_without_cuda(tmp_path, monkeypatch):
         cli.main(["--data_path", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mesh", "data=2,model=1"], ["--profile", "trace"], ["--fused", "off"]])
-def test_unported_flags_raise_naming_roadmap(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["--device", "cpu", "--data_path", str(tmp_path)] + flags)
+class _SizesMesh:
+    """A stand-in for the mesh that ``--mesh`` asks for, of its sizes
+    alone: one process cannot form a job of two ranks, and the trainer's
+    model-axis check reads the sizes only."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, spec, device):
+        sizes = dict(part.split("=") for part in spec.split(","))
+        self.sizes = tuple(int(sizes.get(k, 1)) for k in self.mesh_dim_names)
+
+    def size(self, i):
+        return self.sizes[i]
+
+
+@pytest.mark.parametrize("flags,error,match", [
+    # A hookless method whose Bi-LSTM tensor parallelism would shard.
+    (["--GNN_method", "HAGCN", "--mesh", "data=1,model=2"],
+     NotImplementedError, "ROADMAP.md"),
+    (["--mesh", "data=2", "--num_runs", "2", "--vectorized_runs"],
+     ValueError, "vectorized_runs"),
+    (["--fused", "off"], NotImplementedError, "ROADMAP.md")])
+def test_unported_flags_raise_naming_roadmap(tmp_path, monkeypatch, flags,
+                                            error, match):
+    monkeypatch.setattr(cli, "parse_mesh_arg", _SizesMesh)
+    data_root = _write_fd001(str(tmp_path))
+    with pytest.raises(error, match=match):
+        cli.main(["--device", "cpu", "--data_path", data_root] + flags)
 
 
 def _seeded_checkpoint(path, method, seed=0):

@@ -38,7 +38,10 @@ def test_source_imports_nothing_of_jax(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, gnn_rul_tpu_torch.export, gnn_rul_tpu_torch.cli, "
-            "gnn_rul_tpu_torch.train.trainer; "
+            "gnn_rul_tpu_torch.train.trainer, gnn_rul_tpu_torch.utils, "
+            "gnn_rul_tpu_torch.parallel.graph_partition, "
+            "gnn_rul_tpu_torch.parallel.dp, "
+            "gnn_rul_tpu_torch.parallel._dist_worker; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in {'jax', 'flax', 'optax', 'gnn_rul_tpu'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
