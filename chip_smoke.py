@@ -156,7 +156,17 @@ Run from the root of a checkout; needs CUDA, ``nvcc`` (on PATH or under
    model=2`` the four node-sharded engines at HierCorrPool's, STFA's and
    FC_STGNN's full-width shapes, forward and gradients, against the local
    computation on the card, and one FC_STGNN step through its hook against
-   the step without it; ``--profile`` of FC_STGNN's epoch 2 (rank 0) names
+   the step without it; ``cli.main --mesh data=1,model=2`` trains HAGCN
+   at the bank's widths 2 epochs on 300 FD001 windows, its second Bi-LSTM's
+   four weights split over the two ranks (tensor parallelism,
+   ``parallel/model_axis.py``), :func:`_mesh_tp`: each rank's kernel #4/#5
+   launches those of one process, each rank's bytes of the split weights
+   and their Adam moments half the whole, every step's loss and whole
+   gradient held at the job's weights against one process's (the job's
+   top-k selections replayed), rank 0's checkpoint whole, its predictions
+   over the model axis against one process's at MESH_PRED_ATOL, the run
+   resumed after epoch 1 on the straight one; ``--profile`` of FC_STGNN's
+   epoch 2 (rank 0) names
    ``fused_dot_graph_spmm``, its ten longest device operations printed;
    ``complexity_computation`` of FC_STGNN equal on the card and the CPU.
 
@@ -189,7 +199,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -4129,7 +4139,11 @@ def _resume(data: dict, tmp: str) -> dict:
 MESH_WINDOWS = 2000
 MESH_METHODS = ("FC_STGNN", "LOGO")
 MESH_RANKS = 2
-MESH_TIMEOUT = 300
+MESH_TIMEOUT = 420
+# Tensor parallelism on the shared card: HAGCN/FD001 at the bank's widths
+# over data=1, model=2 (its second Bi-LSTM's four weights split), on FD001's
+# first MESH_TP_WINDOWS training windows: 3 steps an epoch at batch 100.
+MESH_TP_METHOD, MESH_TP, MESH_TP_WINDOWS = "HAGCN", "data=1,model=2", 300
 # Predictions of the same weights evaluated over the data axis against one
 # process (tests/test_torch_mesh_training.py's PRED_ATOL).
 MESH_PRED_ATOL = 1e-4
@@ -4143,24 +4157,26 @@ def _mesh_args(method: str, root: str, save_dir: str, epochs: int):
 
 
 def _mesh_eval(method: str, root: str, save_dir: str, ckpt: str,
-               mesh: bool) -> list:
+               mesh: Optional[str]) -> list:
     """``cli.main --eval_torch_checkpoint`` of ``ckpt`` on the test set
-    (over ``--mesh data=2`` where ``mesh``); the metrics it returns."""
+    (over ``--mesh <mesh>`` where given); the metrics it returns."""
     argv = _mesh_args(method, root, save_dir, 2) + [
         "--eval_torch_checkpoint", ckpt]
-    return list(map(float, cli.main(argv + (["--mesh", "data=2"] if mesh
+    return list(map(float, cli.main(argv + (["--mesh", mesh] if mesh
                                             else []))[None]))
 
 
-def _mesh_data(data: _Processed, tmp: str) -> str:
-    """FD001's first MESH_WINDOWS training windows and its test set, as
-    the preprocessor writes them; returns the data root."""
+def _mesh_data(data: _Processed, tmp: str, windows: int = MESH_WINDOWS,
+               name: str = "mesh") -> str:
+    """FD001's first ``windows`` training windows and its test set, as
+    the preprocessor writes them, under ``<tmp>/<name>``; returns the data
+    root."""
     from gnn_rul_tpu_torch.data.loader import load_dataset, resolve_data_path
     bundle = load_dataset(resolve_data_path(data.root, "CMAPSS", "FD001",
                                             None))
-    root = os.path.join(tmp, "mesh", "Processed_dataset")
+    root = os.path.join(tmp, name, "Processed_dataset")
     out = os.path.join(root, "CMAPSS", "FD001")
-    (tx, ty), cut = bundle.test, slice(0, MESH_WINDOWS)
+    (tx, ty), cut = bundle.test, slice(0, windows)
     save_processed(out, "train", bundle.train_x[cut].transpose(0, 2, 1),
                    bundle.train_y[cut], bundle.max_ruls)
     save_processed(out, "test", tx.transpose(0, 2, 1), ty, bundle.max_ruls)
@@ -4302,30 +4318,48 @@ def _unpacked(shape: tuple, bits: np.ndarray) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _recording_steps(record: list, sel, rank: int):
+def _recording_steps(record: list, sel, rank: int, meta=None):
     """Inside the block, each training step of an Engine appends ``(state,
     gradients, loss, masks)`` to ``record``: on rank 0 the model's state
     before the step, its gradients summed over the ranks and the global
     loss (else None), and the (leaky) ReLU masks that ``sel`` (a SIGNED
     recorder, or None) took in the step's forward, packed, on this rank's
-    rows."""
+    rows; other choices (top-k's indices) as recorded. A model
+    split over the model axis is recorded whole: its state and gradients
+    gathered from the model ranks (collectives every rank joins);
+    ``meta["bytes"]`` the bytes this rank holds of each split parameter and
+    its Adam moments after the first step, and ``meta["replicated"]`` the
+    digest of this rank's replicated parameters and buffers after each step
+    (:func:`_replicated_digest`)."""
+    from gnn_rul_tpu_torch.parallel.model_axis import (local_bytes,
+                                                       placement_of,
+                                                       whole_grads)
     step = Engine.train_step
 
     def recording(self, x, y, key=None):
-        state = ({k: v.detach().cpu().clone()
-                  for k, v in self.model.state_dict().items()}
+        placement = placement_of(self.model)
+        sd = (self.model.state_dict() if placement is None
+              else placement.whole_state_dict(self.model))
+        state = ({k: v.detach().cpu().clone() for k, v in sd.items()}
                  if rank == 0 else None)
         start = len(sel.card) if sel else 0
         with _during(sel, "record"):
             loss = step(self, x, y, key)
-        grads = ({k: p.grad.detach().cpu().clone()
-                  for k, p in self.model.named_parameters()
-                  if p.grad is not None} if rank == 0 else None)
+        grads = whole_grads(self.model)
+        grads = ({k: g.cpu() for k, g in grads.items()} if rank == 0
+                 else None)
         total = loss.clone()
-        torch.distributed.all_reduce(total, group=self.data_group)
-        masks = ([(name, *_packed(chosen))
-                  for name, _, chosen, _ in sel.card[start:]] if sel else [])
+        if self.data_group is not None:
+            torch.distributed.all_reduce(total, group=self.data_group)
+        masks = [(name, *_packed(chosen)) if chosen.dtype == torch.bool
+                 else (name, sig, chosen, x)
+                 for name, sig, chosen, x in (sel.card[start:] if sel
+                                              else [])]
         record.append((state, grads, float(total), masks))
+        if meta is not None:
+            meta.setdefault("bytes", local_bytes(self.model, self.optimizer))
+            meta.setdefault("replicated", []).append(
+                _replicated_digest(self.model))
         return loss
 
     Engine.train_step = recording
@@ -4335,12 +4369,84 @@ def _recording_steps(record: list, sel, rank: int):
         Engine.train_step = step
 
 
+def _replicated_digest(model) -> str:
+    """SHA-256 of the bytes of ``model``'s parameters and buffers that are
+    not split over the model axis, in ``state_dict`` order: equal on two
+    model ranks only where their copies are the same bits."""
+    import hashlib
+    from gnn_rul_tpu_torch.parallel.model_axis import placement_of
+    placement = placement_of(model)
+    split = placement.axes if placement is not None else {}
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        if k not in split:
+            h.update(k.encode())
+            h.update(v.detach().cpu().reshape(-1).contiguous()
+                     .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def _mesh_run(method: str) -> str:
     """A run's directory under its save_dir."""
     return os.path.join("GNN_RUL", "run_1", f"{method}_run_0")
 
 
-def _mesh_rank(out: str, root: str) -> None:
+def _tp_step_ms(root: str, mesh=None) -> float:
+    """The median ms of a HAGCN (MESH_TP_METHOD) training step at batch
+    100 on FD001's first rows (:func:`_step_ms`), its engine over ``mesh``
+    (every rank of it times its own) or in this process."""
+    from gnn_rul_tpu_torch.data.loader import load_dataset, resolve_data_path
+    bundle = load_dataset(resolve_data_path(root, "CMAPSS", "FD001", None))
+    x = torch.from_numpy(bundle.train_x[:SERVE_BATCH]).cuda()
+    y = torch.from_numpy(bundle.train_y[:SERVE_BATCH]).cuda()
+    torch.manual_seed(0)
+    method = MESH_TP_METHOD
+    engine = Engine(build_model(method, "CMAPSS", "FD001"),
+                    get_algorithm_spec(method),
+                    train_params("CMAPSS", "FD001", method), mesh=mesh)
+    return _step_ms(engine, x, y)
+
+
+def _mesh_tp_rank(out: str, root: str, rank: int) -> dict:
+    """HAGCN (MESH_TP_METHOD) on ``--mesh data=1,model=2`` through
+    ``cli.main``: 2 epochs, the launches counted from 0 before them, rank 0
+    recording every step's whole weights and whole gradient and each rank
+    its top-k selections (``<out>/steps_tp_<rank>.pt``); rank 0's final
+    checkpoint evaluated over the same mesh, each rank's selections
+    recorded (``<out>/eval_tp_<rank>.pt``); 1 epoch and a resume to 2; a
+    training step's median ms over the mesh (:func:`_tp_step_ms`). Returns
+    this rank's wall s, launches, bytes of its split parameters and their
+    Adam moments, the digests of its replicated state after each step,
+    metrics and step ms."""
+    import torch.distributed as dist
+    from gnn_rul_tpu_torch.parallel.mesh import make_mesh
+    method = MESH_TP_METHOD
+    mesh = make_mesh(1, MESH_RANKS, device="cuda")
+    mine = os.path.join(out, f"rank{rank}")
+    record, meta = [], {}
+    _reset()
+    t0 = time.perf_counter()
+    with _recording_steps(record, _replayer(method), rank, meta):
+        cli.main(_mesh_args(method, root, mine, 2) + ["--mesh", MESH_TP])
+    torch.cuda.synchronize()
+    res = {"s": time.perf_counter() - t0, "launches": _mesh_launches(),
+           "bytes": meta["bytes"], "replicated": meta["replicated"]}
+    torch.save(record, os.path.join(out, f"steps_tp_{rank}.pt"))
+    dist.barrier()  # rank 0's final checkpoint is on disk
+    sel = _replayer(method)
+    with _during(sel, "record"):
+        res["eval"] = _mesh_eval(method, root, mine, os.path.join(
+            out, "rank0", _mesh_run(method), "checkpoint.pt"), MESH_TP)
+    torch.save(sel.card, os.path.join(out, f"eval_tp_{rank}.pt"))
+    resumed = os.path.join(out, f"resumed{rank}")
+    cli.main(_mesh_args(method, root, resumed, 1) + ["--mesh", MESH_TP])
+    cli.main(_mesh_args(method, root, resumed, 2)
+             + ["--mesh", MESH_TP, "--resume"])
+    res["step_ms"] = _tp_step_ms(root, mesh)
+    return res
+
+
+def _mesh_rank(out: str, root: str, tp_root: str) -> None:
     """One rank of phase 13's job (``GNNRUL_*`` set by
     ``_dist_worker.launch``): ``cli.main --mesh data=2`` trains FC_STGNN
     (with ``--profile``) and LOGO for 2 epochs, each rank writing under its
@@ -4351,8 +4457,9 @@ def _mesh_rank(out: str, root: str) -> None:
     final checkpoint over the data axis (``--eval_torch_checkpoint``, rank
     0 writing the predictions); FC_STGNN again
     for 1 epoch and resumed to 2; then, on ``data=1, model=2``, the four
-    engines and a training step through FC_STGNN's hook. Writes
-    ``<out>/rank<r>.json``."""
+    engines, a training step through FC_STGNN's hook and HAGCN's runs
+    split over the model axis (:func:`_mesh_tp_rank`, on ``tp_root``).
+    Writes ``<out>/rank<r>.json``."""
     import torch.distributed as dist
     from gnn_rul_tpu_torch.parallel.mesh import make_mesh
     from gnn_rul_tpu_torch.parallel.multihost import initialize_from_env
@@ -4383,7 +4490,7 @@ def _mesh_rank(out: str, root: str) -> None:
         dist.barrier()  # rank 0's final checkpoint is on disk
         res["runs"][method]["eval"] = _mesh_eval(
             method, root, mine, os.path.join(out, "rank0", _mesh_run(method),
-                                             "checkpoint.pt"), True)
+                                             "checkpoint.pt"), "data=2")
     resumed = os.path.join(out, f"resumed{rank}")
     cli.main(_mesh_args("FC_STGNN", root, resumed, 1) + ["--mesh", "data=2"])
     cli.main(_mesh_args("FC_STGNN", root, resumed, 2)
@@ -4391,6 +4498,7 @@ def _mesh_rank(out: str, root: str) -> None:
     model_mesh = make_mesh(1, MESH_RANKS, device="cuda")
     res["engines"] = _mesh_engines(model_mesh)
     res["hooked_step"] = _mesh_hooked_step(model_mesh, root)
+    res["tp"] = _mesh_tp_rank(out, tp_root, rank)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
@@ -4451,6 +4559,182 @@ def _mesh_gradients(method: str, root: str, out: str) -> tuple:
     return len(record), err, flips
 
 
+def _mesh_tp_gradients(root: str, out: str) -> tuple:
+    """Every step of the job's HAGCN run on ``data=1, model=2`` held as
+    GRADIENT_HELD holds phase 6's: one process's loss and gradient at the
+    job's whole weights before the step, on the step's batch under its
+    dropout key, replaying the job's top-k selections (ROADMAP Queue 3
+    entry 6), against the job's loss (at the 5-step tolerance) and whole
+    gradient (at the kernels'); each step's selections on rank 1 are rank
+    0's, index for index. Returns the steps, the largest error and the
+    selections that differ between card and CPU."""
+    from gnn_rul_tpu_torch.data.loader import load_dataset, resolve_data_path
+    method = MESH_TP_METHOD
+    records = [torch.load(os.path.join(out, f"steps_tp_{r}.pt"),
+                          weights_only=False) for r in range(MESH_RANKS)]
+    _same_choices("steps", [[e for *_, masks in rec for e in masks]
+                            for rec in records])
+    record = records[0]
+    bundle = load_dataset(resolve_data_path(root, "CMAPSS", "FD001", None))
+    x_all = torch.from_numpy(bundle.train_x).cuda()
+    y_all = torch.from_numpy(bundle.train_y).cuda()
+    n, bs = len(x_all), SERVE_BATCH
+    per_epoch = -(-n // bs)
+    engine = Engine(build_model(method, "CMAPSS", "FD001"),
+                    get_algorithm_spec(method),
+                    train_params("CMAPSS", "FD001", method))
+    err, differ = 0.0, 0
+    for k, (state, grads, loss, chosen) in enumerate(record):
+        epoch, i = k // per_epoch + 1, k % per_epoch
+        sel = _replayer(method)
+        sel.card = chosen
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0 * 1_000_003 + epoch)
+        idx = torch.randperm(n, generator=gen, device="cuda")[i * bs:
+                                                             (i + 1) * bs]
+        engine.model.load_state_dict(state)
+        with _during(sel, "replay"):
+            want = engine.train_step(x_all[idx], y_all[idx],
+                                     key=step_key(0, epoch, i))
+        np.testing.assert_allclose(loss, float(want), rtol=LOSS_RTOL,
+                                   atol=LOSS_ATOL)
+        differ += sel.report(method, f"step {k} of the model=2 job")
+        for name, p in engine.model.named_parameters():
+            err = max(err, _mesh_hold(f"mesh {method} model=2 step {k} "
+                                      f"{name}", grads[name].cuda(), p.grad))
+    if len(record) != 2 * per_epoch:
+        raise AssertionError(f"mesh {method} model=2: {len(record)} steps "
+                             f"recorded")
+    return len(record), err, differ
+
+
+def _same_choices(what: str, cards: list) -> None:
+    """Fails unless every rank's top-k selections (``cards``, a list of
+    ``_Replay`` card entries a rank) are rank 0's, index for index: each
+    model rank computes the whole forward from the same weights and
+    rows."""
+    for r, card in enumerate(cards[1:], 1):
+        if len(card) != len(cards[0]) or any(
+                (a[0], a[1]) != (b[0], b[1]) or not torch.equal(a[2], b[2])
+                for a, b in zip(cards[0], card)):
+            raise AssertionError(f"mesh {MESH_TP_METHOD} model=2 {what}: "
+                                 f"rank {r}'s top-k selections are not rank "
+                                 f"0's")
+
+
+def _mesh_tp(root: str, out: str, single: str, ranks: list,
+             want_launches: dict) -> dict:
+    """HAGCN's runs on ``data=1, model=2`` (:func:`_mesh_tp_rank`) held
+    against one process (``single``'s runs, ``want_launches`` their
+    launches): each rank's launches equal one process's; each rank holds
+    half of each of the four split Bi-LSTM weights and of their Adam
+    moments; after every step the ranks' replicated parameters and buffers
+    the same bits; every step's loss and whole gradient, and the ranks'
+    top-k selections the same (:func:`_mesh_tp_gradients`);
+    rank 0's checkpoint whole (the unsplit model's shapes, Adam's too), its
+    predictions over the model axis against one process's on the same
+    weights, the job's selections replayed, within MESH_PRED_ATOL; the
+    resumed run against the straight one; a step's median ms on each rank
+    and in one process."""
+    method = MESH_TP_METHOD
+    lstm = type(fused_lstm.lstm_recurrence).__name__
+    for r in ranks:
+        got = {k: tuple(v) for k, v in r["tp"]["launches"].items()}
+        if got != want_launches:
+            raise AssertionError(f"mesh {method} model=2 rank {r['rank']} "
+                                 f"launched {got}, one process "
+                                 f"{want_launches}")
+    if want_launches[lstm] == (0, 0):
+        raise AssertionError(f"mesh {method} model=2: no recurrence kernel")
+    model = build_model(method, "CMAPSS", "FD001")
+    split = sorted(f"TD.bi_lstm2.weight_{w}_l0{sfx}" for w in ("ih", "hh")
+                   for sfx in ("", "_reverse"))
+    params = dict(model.named_parameters())
+    whole = {k: 3 * params[k].numel() * params[k].element_size()
+             for k in split}
+    for r in ranks:
+        if sorted(r["tp"]["bytes"]) != split or any(
+                2 * r["tp"]["bytes"][k] != whole[k] for k in split):
+            raise AssertionError(f"mesh {method} model=2 rank {r['rank']} "
+                                 f"holds {r['tp']['bytes']}, whole {whole}")
+    steps, grad_err, differ = _mesh_tp_gradients(root, out)
+    digests = [r["tp"]["replicated"] for r in ranks]
+    if len(digests[0]) != steps or any(d != digests[0] for d in digests):
+        raise AssertionError(f"mesh {method} model=2: the ranks' replicated "
+                             f"parameters and buffers part: {digests}")
+    run = _mesh_run(method)
+    ckpt = os.path.join(out, "rank0", run, "checkpoint.pt")
+    payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+    shapes = {k: tuple(v.shape) for k, v in payload["model_dict"].items()}
+    if shapes != {k: tuple(v.shape) for k, v in model.state_dict().items()}:
+        raise AssertionError(f"mesh {method} model=2: rank 0's checkpoint "
+                             f"is not whole: {shapes}")
+    adam = payload["optimizer"]["state"]
+    if any(tuple(adam[i][m].shape) != tuple(p.shape)
+           for i, p in enumerate(model.parameters())
+           for m in ("exp_avg", "exp_avg_sq")):
+        raise AssertionError(f"mesh {method} model=2: Adam's state is not "
+                             f"whole")
+    cards = [torch.load(os.path.join(out, f"eval_tp_{r['rank']}.pt"),
+                        weights_only=False) for r in ranks]
+    _same_choices("evaluation", cards)
+    sel = _replayer(method)
+    sel.card = cards[0]
+    with _during(sel, "replay"):
+        metrics = _mesh_eval(method, root, single, ckpt, None)
+    eval_differ = sel.report(method, "the model=2 evaluation")
+    preds = [np.load(os.path.join(d, "GNN_RUL", "run_1", f"{method}_eval",
+                                  "results.npz"))
+             for d in (os.path.join(out, "rank0"), single)]
+    np.testing.assert_allclose(preds[0]["pre"], preds[1]["pre"],
+                               atol=MESH_PRED_ATOL, rtol=0)
+    pred_err = float(np.max(np.abs(preds[0]["pre"] - preds[1]["pre"])))
+    a, b = (torch.load(os.path.join(out, d, run, "checkpoint.pt"),
+                       map_location="cpu", weights_only=True)["model_dict"]
+            for d in ("resumed0", "rank0"))
+    resume_diff = max((a[k].double() - b[k].double()).abs().max().item()
+                      for k in b if b[k].is_floating_point())
+    if resume_diff > PARAM_MAX_DIFF:
+        raise AssertionError(f"mesh {method} model=2: the resumed run "
+                             f"misses the straight one by {resume_diff}")
+    step_ms = [r["tp"]["step_ms"] for r in ranks]
+    single_ms = _tp_step_ms(root)
+    print(f"mesh {method} model=2 [{SMI}]: cli.main --mesh {MESH_TP} as 2 "
+          f"ranks on one card (gloo) against one process, 2 epochs of "
+          f"{MESH_TP_WINDOWS} windows at the bank's widths; each rank holds "
+          f"its half of TD.bi_lstm2's four weights (240 rows of 480) and of "
+          f"their Adam moments, bytes a rank {ranks[0]['tp']['bytes']} of "
+          f"{whole} whole; after each of {steps} steps the ranks' "
+          f"replicated parameters and buffers the same bits, and their top-k "
+          f"selections the same in every step and the evaluation; each "
+          f"step's whole gradient at the "
+          f"job's weights within atol={TOL_ATOL}, rtol={TOL_RTOL} of one "
+          f"process's (max |err| {grad_err:.3e}; the job's top-k selections "
+          f"replayed, {differ} differ) and its loss within rtol={LOSS_RTOL}; "
+          f"rank 0's checkpoint whole; its weights evaluated over model=2 "
+          f"against one process: {len(preds[0]['pre'])} predictions within "
+          f"{MESH_PRED_ATOL} (max |err| {pred_err:.3e}; {eval_differ} "
+          f"selections differ, replayed), metrics {ranks[0]['tp']['eval']} "
+          f"on each rank, one process {metrics}; the resumed run against "
+          f"the straight one: max |param diff| {resume_diff:.3e}; a step at "
+          f"batch 100, median of 20 (ms): model=2 {step_ms} (each rank), "
+          f"one process {single_ms:.3f} (gloo's cost on one card, not a "
+          f"scaling figure); "
+          f"launches a rank {want_launches[lstm]} ({lstm}), equal on each "
+          f"rank and one process; wall s of the run a rank "
+          f"{[round(r['tp']['s'], 3) for r in ranks]}")
+    for r in ranks:
+        np.testing.assert_allclose(r["tp"]["eval"], ranks[0]["tp"]["eval"],
+                                   rtol=1e-6)
+    return {"steps_held": steps, "grad_err": grad_err,
+            "topk_differ": differ, "eval_pred_err": pred_err,
+            "eval_topk_differ": eval_differ, "resume_param_diff": resume_diff,
+            "bytes_rank": ranks[0]["tp"]["bytes"], "bytes_whole": whole,
+            "step_ms_model2": step_ms, "step_ms_single": single_ms,
+            "launches": want_launches[lstm],
+            "rank_s": [r["tp"]["s"] for r in ranks]}
+
+
 def _epoch_times(run_dir: str) -> list:
     """``(s, samples/s)`` of each epoch, read from a run's log."""
     with open(os.path.join(run_dir, "logs_run_0.log")) as f:
@@ -4494,12 +4778,14 @@ def _mesh(data: dict, tmp: str) -> dict:
     from gnn_rul_tpu_torch.utils import complexity_computation
     t_phase = time.perf_counter()
     root = _mesh_data(data["CMAPSS"], tmp)
+    tp_root = _mesh_data(data["CMAPSS"], tmp, MESH_TP_WINDOWS, "mesh_tp")
     single = os.path.join(tmp, "mesh", "single")
     runs = {}
-    for method in MESH_METHODS:
+    for method, where in [(m, root) for m in MESH_METHODS] + [
+            (MESH_TP_METHOD, tp_root)]:
         _reset()
         t0 = time.perf_counter()
-        cli.main(_mesh_args(method, root, single, 2))
+        cli.main(_mesh_args(method, where, single, 2))
         torch.cuda.synchronize()
         runs[method] = {"s": time.perf_counter() - t0,
                         "launches": _mesh_launches()}
@@ -4507,7 +4793,7 @@ def _mesh(data: dict, tmp: str) -> dict:
     os.makedirs(out)
     t0 = time.perf_counter()
     launch(["-c", f"import chip_smoke as c; c._mesh_rank({out!r}, "
-                  f"{root!r})"], MESH_RANKS, MESH_TIMEOUT,
+                  f"{root!r}, {tp_root!r})"], MESH_RANKS, MESH_TIMEOUT,
            log_dir=os.path.join(out, "logs"))
     job_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4549,7 +4835,7 @@ def _mesh(data: dict, tmp: str) -> dict:
         # axis (each rank, LOGO's Bi-LSTM over the gathered rows) and in
         # this process: the predictions at MESH_PRED_ATOL, and every rank
         # the whole vector's metrics.
-        metrics = _mesh_eval(method, root, single, ckpt, False)
+        metrics = _mesh_eval(method, root, single, ckpt, None)
         preds = [np.load(os.path.join(d, "GNN_RUL", "run_1",
                                       f"{method}_eval", "results.npz"))
                  for d in (os.path.join(out, "rank0"), single)]
@@ -4596,6 +4882,9 @@ def _mesh(data: dict, tmp: str) -> dict:
                                        if v != (0, 0)},
                           "rank_s": [r["runs"][method]["s"] for r in ranks],
                           "single_s": runs[method]["s"]}
+    result["HAGCN model=2"] = _mesh_tp(
+        tp_root, out, single, ranks,
+        {k: tuple(v) for k, v in runs[MESH_TP_METHOD]["launches"].items()})
     result["held_s"] = time.perf_counter() - t0
     run = _mesh_run("FC_STGNN")
     a, b = (torch.load(os.path.join(out, d, run, "checkpoint.pt"),
@@ -4855,6 +5144,7 @@ def main() -> None:
               launches_hagcn_serve=served["HAGCN"][4],
               launches_hagcn_artifact=artifacts["HAGCN"][1],
               launches_hagcn_eval=trained["HAGCN"][3],
+              launches_hagcn_model2_rank=mesh["HAGCN model=2"]["launches"][0],
               **logo_bearing("fwd"), launches_logo_bearing_tier5=tier5,
               **seeds(lstm_methods, 0, logo5, 1)),
         entry("fused_lstm_bwd", lstm[lstm_shape]["bwd"], lstm_bwd_err,
@@ -4865,6 +5155,7 @@ def main() -> None:
               shape="T=100 B=70 H=48",
               library="torch.nn.LSTM forward+backward minus forward",
               **hagcn("bwd", 1), **logo_bearing("bwd"),
+              launches_hagcn_model2_rank=mesh["HAGCN model=2"]["launches"][1],
               **seeds(lstm_methods, 1, logo5.replace("lstm", "lstm bwd"),
                       2)),
         entry("fused_gat", gat[GAT_CASES[0]], gat_err, trained["STAGNN"][0],

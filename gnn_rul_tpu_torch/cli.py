@@ -18,9 +18,9 @@ K-th epoch, asynchronously, and ``--resume`` restarts each run from it;
 run; ``--mesh data=N,model=M`` trains across the N x M ranks of a
 ``torch.distributed`` job that the ``GNNRUL_*`` variables describe
 (``parallel/multihost.py``; one process is a job of one): each batch's
-rows split over the data ranks, a hooked method's graph algebra over the
-model ranks (``parallel/``), rank 0 alone writing artifacts. One line a
-rank, here two on the CPU::
+rows split over the data ranks, the wide parameters (tensor parallelism)
+and a hooked method's graph algebra over the model ranks (``parallel/``),
+rank 0 alone writing artifacts. One line a rank, here two on the CPU::
 
     GNNRUL_COORDINATOR=localhost:29500 GNNRUL_NUM_PROCESSES=2 \\
     GNNRUL_PROCESS_ID=0 python -m gnn_rul_tpu_torch.cli --mesh data=2 \\

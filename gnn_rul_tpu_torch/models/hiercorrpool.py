@@ -9,9 +9,10 @@ reference's ``reshape([bs, eck, N, -1])`` does), then: the unparameterized
 dot graph -> soft cluster-assignment pooling -> MPNN -> MLP head.
 Submodule names are the original torch reference's
 (``gnn_rul_tpu/compat/torch_import.py::_hiercorrpool_core``), whose keys
-are flat where the JAX package's tree sits under ``core``. The JAX
-package's ``spmm_fn`` hook comes with ``parallel/graph_partition.py``
-(ROADMAP.md). No kernel of the port runs in this model.
+are flat where the JAX package's tree sits under ``core``. The
+``spmm_fn`` hook takes the node-sharded ``A @ X`` of
+``parallel/graph_partition.py`` under a model axis above 1. No kernel of
+the port runs in this model.
 """
 
 from __future__ import annotations

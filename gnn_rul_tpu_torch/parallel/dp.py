@@ -1,13 +1,13 @@
-"""A training step over the data axis of a mesh (counterpart of
+"""A training step over a (data, model) mesh (counterpart of
 ``gnn_rul_tpu/parallel/dp.py``).
 
 :class:`ShardedTrainer` is the JAX class's interface on the port's
 :class:`~..train.engine.Engine`: each batch given to :meth:`step` (the same
 on every rank) is split over the ``data`` ranks, the loss is the global
-batch's and the gradients are summed over the ranks, so the step equals
-the single process's (``train/engine.py``). Tensor-parallel parameter
-sharding over ``model`` is not ported (ROADMAP.md, Queue 1): the trainer
-takes a mesh whose model axis is 1.
+batch's and the gradients are summed over the ranks; over a ``model`` axis
+above 1 the parameters that the tensor-parallel rule splits are placed as
+each rank's blocks of them (``parallel/mesh.py::shard_params``), Adam's
+moments too. So the step equals the single process's (``train/engine.py``).
 """
 
 from __future__ import annotations
@@ -20,13 +20,12 @@ from torch import nn
 
 from ..train.algorithms import AlgorithmSpec
 from ..train.engine import Engine
-from .mesh import axis_size
 
 
 class ShardedTrainer:
-    """Data-parallel train and eval steps for one model::
+    """Train and eval steps of one model over a (data, model) mesh::
 
-        mesh = make_mesh(n_data=2, n_model=1, device="cuda")
+        mesh = make_mesh(n_data=2, n_model=2, device="cuda")
         st = ShardedTrainer(model, mesh, lr=1e-3, weight_decay=1e-4)
         st.init(seed=0)
         loss = st.step(x, y)          # the global batch, on every rank
@@ -38,11 +37,6 @@ class ShardedTrainer:
     def __init__(self, model: nn.Module, mesh, lr: float,
                  weight_decay: float = 0.0, aux_weight: float = 0.0,
                  device: Optional[str] = None):
-        if axis_size(mesh, "model") != 1:
-            raise NotImplementedError(
-                "ShardedTrainer takes a mesh of model=1: tensor-parallel "
-                "parameter sharding is not ported yet; the port's order of "
-                "work is in ROADMAP.md")
         self.model = model
         self.mesh = mesh
         self.lr, self.weight_decay = lr, weight_decay

@@ -15,9 +15,9 @@ the blocks around the ring, one at a time.
 The gradient follows from that layout (every rank's loss is the same):
 the gathered output's backward keeps this rank's block of the gradient;
 an input every rank reads whole gets this rank's part of its gradient,
-summed over the group (one ``all_reduce``, :func:`_replicated`); an input
-read by row blocks gets its blocks' gradients gathered
-(:func:`_row_block`).
+summed over the group (one ``all_reduce``); an input read by row blocks
+gets its blocks' gradients gathered: the rules of
+``parallel/model_axis.py``, which the tensor-parallel layers share.
 
 Padding is as in JAX: zero rows and columns for ``A @ X``, and -1e30 on
 the attention's padded columns before its softmax. The attention's dropout
@@ -44,6 +44,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from . import data_axis
+from .model_axis import (copy_to_model as _replicated,
+                         gather_from_model as _gather_blocks,
+                         slice_to_model as _row_block)
 
 NEG = -1e30  # the attention's padded columns
 
@@ -56,66 +59,6 @@ def _pad_nodes(t: torch.Tensor, pad: int, dims) -> torch.Tensor:
     for d in dims:
         widths[2 * (t.dim() - 1 - (d % t.dim())) + 1] = pad
     return F.pad(t, widths)
-
-
-class _Replicated(torch.autograd.Function):
-    """The identity on an input every rank of the group holds whole; its
-    gradient, this rank's part, summed over the group."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _RowBlock(torch.autograd.Function):
-    """This rank's block of rows (axis ``dim``) of an input every rank
-    holds whole; the gradient of each block gathered from its rank."""
-
-    @staticmethod
-    def forward(ctx, t, group, dim):
-        ctx.group, ctx.dim = group, dim
-        k, m = dist.get_world_size(group), dist.get_rank(group)
-        return t.chunk(k, dim)[m].contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        blocks = data_axis.all_gather_blocks(g.contiguous(), ctx.group)
-        return torch.cat(blocks, dim=ctx.dim), None, None
-
-
-class _GatherBlocks(torch.autograd.Function):
-    """The full tensor from every rank's block (axis ``dim``); the gradient
-    of the full tensor is the same on every rank, so each keeps its
-    block's."""
-
-    @staticmethod
-    def forward(ctx, t, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return torch.cat(data_axis.all_gather_blocks(t, group), dim=dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        k, m = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
-        return g.chunk(k, ctx.dim)[m].contiguous(), None, None
-
-
-def _replicated(t: torch.Tensor, group) -> torch.Tensor:
-    return _Replicated.apply(t, group)
-
-
-def _row_block(t: torch.Tensor, group, dim: int) -> torch.Tensor:
-    return _RowBlock.apply(t, group, dim)
-
-
-def _gather_blocks(t: torch.Tensor, group, dim: int) -> torch.Tensor:
-    return _GatherBlocks.apply(t, group, dim)
 
 
 def spmm_hook_kwargs(method: str, mesh, axis: str = "model") -> Dict:

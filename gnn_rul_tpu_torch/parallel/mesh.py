@@ -3,23 +3,20 @@
 
   - ``data``: each batch's rows split over the ranks in contiguous blocks
     (``parallel/data_axis.py``), the gradients summed over them;
-  - ``model``: the dense ``(N, N)`` graph algebra of the hooked methods
-    split by node rows over the ranks (``parallel/graph_partition.py``).
+  - ``model``: the wide parameters split over the ranks along their
+    output axis (tensor parallelism, :func:`param_sharding_rule`,
+    ``parallel/model_axis.py``), and the dense ``(N, N)`` graph algebra of
+    the hooked methods split by node rows (``parallel/graph_partition.py``).
 
 The mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` over the
 job's ranks, ``mesh_dim_names=("data", "model")``, rank ``d * M + m`` at
 coordinate ``(d, m)``. A process outside a ``GNNRUL_*`` job
 (``parallel/multihost.py``) forms a world of one, in memory.
-
-Tensor-parallel parameter sharding, which the JAX package applies to the
-kernels of the methods without a hook, is not ported (ROADMAP.md, Queue 1):
-:func:`param_sharding_rule` says which parameters it would shard, and
-:func:`shard_params` refuses a rule that shards any.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -27,6 +24,8 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import Replicate, Shard
 
+from ..nn.recurrent import LSTMParams
+from .model_axis import place
 from .multihost import initialize_from_env
 
 
@@ -74,45 +73,69 @@ def replicated(mesh: DeviceMesh) -> List:
 TP_MIN_DIM = 256
 
 
-def param_sharding_rule(mesh: DeviceMesh) -> Callable[[torch.Tensor], List]:
+def param_sharding_rule(mesh: DeviceMesh) -> Callable[..., List]:
     """The tensor-parallel rule of the JAX package, as a pure function of a
-    parameter: its output-feature axis split over ``model`` where that axis
+    parameter and its output axis: that axis split over ``model`` where it
     is at least ``TP_MIN_DIM`` and divisible by the model axis, every
-    parameter of fewer than two axes replicated. The output-feature axis is
-    the first of a torch weight (``nn.Linear``'s ``(out, in)``,
-    ``nn.Conv1d``'s ``(out, in, k)``, an RNN's ``(gates*H, in)``), the last
-    of the JAX kernel."""
+    parameter of fewer than two axes replicated. The output axis is the
+    torch axis that holds the JAX layout's last one (:func:`output_axes`;
+    the first of a Linear's ``(out, in)``, the last of ChebNet's
+    ``filters (K, in, out)``)."""
     n_model = axis_size(mesh, "model")
 
-    def rule(param: torch.Tensor) -> List:
-        if _splits(param, n_model):
-            return [Replicate(), Shard(0)]
+    def rule(param: torch.Tensor, axis: int = 0) -> List:
+        if _splits(param, axis, n_model):
+            return [Replicate(), Shard(axis % param.dim())]
         return replicated(mesh)
 
     return rule
 
 
-def _splits(param: torch.Tensor, n_model: int) -> bool:
+def _splits(param: torch.Tensor, axis: int, n_model: int) -> bool:
     return (param.dim() >= 2 and n_model > 1
-            and param.shape[0] >= TP_MIN_DIM
-            and param.shape[0] % n_model == 0)
+            and param.shape[axis] >= TP_MIN_DIM
+            and param.shape[axis] % n_model == 0)
+
+
+# The modules whose weights keep torch's layout, output features first: a
+# Linear's (out, in), a convolution's (out, in, *k), an RNN's
+# (gates * H, in). The port keeps every other parameter of two or more
+# axes in the JAX layout, output features last (ChebNet's filters (K, in,
+# out), ST_Conv's theta, DVGTformer's t_v and x_v); the raw parameters
+# that JAX stores transposed (GRU_CM's edge kernel, ASTGCNN's P) are
+# Linears' weights in the port.
+_OUTPUT_FIRST = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.LSTM, nn.GRU,
+                 LSTMParams)
+
+
+def output_axes(model: nn.Module) -> Dict[str, int]:
+    """Each parameter of two or more axes of ``model``, by name, with its
+    output axis: the torch axis that holds the JAX layout's last one."""
+    return {f"{prefix}.{name}" if prefix else name:
+            0 if isinstance(mod, _OUTPUT_FIRST) else p.dim() - 1
+            for prefix, mod in model.named_modules()
+            for name, p in mod.named_parameters(recurse=False)
+            if p.dim() >= 2}
 
 
 def sharded_params(model: nn.Module, n_model: int) -> List[str]:
     """The names of ``model``'s parameters that :func:`param_sharding_rule`
-    would split over a model axis of ``n_model``."""
-    return [name for name, p in model.named_parameters()
-            if _splits(p, n_model)]
+    splits over a model axis of ``n_model``."""
+    params = dict(model.named_parameters())
+    return [name for name, axis in output_axes(model).items()
+            if _splits(params[name], axis, n_model)]
 
 
-def shard_params(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
-    """Places ``model``'s parameters by :func:`param_sharding_rule`. Only
-    the rule that replicates every parameter is ported: one that would
-    shard any raises ``NotImplementedError`` (ROADMAP.md, Queue 1)."""
+def shard_params(model: nn.Module, mesh: DeviceMesh):
+    """Places ``model``'s parameters by :func:`param_sharding_rule`: each
+    that it splits becomes this rank's block of it along its output axis,
+    and the layers that use them compute from the blocks
+    (``parallel/model_axis.py::place``). Returns the
+    :class:`~.model_axis.Placement`, or None where the rule splits
+    nothing."""
     names = sharded_params(model, axis_size(mesh, "model"))
-    if names:
-        raise NotImplementedError(
-            f"tensor-parallel parameter sharding over the model axis is not "
-            f"ported yet ({len(names)} parameters would be split, e.g. "
-            f"{names[0]}); the port's order of work is in ROADMAP.md")
-    return model
+    if not names:
+        return None
+    axes = output_axes(model)
+    return place(model, {name: axes[name] for name in names},
+                 mesh.get_group("model"))

@@ -23,6 +23,13 @@ stream, the current stream then waiting for the copies (so no later
 kernel overwrites a tensor before it is copied) and an event recorded
 after them; a CPU tensor is cloned. The writer thread waits on the event
 and runs ``torch.save``; the training thread never waits for the disk.
+
+A model whose parameters are split over a mesh's model axis
+(``parallel/model_axis.py``) is saved whole: the payload gathers each
+split parameter and its Adam moments from the model ranks (every rank
+builds it, on the training thread, and rank 0 alone writes, ``write``),
+so the file is the one a single process writes. Restoring it into such a
+model keeps this rank's blocks.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 from torch import nn
 
 from ..nn.tcn import TemporalConvNet
+from ..parallel.model_axis import placement_of
 
 
 def _to_cpu(obj):
@@ -50,11 +58,17 @@ def _to_cpu(obj):
 def _payload(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
              epoch: int, run_id: int, hparams: Dict[str, Any],
              train_params: Dict[str, Any], precision: str) -> Dict[str, Any]:
+    placement = placement_of(model)
+    if placement is None:
+        model_dict, optim = model.state_dict(), optimizer.state_dict()
+    else:   # collectives: every rank of the model group builds it
+        model_dict = placement.whole_state_dict(model)
+        optim = placement.whole_optimizer_state(model, optimizer)
     return {
         "hparams": dict(hparams),
         "train_params": dict(train_params),
-        "model_dict": model.state_dict(),
-        "optimizer": optimizer.state_dict(),
+        "model_dict": model_dict,
+        "optimizer": optim,
         "epoch": int(epoch),
         "run_id": int(run_id),
         "scheduler": scheduler.state_dict() if scheduler is not None else None,
@@ -74,11 +88,13 @@ def save_checkpoint(path: str, model: nn.Module,
                     optimizer: torch.optim.Optimizer, *, epoch: int,
                     run_id: int, hparams: Dict[str, Any],
                     train_params: Dict[str, Any], scheduler=None,
-                    precision: str = "fp32") -> str:
-    """Writes the checkpoint now, on the calling thread."""
-    return _write(path, _to_cpu(_payload(model, optimizer, scheduler, epoch,
-                                         run_id, hparams, train_params,
-                                         precision)))
+                    precision: str = "fp32", write: bool = True
+                    ) -> Optional[str]:
+    """Writes the checkpoint now, on the calling thread; with ``write``
+    False only builds its payload (a model rank's share of the gathers)."""
+    payload = _to_cpu(_payload(model, optimizer, scheduler, epoch, run_id,
+                               hparams, train_params, precision))
+    return _write(path, payload) if write else None
 
 
 class _Snapshot:
@@ -138,10 +154,17 @@ class AsyncCheckpointer:
     def save(self, path: str, model: nn.Module,
              optimizer: torch.optim.Optimizer, *, epoch: int, run_id: int,
              hparams: Dict[str, Any], train_params: Dict[str, Any],
-             scheduler=None, precision: str = "fp32") -> Future:
+             scheduler=None, precision: str = "fp32",
+             write: bool = True) -> Optional[Future]:
+        """Snapshots the checkpoint and hands its write to the thread; with
+        ``write`` False builds the payload only (a model rank's share of
+        the gathers) and returns None."""
         self.wait()
-        snap = _Snapshot(_payload(model, optimizer, scheduler, epoch, run_id,
-                                  hparams, train_params, precision))
+        payload = _payload(model, optimizer, scheduler, epoch, run_id,
+                           hparams, train_params, precision)
+        if not write:
+            return None
+        snap = _Snapshot(payload)
         self._inflight = self._pool.submit(
             lambda: _write(path, snap.ready()))
         return self._inflight
@@ -195,8 +218,11 @@ def load_model_dict(model: nn.Module,
     dead = tuple(f"{name}.{sub}." for name, m in model.named_modules()
                  if isinstance(m, TemporalConvNet) for sub in ("net0", "net1"))
     dead += tuple(getattr(model, "UNCALLED", ()))
-    model.load_state_dict({k: v for k, v in keys.items()
-                           if not k.startswith(dead)}, strict=True)
+    keys = {k: v for k, v in keys.items() if not k.startswith(dead)}
+    placement = placement_of(model)
+    if placement is not None:
+        keys = placement.local_state_dict(keys)
+    model.load_state_dict(keys, strict=True)
     return model
 
 
@@ -220,7 +246,10 @@ def restore_payload(payload: Dict[str, Any], model: nn.Module,
     """:func:`restore` from a checkpoint already read (:func:`read_payload`,
     or one that rank 0 read and broadcast to the job)."""
     load_model_dict(model, payload["model_dict"])
-    optimizer.load_state_dict(payload["optimizer"])
+    placement = placement_of(model)
+    optimizer.load_state_dict(
+        payload["optimizer"] if placement is None
+        else placement.local_optimizer_state(model, payload["optimizer"]))
     if scheduler is not None:
         if payload.get("scheduler") is None:
             raise ValueError(f"{path} holds no scheduler state")

@@ -44,8 +44,16 @@ DDP's mean over ranks would be wrong on uneven blocks); BatchNorm, dropout,
 the Bi-LSTM along the rows and the batch means in the losses are the
 global batch's. So a step equals the single process's. :meth:`evaluate`
 splits each eval batch likewise and returns the whole prediction vector on
-every rank. The ``model`` axis is the model's own (its hooks, built by the
-trainer); the engine feeds each model rank the same rows.
+every rank. The engine feeds each rank of a ``model`` axis above 1 the
+same rows; a hooked method's graph algebra splits over it (the hook, built
+by the trainer), and the engine places the parameters that the
+tensor-parallel rule splits as this rank's blocks of them
+(``parallel/mesh.py::shard_params``, ``parallel/model_axis.py``) before it
+builds Adam, so Adam's moments are blocks too; after each backward the
+replicated parameters' gradients are averaged over the model group. The
+data group (``mesh.get_group("data")``) is the ranks of this rank's model
+coordinate, so a split parameter's gradient is summed over the data ranks
+that hold the same block.
 """
 
 from __future__ import annotations
@@ -59,7 +67,8 @@ from torch import nn
 from ..export import resolve_device
 from ..nn.basic import dropout_key, step_key
 from ..parallel import data_axis
-from ..parallel.mesh import axis_size
+from ..parallel.mesh import axis_size, shard_params
+from ..parallel.model_axis import placement_of
 from .algorithms import AlgorithmSpec, resolve_aux_weight
 from .precision import bf16_forward, cast_buffer_names, check_precision
 
@@ -86,6 +95,8 @@ class Engine:
                            if axis_size(mesh, "data") > 1 else None)
         self.precision = check_precision(precision)
         self.model = model.to(self.device)
+        if axis_size(mesh, "model") > 1:
+            shard_params(self.model, mesh)
         self.spec = spec
         self.train_params = dict(train_params)
         self.batch_size = int(train_params["batch_size"])
@@ -156,10 +167,19 @@ class Engine:
         loss.backward()
         if shard is not None:
             self._sum_gradients()
+        placement = placement_of(self.model)
+        if placement is not None:
+            placement.average_replicated(self.model)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
         return loss.detach()
+
+    def tp_sharded_param_count(self) -> int:
+        """The parameters placed split over the model axis (0 without
+        one)."""
+        placement = placement_of(self.model)
+        return 0 if placement is None else len(placement.axes)
 
     def _sum_gradients(self) -> None:
         """Each gradient summed over the data ranks, in one all-reduce of a

@@ -28,13 +28,16 @@ The reference's GNN_RUL_trainer contract (trainer.py:25-262):
     (``train/precision.py``) and logs the measured guidance;
   - ``mesh`` (``parallel/mesh.py``) trains across the ranks of a
     ``torch.distributed`` job: the ``data`` axis splits each batch's rows
-    (``train/engine.py``), a ``model`` axis above 1 routes a hooked
-    method's graph algebra through the node-sharded engines
-    (``parallel/graph_partition.py``; a method without a hook raises,
-    :meth:`Trainer._check_model_axis`). Only rank 0 writes artifacts (the
-    CSVs, npz, logs and checkpoints); with ``resume=True`` rank 0 decides
-    whether a checkpoint exists and sends its state and epoch to every
-    rank;
+    (``train/engine.py``); a ``model`` axis above 1 splits the wide
+    parameters over its ranks (tensor parallelism, ``parallel/mesh.py``,
+    ``parallel/model_axis.py``) and routes a hooked method's graph algebra
+    through the node-sharded engines (``parallel/graph_partition.py``); a
+    method with neither raises, :meth:`Trainer._check_model_axis`. Only
+    rank 0 writes artifacts (the CSVs, npz, logs and checkpoints; a
+    checkpoint under a split model is gathered whole from the model ranks
+    first); with ``resume=True`` rank 0 decides whether a checkpoint exists
+    and sends its state and epoch to every rank, and each rank keeps its
+    blocks of it;
   - ``profile_dir`` writes a ``torch.profiler`` trace of the epoch after
     the first one run (``utils.profile_trace``): a run of one epoch writes
     none, as in the JAX package.
@@ -62,7 +65,9 @@ from ..configs.data_configs import get_dataset_config
 from ..data.loader import DataBundle
 from ..export import resolve_device
 from ..ops.edge_count import edges_per_sample
-from ..parallel.mesh import TP_MIN_DIM, axis_size, sharded_params
+from ..parallel import mesh as mesh_lib
+from ..parallel.mesh import axis_size, sharded_params
+from ..parallel.model_axis import placement_of
 from ..parallel.multihost import is_main_process
 from ..utils import profile_trace
 from .algorithms import get_algorithm_spec
@@ -138,23 +143,18 @@ class BestTracker:
 
 def check_model_axis(method: str, model: torch.nn.Module,
                      n_model: int) -> None:
-    """Refuses a ``model`` axis that would do nothing or is not ported: for
-    a method without the node-sharded hook, a model axis above 1 raises
-    JAX's ValueError where no parameter of ``model`` is wide enough to
-    shard, and ``NotImplementedError`` where one is (tensor-parallel
-    sharding is not ported, ROADMAP.md)."""
+    """Refuses a ``model`` axis that would do nothing, as the JAX trainer's
+    ``_check_model_axis``: above 1, a method without the node-sharded hook
+    raises ValueError where no parameter of ``model`` is wide enough to
+    split."""
     if n_model <= 1 or get_algorithm_spec(method).supports_spmm_fn:
         return
     if not sharded_params(model, n_model):
         raise ValueError(
             f"--mesh model={n_model} has no effect for {method}: no kernel "
-            f"is wide enough to shard (tp_min_dim={TP_MIN_DIM}) and the "
-            f"model has no spmm_fn hook. Use model=1 (pure data "
+            f"is wide enough to shard (tp_min_dim={mesh_lib.TP_MIN_DIM}) "
+            f"and the model has no spmm_fn hook. Use model=1 (pure data "
             f"parallelism) instead.")
-    raise NotImplementedError(
-        f"--mesh model={n_model} for {method} needs tensor-parallel "
-        f"parameter sharding, which is not ported yet; the port's order of "
-        f"work is in ROADMAP.md")
 
 
 class Trainer:
@@ -237,12 +237,6 @@ class Trainer:
                       self.train_params, seed=seed,
                       device=str(self.device), precision=self.precision,
                       mesh=self.mesh)
-
-    def tp_sharded_param_count(self, model: torch.nn.Module) -> int:
-        """The parameters that tensor parallelism would split over the
-        model axis (``parallel/mesh.py::param_sharding_rule``; 0 without a
-        model axis)."""
-        return len(sharded_params(model, axis_size(self.mesh, "model")))
 
     def _check_model_axis(self) -> None:
         check_model_axis(self.method, self._shapes,
@@ -343,10 +337,16 @@ class Trainer:
 
     def _save(self, save, path: str, engine: Engine, epoch: int,
               run_id: int):
+        """A checkpoint by ``save``, written by rank 0. Where the model
+        is split over the model axis every rank calls this (the payload
+        gathers the split parameters); elsewhere rank 0 alone."""
+        if not (self.is_main or placement_of(engine.model) is not None):
+            return None
         return save(path, engine.model, engine.optimizer, epoch=epoch,
                     run_id=run_id, hparams=self.model_hparams,
                     train_params=self.train_params,
-                    scheduler=engine.scheduler, precision=self.precision)
+                    scheduler=engine.scheduler, precision=self.precision,
+                    write=self.is_main)
 
     def _train_run(self, run_id: int, ckptr: AsyncCheckpointer) -> Dict:
         """One sequential run; returns ``{key_or_None: best 4-tuple}``."""
@@ -386,17 +386,15 @@ class Trainer:
                          f"edges/s)")
             self._evaluate_and_track(engine, trackers, logger)
             logger.debug("-" * 37)
-            if (self.is_main and self.checkpoint_every
-                    and epoch % self.checkpoint_every == 0):
+            if self.checkpoint_every and epoch % self.checkpoint_every == 0:
                 self._save(ckptr.save, ckpt_path, engine, epoch, run_id)
         if start_epoch > num_epochs:
             # A checkpoint at or past the last epoch: nothing to train;
             # its weights are evaluated once for the run's artifacts.
             self._evaluate_and_track(engine, trackers, logger)
         ckptr.wait()
-        if self.is_main:
-            self._save(save_checkpoint, ckpt_path, engine,
-                       max(num_epochs, start_epoch - 1), run_id)
+        self._save(save_checkpoint, ckpt_path, engine,
+                   max(num_epochs, start_epoch - 1), run_id)
         return {k: t.best for k, t in trackers.items()}
 
     def _train_vectorized(self) -> Dict[int, Dict]:

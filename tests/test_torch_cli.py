@@ -104,18 +104,40 @@ class _SizesMesh:
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    # A hookless method whose Bi-LSTM tensor parallelism would shard.
-    (["--GNN_method", "HAGCN", "--mesh", "data=1,model=2"],
-     NotImplementedError, "ROADMAP.md"),
+    # A hookless method whose Bi-LSTM tensor parallelism splits: it trains,
+    # as a job of two ranks.
+    (["--GNN_method", "HAGCN", "--mesh", "data=1,model=2"], None, None),
     (["--mesh", "data=2", "--num_runs", "2", "--vectorized_runs"],
      ValueError, "vectorized_runs"),
     (["--fused", "off"], NotImplementedError, "ROADMAP.md")])
 def test_unported_flags_raise_naming_roadmap(tmp_path, monkeypatch, flags,
                                             error, match):
-    monkeypatch.setattr(cli, "parse_mesh_arg", _SizesMesh)
     data_root = _write_fd001(str(tmp_path))
+    if error is None:
+        _trains_on_two_ranks(tmp_path, data_root, flags)
+        return
+    monkeypatch.setattr(cli, "parse_mesh_arg", _SizesMesh)
     with pytest.raises(error, match=match):
         cli.main(["--device", "cpu", "--data_path", data_root] + flags)
+
+
+def _trains_on_two_ranks(tmp_path, data_root, flags):
+    """``flags`` through ``python -m gnn_rul_tpu_torch.cli`` on each rank
+    of a 2-rank job, one epoch: rank 0 writes the run's artifacts, its
+    checkpoint whole (the unsplit model's shapes)."""
+    from gnn_rul_tpu_torch.parallel._dist_worker import launch
+    save_dir = str(tmp_path / "logs")
+    launch(["-m", "gnn_rul_tpu_torch.cli", "--device", "cpu", "--data_path",
+            data_root, "--epochs", "1", "--save_dir", save_dir] + flags, 2,
+           240)
+    method = flags[flags.index("--GNN_method") + 1]
+    run_dir = os.path.join(save_dir, "GNN_RUL", "run_1", f"{method}_run_0")
+    assert os.path.exists(os.path.join(run_dir, "results.csv"))
+    sd = torch.load(os.path.join(run_dir, "checkpoint.pt"),
+                    weights_only=True)["model_dict"]
+    want = build_model(method, "CMAPSS", "FD001").state_dict()
+    assert {k: v.shape for k, v in sd.items()} == \
+        {k: v.shape for k, v in want.items()}
 
 
 def _seeded_checkpoint(path, method, seed=0):

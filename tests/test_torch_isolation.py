@@ -41,6 +41,7 @@ def test_importing_the_port_loads_no_jax():
             "gnn_rul_tpu_torch.train.trainer, gnn_rul_tpu_torch.utils, "
             "gnn_rul_tpu_torch.parallel.graph_partition, "
             "gnn_rul_tpu_torch.parallel.dp, "
+            "gnn_rul_tpu_torch.parallel.model_axis, "
             "gnn_rul_tpu_torch.parallel._dist_worker; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in {'jax', 'flax', 'optax', 'gnn_rul_tpu'}))")

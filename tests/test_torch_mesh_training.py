@@ -144,32 +144,35 @@ def test_param_sharding_rule_splits_wide_output_axes():
 
 
 @pytest.mark.parametrize("method,raises", [
-    ("HAGCN", NotImplementedError), ("STAGNN", ValueError),
+    ("HAGCN", None), ("STAGNN", ValueError),
     ("FC_STGNN", None), ("STFA", None)])
 def test_model_axis_refusals(method, raises):
     """A hookless method under model=2: JAX's ValueError where nothing is
-    wide enough to shard (STAGNN), NotImplementedError naming ROADMAP.md
-    where tensor parallelism would shard (HAGCN's Bi-LSTM); a hooked
-    method passes."""
+    wide enough to shard (STAGNN); HAGCN passes, tensor parallelism
+    splitting its second Bi-LSTM's four weights; a hooked method passes.
+    ``shard_params`` places nothing under a model axis of 1."""
     model = build_model(method, "CMAPSS", "FD001")
     check_model_axis(method, model, 1)
+    assert shard_params(model, _Mesh(1)) is None
     if raises is None:
         check_model_axis(method, model, 2)
-        return
-    with pytest.raises(raises, match="ROADMAP.md|no effect"):
-        check_model_axis(method, model, 2)
-    assert bool(sharded_params(model, 2)) == (raises is NotImplementedError)
-    if raises is NotImplementedError:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            shard_params(model, _Mesh(2))
+    else:
+        with pytest.raises(raises, match="no effect"):
+            check_model_axis(method, model, 2)
+    want = ([f"TD.bi_lstm2.weight_{w}_l0{sfx}" for sfx in ("", "_reverse")
+             for w in ("ih", "hh")] if method == "HAGCN" else
+            ["lstm.weight_ih_l0", "lstm.weight_hh_l0"] if method == "STFA"
+            else [])
+    assert sorted(sharded_params(model, 2)) == sorted(want)
 
 
 @pytest.mark.parametrize("method", ["HAGCN", "STAGNN", "GDAGDL"])
 def test_trainer_counts_and_checks_the_model_axis(method, tmp_path):
-    """The trainer refuses a model axis of 2 for a hookless method before
-    it builds an engine (a stand-in mesh: the check reads sizes alone), as
-    ``check_model_axis`` does; ``Trainer.tp_sharded_param_count`` counts
-    ``sharded_params`` at the trainer's model axis."""
+    """The trainer refuses a model axis of 2 for a hookless method with
+    nothing wide enough to split (STAGNN) before it builds an engine (a
+    stand-in mesh: the check reads sizes alone), as ``check_model_axis``
+    does, and builds for one that splits (HAGCN, GDAGDL); its engine's
+    ``tp_sharded_param_count`` counts what is placed, none at model=1."""
     import torch_mesh_cases as cases
     from gnn_rul_tpu_torch.data.loader import DataBundle
     from gnn_rul_tpu_torch.train.trainer import Trainer
@@ -178,12 +181,16 @@ def test_trainer_counts_and_checks_the_model_axis(method, tmp_path):
                       (x, np.zeros((2, 1), np.float32)), 125.0)
     model = build_model(method, *cases.cell(method))
     count = len(sharded_params(model, 2))
-    with pytest.raises(NotImplementedError if count else ValueError):
+    if count:
         Trainer(method, *cases.cell(method), data, save_dir=str(tmp_path),
                 mesh=_Mesh(2), device="cpu")
+    else:
+        with pytest.raises(ValueError, match="no effect"):
+            Trainer(method, *cases.cell(method), data,
+                    save_dir=str(tmp_path), mesh=_Mesh(2), device="cpu")
     trainer = Trainer(method, *cases.cell(method), data,
                       save_dir=str(tmp_path), mesh=_Mesh(1), device="cpu")
-    assert trainer.tp_sharded_param_count(model) == 0
+    assert trainer._build_engine(seed=0).tp_sharded_param_count() == 0
 
 
 @pytest.mark.parametrize("start,rows", [(0, 2), (2, 3), (4, 1)])

@@ -119,16 +119,17 @@ def with_grads(fn, t):
 def hooked_step(method, mesh=None):
     """One training step of ``torch_mesh_cases``'s first batch, dropout off
     (the hooked attention's mask is another stream), through the hook over
-    ``mesh`` (none without one); the loss and the gradients."""
+    ``mesh`` (none without one), the wide parameters split over its model
+    axis (HierCorrPool's, STFA's, HierCorrPool_bearing's and GAT_LSTM's);
+    the loss and the gradients, gathered whole."""
     import torch_mesh_cases as cases
+    from gnn_rul_tpu_torch.parallel.model_axis import whole_grads
     hook = gp.spmm_hook_kwargs(method, mesh) if mesh is not None else {}
     engine = cases.engine(method, mesh, **hook)
     no_dropout(engine.model)
     x, y = cases.batches(method)[0]
     loss = engine.train_step(x, y)
-    return float(loss), {k: p.grad.detach().clone()
-                         for k, p in engine.model.named_parameters()
-                         if p.grad is not None}
+    return float(loss), whole_grads(engine.model)
 
 
 def hooked_models(mesh):
