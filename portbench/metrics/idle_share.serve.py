@@ -1,0 +1,8 @@
+"""idle_share.serve (%, device layer): the share of the traced window in
+which no operation ran on the card."""
+
+
+def read(r):
+    if r.trace is None or r.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - r.trace.busy_s() / r.trace.window_s)
