@@ -84,6 +84,7 @@ from .configs.data_configs import get_dataset_config
 # operators that a loaded program calls (and build nothing before the
 # first launch).
 from .models import MODELS
+from .telemetry import span
 from .train.checkpoint import load_checkpoint, load_model_dict
 from .train.precision import check_precision
 
@@ -135,15 +136,28 @@ class ServingModel:
         self.device = device
         self._batch = meta["input_shape"][0]
 
-    @torch.inference_mode()
     def __call__(self, x) -> np.ndarray:
-        _, n_ch, length = self.meta["input_shape"]
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        if x.dim() != 3 or x.shape[1] != n_ch or x.shape[2] != length:
-            raise ValueError(
-                f"expected (batch, {n_ch}, {length}), got {tuple(x.shape)}")
+        # The spans (``telemetry``): the whole call, the host's staging and
+        # H->D copy, the forward's ops issued, and the wait for the card
+        # with the D->H copy.
+        with span("serve.call", first=True), torch.inference_mode():
+            _, n_ch, length = self.meta["input_shape"]
+            with span("serve.stage_in", first=True):
+                x = torch.as_tensor(x, dtype=torch.float32,
+                                    device=self.device)
+            if x.dim() != 3 or x.shape[1] != n_ch or x.shape[2] != length:
+                raise ValueError(f"expected (batch, {n_ch}, {length}), got "
+                                 f"{tuple(x.shape)}")
+            with span("serve.forward", first=True):
+                y = self._forward(x)
+            with span("serve.fetch_out", first=True):
+                return y.cpu().numpy()
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``(batch,)`` on the device: one forward, or fixed-batch forwards
+        over ``x`` padded with its row 0, trimmed."""
         if self._batch is None:
-            return self.model(x).reshape(-1).cpu().numpy()
+            return self.model(x).reshape(-1)
         n = x.shape[0]
         bs = self._batch
         outs = []
@@ -153,7 +167,7 @@ class ServingModel:
                 pad = chunk[:1].expand(bs - chunk.shape[0], -1, -1)
                 chunk = torch.cat([chunk, pad])
             outs.append(self.model(chunk).reshape(-1)[:n - i])
-        return torch.cat(outs).cpu().numpy()
+        return torch.cat(outs)
 
 
 # The cuDNN RNN calls whose weights an exported program holds apart.

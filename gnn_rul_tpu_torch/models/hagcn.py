@@ -24,6 +24,7 @@ from torch import nn
 from ..ops.graphs import cosine_graph, leaky_relu, top_indices
 from ..ops.message_passing import spmm
 from ..parallel.data_axis import global_rows, mean_of_sum
+from ..telemetry import span
 from .logo import BiLSTMStandard
 
 
@@ -110,19 +111,25 @@ class HAGCN(nn.Module):
         t, p = self.num_patch, self.patch_size
         # (B*N, T, P) -> (T, B*N, P), fed to a batch_first Bi-LSTM: the
         # recurrence runs over the B*N rows (the global batch's).
-        td = global_rows(lambda z: self.TD(
-            z.reshape(-1, t, p).transpose(0, 1)).transpose(0, 1).reshape(
-                z.shape[0], n, t, -1), x)
-        nodes = td.transpose(1, 2).reshape(b * t, n, -1)   # (B*T, N, H)
-        adj0 = cosine_graph(nodes, eps=1e-12)
+        with span("hagcn.encoder"):
+            td = global_rows(lambda z: self.TD(
+                z.reshape(-1, t, p).transpose(0, 1)).transpose(0, 1).reshape(
+                    z.shape[0], n, t, -1), x)
+        with span("hagcn.graph"):
+            nodes = td.transpose(1, 2).reshape(b * t, n, -1)  # (B*T, N, H)
+            adj0 = cosine_graph(nodes, eps=1e-12)
 
-        out1, a1, kl1 = self.gnn1(self.gin1(nodes, adj0), adj0)
-        out2, a2, kl2 = self.gnn2(self.gin2(out1, a1), a1)
-        out3, _, kl3 = self.gnn3(self.gin3(out2, a2), a2)
+        with span("hagcn.stage1"):
+            out1, a1, kl1 = self.gnn1(self.gin1(nodes, adj0), adj0)
+        with span("hagcn.stage2"):
+            out2, a2, kl2 = self.gnn2(self.gin2(out1, a1), a1)
+        with span("hagcn.stage3"):
+            out3, _, kl3 = self.gnn3(self.gin3(out2, a2), a2)
 
-        cat = torch.cat([out1.mean(dim=1), out2.mean(dim=1),
-                         out3.mean(dim=1)], dim=-1).reshape(b, -1)
-        out = self.fc(cat)
+        with span("hagcn.head"):
+            cat = torch.cat([out1.mean(dim=1), out2.mean(dim=1),
+                             out3.mean(dim=1)], dim=-1).reshape(b, -1)
+            out = self.fc(cat)
         if self.training:
             return out, kl1 + kl2 + kl3
         return out

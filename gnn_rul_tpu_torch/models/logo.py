@@ -29,6 +29,7 @@ from ..nn.gnn_blocks import MPNNmk
 from ..nn.recurrent import LSTMParams, bilstm_fused
 from ..ops.graphs import dot_graph_from_mapped, leaky_relu, pearson_graph
 from ..parallel.data_axis import batch_mean, global_mean, global_rows, share
+from ..telemetry import span
 
 
 class GraphAttenBlock(nn.Module):
@@ -127,17 +128,22 @@ class LOGOCore(nn.Module):
 
     def trunk(self, xp: torch.Tensor, global_corr: torch.Tensor):
         b, t, n, d = xp.shape
-        nodes = xp.reshape(b * t, n, d)
-        mapped = self.nonlin_map(nodes)
-        local_corr = dot_graph_from_mapped(mapped)
-        g = global_corr[:, None].expand(b, t, n, n).reshape(b * t, n, n)
-        fused = self.graph_attn_blk(local_corr, g)
-        mp = self.MPNN(mapped, fused)
+        with span("logo.graphs"):
+            nodes = xp.reshape(b * t, n, d)
+            mapped = self.nonlin_map(nodes)
+            local_corr = dot_graph_from_mapped(mapped)
+            g = global_corr[:, None].expand(b, t, n, n).reshape(b * t, n, n)
+            fused = self.graph_attn_blk(local_corr, g)
+        with span("logo.mpnn"):
+            mp = self.MPNN(mapped, fused)
         # (B, T*N, d) -> (T*N, B, d), fed to a batch_first Bi-LSTM: the
         # recurrence runs over the B rows (the global batch's).
-        td = global_rows(lambda z: self.TD(z.transpose(0, 1)).transpose(0, 1),
-                         mp.reshape(b, n * t, -1))
-        out = self.cls(self.fc(td.reshape(b, -1)))
+        with span("logo.encoder"):
+            td = global_rows(
+                lambda z: self.TD(z.transpose(0, 1)).transpose(0, 1),
+                mp.reshape(b, n * t, -1))
+        with span("logo.head"):
+            out = self.cls(self.fc(td.reshape(b, -1)))
         if self.training:
             return out, graph_regularization_loss(nodes, fused, self.gamma)
         return out

@@ -25,6 +25,7 @@ import torch
 
 from ..ops.graphs import pearson_graph
 from ..signal.stft import stft_magnitude
+from ..telemetry import span
 from .logo import LOGOCore
 
 
@@ -49,9 +50,12 @@ class LOGOBearing(LOGOCore):
 
     def forward(self, x: torch.Tensor):
         b, t = x.shape[0], self.num_patch
-        mag = stft_magnitude(x.reshape(b * t, self.patch_size), self.nperseg)
-        n, f = mag.shape[-2:]
-        xp = mag.reshape(b, t, n, f)
-        # Each bin's frames over every patch: (B, N, T * f).
-        global_corr = pearson_graph(xp.transpose(1, 2).reshape(b, n, t * f))
+        with span("logo_bearing.front_end"):
+            mag = stft_magnitude(x.reshape(b * t, self.patch_size),
+                                 self.nperseg)
+            n, f = mag.shape[-2:]
+            xp = mag.reshape(b, t, n, f)
+            # Each bin's frames over every patch: (B, N, T * f).
+            global_corr = pearson_graph(
+                xp.transpose(1, 2).reshape(b, n, t * f))
         return self.trunk(xp, global_corr)

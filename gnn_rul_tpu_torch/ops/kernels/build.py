@@ -17,6 +17,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Tuple
 
+from ...telemetry import count
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
@@ -44,7 +46,9 @@ def build_libraries() -> Dict[str, Tuple[Path, str]]:
     """Compile every source under ``csrc/`` whose library is not in
     ``build/`` yet, all at once. Returns ``{source stem: (library path,
     nvcc's -Xptxas -v log)}``; the log is empty for a library that was
-    already built. Raises if any build fails, after every nvcc has ended."""
+    already built. Raises if any build fails, after every nvcc has ended.
+    Adds the nvcc runs to the counter ``kernels.compiled``
+    (``telemetry.cold_start``)."""
     built: Dict[str, Tuple[Path, str]] = {}
     jobs = []
     for source in sorted(CSRC.glob("*.cu")):
@@ -60,6 +64,7 @@ def build_libraries() -> Dict[str, Tuple[Path, str]]:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((source.stem, lib, tmp, cmd, proc))
+    count("kernels.compiled", len(jobs))
     failed = []
     for stem, lib, tmp, cmd, proc in jobs:
         log, _ = proc.communicate()

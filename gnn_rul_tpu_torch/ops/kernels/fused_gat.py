@@ -45,6 +45,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ...telemetry import span
 from .batching import fold, groups, unfold
 from .build import build_libraries
 
@@ -247,6 +248,10 @@ class FusedGat:
         sources built by this call."""
         if self._lib is not None:
             return ""
+        with span("kernels.load.fused_gat", first=True):
+            return self._open()
+
+    def _open(self) -> str:
         built = build_libraries()
         lib = ctypes.CDLL(str(built["fused_gat"][0]))
         for fn in (lib.fused_gat_fwd, lib.fused_gat_fwd_bf16):

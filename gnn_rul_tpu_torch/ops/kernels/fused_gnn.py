@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...telemetry import span
 from ..edge_count import record_edges
 from .batching import fold, groups, unfold
 from .build import build_libraries
@@ -321,6 +322,10 @@ class FusedDotGraphSpmm:
         the sources built by this call."""
         if self._fwd is not None:
             return ""
+        with span("kernels.load.fused_gnn", first=True):
+            return self._open()
+
+    def _open(self) -> str:
         built = build_libraries()
         fwd = ctypes.CDLL(str(built["fused_gnn"][0]))
         for fn in (fwd.fused_dot_graph_spmm_fwd,

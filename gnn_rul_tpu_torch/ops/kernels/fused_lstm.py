@@ -53,6 +53,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...telemetry import span
 from .batching import fold, groups, unfold
 from .build import build_libraries
 
@@ -302,6 +303,10 @@ class FusedLstmRecurrence:
         """Build (if needed) and load the libraries."""
         if self._fwd is not None:
             return
+        with span("kernels.load.fused_lstm", first=True):
+            self._open()
+
+    def _open(self) -> None:
         built = build_libraries()
         fwd = ctypes.CDLL(str(built["fused_lstm"][0]))
         bwd = ctypes.CDLL(str(built["fused_lstm_bwd"][0]))

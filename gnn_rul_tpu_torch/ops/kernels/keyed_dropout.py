@@ -37,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from ...telemetry import span
 from .build import build_libraries
 
 MASK64 = (1 << 64) - 1
@@ -203,6 +204,10 @@ class KeyedDropout:
         sources built by this call."""
         if self._lib is not None:
             return ""
+        with span("kernels.load.keyed_dropout", first=True):
+            return self._open()
+
+    def _open(self) -> str:
         built = build_libraries()
         lib = ctypes.CDLL(str(built["keyed_dropout"][0]))
         for fn in (lib.keyed_dropout_fwd, lib.keyed_dropout_fwd_bf16):

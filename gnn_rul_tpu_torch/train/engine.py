@@ -69,6 +69,7 @@ from ..nn.basic import dropout_key, step_key
 from ..parallel import data_axis
 from ..parallel.mesh import axis_size, shard_params
 from ..parallel.model_axis import placement_of
+from ..telemetry import span
 from .algorithms import AlgorithmSpec, resolve_aux_weight
 from .precision import bf16_forward, cast_buffer_names, check_precision
 
@@ -149,6 +150,11 @@ class Engine:
         n-th step, ``(seed, 0, n)``). Under the data axis ``x`` and ``y``
         are the global batch, the same on every rank, and the loss is this
         rank's share of it."""
+        with span("train.step"):
+            return self._train_step(x, y, key)
+
+    def _train_step(self, x: torch.Tensor, y: torch.Tensor,
+                    key: Optional[int]) -> torch.Tensor:
         shard = self._shard(x.shape[0])
         if shard is not None:
             idx = shard.local_index(x.device)
@@ -235,6 +241,10 @@ class Engine:
         the real rows' answers. Under the data axis each eval batch's rows
         are split as a training batch's, and the predictions gathered: every
         rank returns the whole vector."""
+        with span("train.eval"):
+            return self._evaluate(x_test)
+
+    def _evaluate(self, x_test: np.ndarray) -> np.ndarray:
         n = x_test.shape[0]
         ebs = min(self.eval_batch_size, n)
         n_batches = -(-n // ebs)

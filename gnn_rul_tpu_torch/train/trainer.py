@@ -39,8 +39,9 @@ The reference's GNN_RUL_trainer contract (trainer.py:25-262):
     and sends its state and epoch to every rank, and each rank keeps its
     blocks of it;
   - ``profile_dir`` writes a ``torch.profiler`` trace of the epoch after
-    the first one run (``utils.profile_trace``): a run of one epoch writes
-    none, as in the JAX package.
+    the first one run (``utils.profile_trace``; with ``vectorized_runs``
+    too, without input shapes): a run of one epoch writes none, as in the
+    JAX package.
 
 Runs on ``device="cuda"`` unless told ``device="cpu"``, and raises where
 CUDA is absent.
@@ -422,12 +423,20 @@ class Trainer:
         shuffle = self.dataset_config.shuffle
         n_train = int(self.data.train_x.shape[0])
         for epoch in range(1, num_epochs + 1):
+            profiled = (self.profile_dir is not None and self.is_main
+                        and epoch == 2)
             t0 = time.perf_counter()
-            losses = engine.run_epoch(self.data.train_x, self.data.train_y,
-                                      epoch, shuffle=shuffle)
+            with (profile_trace(self.profile_dir, record_shapes=False)
+                  if profiled else contextlib.nullcontext()):
+                losses = engine.run_epoch(self.data.train_x,
+                                          self.data.train_y, epoch,
+                                          shuffle=shuffle)
             dt = time.perf_counter() - t0  # the losses read synchronised
             sps = n_train * self.num_runs / max(dt, 1e-9)
             for run_id in seeds:
+                if profiled:
+                    loggers[run_id].debug(f"Profiler trace of epoch {epoch} "
+                                          f"-> {self.profile_dir}")
                 loggers[run_id].debug(f"[Epoch : {epoch}/{num_epochs}]")
                 loggers[run_id].debug(
                     f"loss\t: {losses[run_id]:2.4f}\t({dt:.2f}s | "

@@ -43,6 +43,7 @@ from torch.func import functional_call, stack_module_state, vmap
 
 from ..export import resolve_device
 from ..nn.basic import dropout_key, step_key
+from ..telemetry import span
 from .algorithms import AlgorithmSpec, resolve_aux_weight
 from .engine import GAMMA, MILESTONES, mse
 from .precision import bf16_forward, cast_buffer_names, check_precision
@@ -125,6 +126,11 @@ class VectorizedEngine:
         detached and still on the device. ``keys`` are the seeds' dropout
         keys (by default those of each seed's n-th step, ``(seed, 0,
         n)``, as the sequential Engine's)."""
+        with span("train.step"):
+            return self._train_step(x, y, keys)
+
+    def _train_step(self, x: torch.Tensor, y: torch.Tensor,
+                    keys: Optional[List[int]]) -> torch.Tensor:
         if keys is None:
             keys = [step_key(s, 0, self.step_count) for s in self.seeds]
         self.step_count += 1
@@ -183,6 +189,10 @@ class VectorizedEngine:
     def evaluate(self, x_test: np.ndarray) -> np.ndarray:
         """(S, n) predictions of the whole test set, in eval mode, padded
         and trimmed as ``Engine.evaluate`` pads them."""
+        with span("train.eval"):
+            return self._evaluate(x_test)
+
+    def _evaluate(self, x_test: np.ndarray) -> np.ndarray:
         n = x_test.shape[0]
         ebs = min(self.eval_batch_size, n)
         n_batches = -(-n // ebs)

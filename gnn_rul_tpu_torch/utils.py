@@ -133,17 +133,20 @@ def prng_seq(seed: int, generators: bool = False,
 
 
 @contextlib.contextmanager
-def profile_trace(log_dir: str):
+def profile_trace(log_dir: str, record_shapes: bool = True):
     """A ``torch.profiler`` trace of the block, CPU and (where CUDA is
     present) CUDA activity, written under ``log_dir`` as
     ``<worker>.<time>.pt.trace.json`` by
     ``torch.profiler.tensorboard_trace_handler``: TensorBoard's profiler
-    plugin, ``chrome://tracing`` and Perfetto read it."""
+    plugin, ``chrome://tracing`` and Perfetto read it. The port's spans
+    (``telemetry``) are in it. ``record_shapes=False`` under
+    ``torch.func.vmap``: recording the input shapes there keeps every
+    batched input alive until the profiler stops."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(
-            activities=activities, record_shapes=True,
+            activities=activities, record_shapes=record_shapes,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
         yield
         if torch.cuda.is_available():

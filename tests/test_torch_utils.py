@@ -4,7 +4,8 @@ AverageMeter, the parameter count of all 21 methods, the operation count
 (a hand count for a Linear and a Conv1d, and the three operators' counts
 inside FC_STGNN's, LOGO's and STAGNN's), ``prng_seq``, ``device_sync``,
 ``debug_nans``, and the CLI's ``--profile`` trace (of epoch 2, naming the
-port's operator; none after one epoch)."""
+port's operator and its ``train.step`` spans; none after one epoch), with
+``--vectorized_runs`` too."""
 
 import glob
 import os
@@ -123,9 +124,9 @@ def test_debug_nans_raises_at_the_operation():
             torch.sqrt(x).sum().backward()
 
 
-@pytest.mark.parametrize("epochs,traced", [(2, True), (1, False)])
-def test_cli_profile_traces_the_second_epoch(tmp_path, monkeypatch, epochs,
-                                             traced):
+def _profile_trace_text(tmp_path, monkeypatch, epochs, *flags):
+    """The text of the trace ``--profile`` writes for FC_STGNN's run of
+    ``epochs``, or None where it writes none."""
     orig = bank.train_params
     monkeypatch.setattr(bank, "train_params", lambda *a: {
         **orig(*a), "batch_size": 16})
@@ -133,9 +134,31 @@ def test_cli_profile_traces_the_second_epoch(tmp_path, monkeypatch, epochs,
     trace = tmp_path / "trace"
     cli.main(["--GNN_method", "FC_STGNN", "--data_path", data_root,
               "--save_dir", str(tmp_path / "logs"), "--device", "cpu",
-              "--epochs", str(epochs), "--profile", str(trace)])
+              "--epochs", str(epochs), "--profile", str(trace), *flags])
     files = glob.glob(os.path.join(trace, "*.pt.trace.json"))
-    assert bool(files) == traced
+    assert len(files) <= 1
+    return open(files[0]).read() if files else None
+
+
+@pytest.mark.parametrize("epochs,traced", [(2, True), (1, False)])
+def test_cli_profile_traces_the_second_epoch(tmp_path, monkeypatch, epochs,
+                                             traced):
+    text = _profile_trace_text(tmp_path, monkeypatch, epochs)
+    assert (text is not None) == traced
     if traced:
-        text = open(files[0]).read()
         assert "gnn_rul_tpu_torch::fused_dot_graph_spmm" in text
+        assert '"train.step"' in text and "Input Dims" in text
+
+
+@pytest.mark.parametrize("epochs,traced", [(2, True), (1, False)])
+def test_cli_profile_traces_the_second_epoch_of_vectorized_runs(
+        tmp_path, monkeypatch, epochs, traced):
+    """As the per-run path, the steps' spans in it, and no input shapes:
+    under vmap recording them keeps every batched input alive until the
+    profiler stops."""
+    text = _profile_trace_text(tmp_path, monkeypatch, epochs, "--num_runs",
+                               "2", "--vectorized_runs")
+    assert (text is not None) == traced
+    if traced:
+        assert "gnn_rul_tpu_torch::fused_dot_graph_spmm" in text
+        assert '"train.step"' in text and "Input Dims" not in text
