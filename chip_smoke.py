@@ -189,6 +189,7 @@ digests of the fp32 kernels' outputs, for the two trees' to be compared.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import json
 import os
@@ -359,6 +360,9 @@ def _reset() -> None:
     """Every wrapper's counts to 0, before a main path is driven."""
     for kernel in (*WRAPPERS.values(), keyed_dropout.keyed_dropout):
         kernel.launches = kernel.bf16_launches = 0
+        if hasattr(kernel, "launches_by_step"):
+            kernel.launches_by_step = dict.fromkeys(kernel.launches_by_step,
+                                                    0)
         if hasattr(kernel, "bwd_launches"):
             kernel.bwd_launches = kernel.bf16_bwd_launches = 0
         if hasattr(kernel, "bwd_calls"):
@@ -428,7 +432,8 @@ def _build() -> None:
                   f"cluster "
                   f"of {p['cluster']}, {p['threads']} threads a CTA, W_hh in "
                   f"{fused_lstm.W_MODES[p['w_mode']]}, {p['smem']} B of "
-                  f"shared memory")
+                  f"shared memory"
+                  + (f", {p['step']} step" if "step" in p else ""))
 
 
 def _bwd_threshold(d: int, f: int) -> int:
@@ -697,14 +702,16 @@ LSTM_CASES = [(100, 70, 24), (100, 70, 48), (31, 70, 24), (1000, 70, 48),
 def _lstm_threshold_cases():
     """(6, B, H) on each side of every point at which the forward's or the
     backward sweep's plan (lanes per unit, cluster size, where W_hh sits,
-    rows per lane) changes on this card: one H on each side at each B of
-    THRESHOLD_BS, one B on each side at each H of THRESHOLD_HS."""
+    rows per lane, the forward's step) changes on this card: one H on each
+    side at each B of THRESHOLD_BS, one B on each side at each H of
+    THRESHOLD_HS."""
     kernel = fused_lstm.lstm_recurrence
 
     def key(h, b):
         plans = (kernel.plan(h, b, backward) for backward in (False, True))
         return tuple((p["lanes"], p["cluster"], p["w_mode"],
-                      p["iters"] if p["w_mode"] == 2 else 0) for p in plans)
+                      p["iters"] if p["w_mode"] == 2 else 0,
+                      p.get("step")) for p in plans)
 
     top = fused_lstm.MAX_HIDDEN
     cases = set()
@@ -2538,6 +2545,103 @@ def _lstm_cluster_times(t: int = 200, h: int = 120) -> None:
             ms = _graph_ms(call)
             print(f"times [{SMI}]: lstm T={t} B={b} H={h} {part}, cluster "
                   f"of {c}: {ms:.6f} ms ({ms / t * 1e3:.3f} us per step)")
+
+
+# Kernel #4's step phases as its stamps count them, by step design: the
+# library built with -DLSTM_STAMPS (csrc/fused_lstm.cu), thread 0 of the
+# first CTA, clocks from the end of one phase to the end of the next.
+STAMP_PHASES = {
+    "classic": ("copies issued", "product", "reduce", "inputs + barrier 1",
+                "activation", "barrier 2", "cell", "ys/cs stores",
+                "h stores", "end barrier"),
+    "ring": ("inputs", "product", "reduce", "activation", "gather", "cell",
+             "h stored and sent", "ys/cs stores", "ring released",
+             "wait for h + barrier"),
+}
+STAMP_SHAPES = ((1400, 5, 60), (1400, 5, 120))
+
+
+def _stamp_library():
+    """The stamped build of csrc/fused_lstm.cu, loaded with ctypes."""
+    lib = ctypes.CDLL(str(build.build_variant("fused_lstm", "LSTM_STAMPS")))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fused_lstm_fwd_stamped.argtypes = [ptr] * 5 + [i32] * 5 + [ptr] * 2
+    lib.fused_lstm_fwd_stamped.restype = i32
+    lib.fused_lstm_stamp_phases.restype = i32
+    return lib
+
+
+def _lstm_stamps(shapes=STAMP_SHAPES, step: int = -1, cluster: int = 0,
+                 runs: int = 3) -> dict:
+    """Clocks a step of kernel #4's forward by phase (the median of
+    ``runs`` launches) at each (T, B, H) of ``shapes``, on the plan's step
+    or ``step`` (an index of ``fused_lstm.STEPS``) and cluster or
+    ``cluster`` CTAs; prints them beside the kernel's time a step from
+    events on the stamped library. Returns {shape: {phase: clocks}}."""
+    lib = _stamp_library()
+    n = lib.fused_lstm_stamp_phases()
+    out = {}
+    for t, b, h in shapes:
+        xg, w, _, _ = _lstm_inputs(t, b, h, seed=0)
+        ys = torch.empty((t, 2, b, h), device="cuda")
+        cs, cf = torch.empty_like(ys), torch.empty((2, b, h), device="cuda")
+        plan = fused_lstm.lstm_recurrence.plan(h, b)
+        name = fused_lstm.STEPS[step] if step >= 0 else plan.get(
+            "step", "classic")
+        rows, times = [], []
+        for _ in range(runs):
+            buf = torch.zeros(n + 2, dtype=torch.int64, device="cuda")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = lib.fused_lstm_fwd_stamped(
+                xg.data_ptr(), w.data_ptr(), ys.data_ptr(), cs.data_ptr(),
+                cf.data_ptr(), t, b, h, step, cluster, buf.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            end.record()
+            if err != 0:
+                raise RuntimeError(f"stamped forward T={t} B={b} H={h} step "
+                                   f"{step} cluster {cluster}: error {err}")
+            end.synchronize()
+            rows.append(buf.tolist())
+            times.append(start.elapsed_time(end))
+        vals = [statistics.median(col) for col in zip(*rows)]
+        steps = vals[n + 1]
+        phases = dict(zip(STAMP_PHASES[name], (v / steps for v in vals[:n])))
+        c = cluster or plan["cluster"]
+        per_step = vals[n] / steps
+        print(f"stamps [{SMI}] T={t} B={b} H={h} step {name}, cluster of "
+              f"{c}: {per_step:.1f} clocks a step, "
+              f"{statistics.median(times) / t * 1e3:.3f} us a step (events, "
+              f"stamped build); " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
+        out[(t, b, h)] = phases
+    return out
+
+
+# Kernel #4's forward alone, CUDA graphs, at every shape of PERF.md §6 row
+# 4, (T, B, H, G); a turn uses only what earlier trees' chip_smoke.py has,
+# so ``_turns(parent, _LSTM_FWD_TURN)`` times an unpacked parent beside this
+# tree.
+LSTM_FWD_SHAPES = ((100, 70, 24, 1), (100, 70, 48, 1), (1000, 70, 48, 1),
+                   (1400, 5, 60, 1), (1400, 5, 120, 1), (14000, 5, 120, 1),
+                   (100, 544, 30, 1), (100, 200, 30, 1), (100, 200, 60, 1),
+                   (1139, 200, 60, 1), (100, 350, 48, 5), (100, 1000, 30, 5),
+                   (1400, 25, 120, 5))
+_LSTM_FWD_TURN = f"""
+import torch
+import chip_smoke as c
+c._device(); c.build.build_libraries()
+k = c.fused_lstm.lstm_recurrence
+k.load()
+for t, b, h, g in {LSTM_FWD_SHAPES!r}:
+    xg, w, _, _ = c._lstm_inputs(t, b, h, seed=0)
+    if g > 1:
+        w = torch.stack([w] * g).contiguous()
+    ms = c._graph_ms(lambda: k.forward(xg, w), inner=max(1, min(50, 20000 // t)))
+    print(f"fwd turn [{{c.SMI}}] T={{t}} B={{b}} H={{h}} G={{g}}: {{ms:.6f}} ms "
+          f"({{ms / t * 1e3:.4f}} us a step) plan {{k.plan(h, b)}}", flush=True)
+"""
 
 
 def _serve_times(method: str, fixed, symbolic, x100, x1000) -> None:
@@ -4993,6 +5097,10 @@ def main() -> None:
                                 (1400, 5, 120), (14000, 5, 120),
                                 (100, 200, 30), (100, 544, 30)])
             _lstm_cluster_times()
+            # Kernel #4's step by phase at HAGCN's shapes, on each step
+            # design (chip_smoke's stamped build of csrc/fused_lstm.cu).
+            for step in range(len(fused_lstm.STEPS)):
+                _lstm_stamps(step=step)
             phases.mark("kernel times, LSTM")
             # The serving and training shapes of STAGNN and STFA, the two
             # check shapes of few large graphs, GAT_LSTM's and GDAGDL's

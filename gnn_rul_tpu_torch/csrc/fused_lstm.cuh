@@ -45,23 +45,29 @@
 // serve two read patterns (rows for the forward's product, columns for the
 // backward's); each kernel reads W_hh one way, so each stages its own order.
 //
-// Step inputs. Each step's global inputs (the forward's gate inputs, the
-// backward's gates, c, c_prev and dys) are copied one step ahead into
-// shared memory with cp.async by the threads that consume them. A warp
-// that issues global loads or copies stalls ~250 clocks a step (clock64),
-// wherever in the step it issues them and whether it issues them one step
-// or eight ahead; one extra warp issuing all of them took longer still, so
-// the copies stay spread, one per consuming thread.
+// Step inputs. In the backward and the forward's classic step each step's
+// global inputs (the forward's gate inputs, the backward's gates, c,
+// c_prev and dys) are copied one step ahead into shared memory with
+// cp.async by the threads that consume them. A warp that issues global
+// loads or copies stalls ~250 clocks a step (clock64), wherever in the step
+// it issues them and whether it issues them one step or eight ahead; one
+// extra warp issuing all of them took longer still, so the copies stay
+// spread, one per consuming thread. The forward's ring step instead copies
+// whole rows of gate inputs with bulk copies (cp.async.bulk, completing on
+// an mbarrier), kBlock steps at a time (fused_lstm.cu).
 //
 // Clusters. Where one CTA's shared memory cannot hold W_hh, a cluster of C
 // CTAs owns one (column, direction):
 // CTA rank q holds the units [q*U, q*U + U), U = ceil(H/C), and every CTA
-// keeps the whole vector. Each step each CTA writes its units' entries into
-// every CTA's copy (cooperative_groups::cluster_group::map_shared_rank),
-// then one cluster barrier (barrier.cluster.arrive.release, wait.acquire)
-// orders the step. The vector is double-buffered, so no CTA overwrites
-// entries that another still reads. Above what C <= 8 CTAs can hold, one
-// CTA reads W_hh from global memory (the L2 keeps it across steps).
+// keeps the whole vector, double-buffered, so no CTA overwrites entries that
+// another still reads. The backward and the forward's classic step write
+// their units' entries into every CTA's copy
+// (cooperative_groups::cluster_group::map_shared_rank), then one cluster
+// barrier (barrier.cluster.arrive.release, wait.acquire) orders the step,
+// a third of a step at H = 120 (clock64). The forward's ring step pushes them
+// with st.async onto one mbarrier a buffer in each receiving CTA, and a CTA
+// waits only until its own copy is whole. Above what C <= 8 CTAs can hold,
+// one CTA reads W_hh from global memory (the L2 keeps it across steps).
 //
 // bf16. A bf16 W_hh is converted to fp32 where the plan holds it
 // (registers, shared memory, each CTA of a cluster) or as it is read from
@@ -92,6 +98,8 @@ constexpr int kErrClusterUnplaced = -1;
 
 // Where a plan keeps W_hh.
 constexpr int kWGlobal = 0, kWShared = 1, kWRegisters = 2;
+// The forward's step designs (fused_lstm.cu); the backward has one.
+constexpr int kStepClassic = 0, kStepRing = 1;
 constexpr int kRegRows = 16;      // most rows a lane keeps in registers
 constexpr int kRegThreads = 512;  // most threads of a CTA that does
 
@@ -105,7 +113,13 @@ struct Plan {
                   // registers, zero rows beyond H)
   int w_mode;     // kWGlobal, kWShared or kWRegisters
   size_t smem;    // dynamic shared memory bytes
+  int step;       // the forward's step: kStepClassic or kStepRing
 };
+
+// A CTA's threads: the product lanes, and the ring step's copying warp.
+inline int block_threads(const Plan& p) {
+  return p.threads + (p.step == kStepRing ? kWarp : 0);
+}
 
 // A sweep's shared memory beside W_hh: the vector's entries and buffers
 // (the forward keeps h as floats, double-buffered; the backward the dgates
@@ -122,6 +136,7 @@ struct VecSpec {
 
 inline Plan make_plan(int h, int c, int w_mode, const VecSpec& v) {
   Plan p;
+  p.step = kStepClassic;
   p.cluster = c;
   p.units = (h + c - 1) / c;
   const auto threads_for = [&](int s) {
@@ -189,12 +204,15 @@ inline bool on_chip_plan(int h, int c, const VecSpec& v, size_t limit,
 
 // The plan for hidden size h and B batch columns: one CTA where it holds
 // W_hh on chip; else the least C in 2, 4, 8 whose CTAs do, raised to the
-// largest C <= 8 whose 2*B*C CTAs fit the SMs in one wave (a cluster's
-// barrier costs about the same at every C, so more CTAs shorten each one's
-// share of the step: on an H100 at H=120, T=200 a step forward took 1.271
-// us in clusters of 8 at B=5, 1.323 in 4 at B=9, 1.544 in 2 at B=17,
-// chip_smoke.py; tuned at B=5 only); else one CTA reading W_hh from global
-// memory. False where no plan fits.
+// largest C <= 8 whose 2*B*C CTAs fit the SMs in one wave (a step's
+// exchange costs about the same at every C, so more CTAs shorten each
+// one's share of the step: on an H100 at H=120, T=200 a step forward took
+// 1.271 us in clusters of 8 at B=5, 1.323 in 4 at B=9, 1.544 in 2 at B=17,
+// chip_smoke.py; with the forward's ring step and its st.async exchange,
+// at T=1400, B=5, 0.753 us in clusters of 8 and 0.770 in 4, stamped build;
+// tuned at B=5 only); else one CTA reading W_hh from global memory.
+// False where no plan fits. The forward's step is chosen on top of this
+// cut (fused_lstm.cu, pick_fwd_plan).
 inline bool pick_plan(int h, int b, const VecSpec& v, Plan* out) {
   const size_t limit = static_cast<size_t>(smem_optin_limit());
   if (h <= 0 || h > kMaxHidden || b <= 0) return false;
@@ -404,6 +422,90 @@ __device__ __forceinline__ float4 group_sum4(float4 a, int lanes) {
   return a;
 }
 
+// mbarriers, bulk copies and asynchronous remote stores (PTX, sm_90). An
+// mbarrier's phase completes when its pending arrivals and its transaction
+// bytes both reach zero; a wait names the parity of the phase it waits for.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the CTA's mbarrier initialisations visible to the cluster (and to
+// the asynchronous proxy); a CTA or cluster barrier follows.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival (release: this thread's stores before it are seen by a
+// thread whose wait sees the phase complete).
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// One arrival that also expects `bytes` more transaction bytes.
+__device__ __forceinline__ void mbar_arrive_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Copies `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global memory to this CTA's shared memory; the copy completes as
+// transaction bytes on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The address of this CTA's shared-memory address `addr` in the CTA of
+// rank `rank` of the cluster.
+__device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Stores x at `addr` of another CTA of the cluster, asynchronously; the
+// store completes as 4 transaction bytes on that CTA's mbarrier `bar` (both
+// addresses from map_rank).
+__device__ __forceinline__ void store_async(unsigned addr, float x,
+                                            unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "r"(__float_as_uint(x)), "r"(bar)
+      : "memory");
+}
+
 // All threads of all CTAs of the cluster: stores before it (to any CTA's
 // shared memory) are seen by loads after it.
 __device__ __forceinline__ void cluster_barrier() {
@@ -455,7 +557,7 @@ int prepare(Kernel kernel, const Plan& p, dim3 grid, Prepared& done) {
     attr.val.clusterDim.y = 1;
     attr.val.clusterDim.z = 1;
     cfg.gridDim = grid;
-    cfg.blockDim = dim3(p.threads);
+    cfg.blockDim = dim3(block_threads(p));
     cfg.dynamicSmemBytes = p.smem;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
@@ -481,7 +583,7 @@ int launch(void (*kernel)(Params...), const Plan& p, dim3 grid,
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(p.threads);
+  cfg.blockDim = dim3(block_threads(p));
   cfg.dynamicSmemBytes = p.smem;
   cfg.stream = stream;
   cfg.attrs = &attr;

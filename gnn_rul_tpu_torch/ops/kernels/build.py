@@ -5,7 +5,9 @@ library with a plain C interface, in ``build/`` at the repository root and
 named by a hash of the source and the headers beside it (``csrc/*.cuh``),
 so an unchanged source is built once. The sources not yet built are
 compiled together, one ``nvcc`` each. The wrappers in this package load the
-libraries with ``ctypes`` at first use.
+libraries with ``ctypes`` at first use. :func:`build_variant` builds one
+source with a macro defined into a library of its own, which no wrapper
+loads (``chip_smoke.py``'s step-phase stamps of kernel #4).
 """
 
 from __future__ import annotations
@@ -34,12 +36,19 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def _library_path(source: Path) -> Path:
+def _library_path(source: Path, variant: str = "") -> Path:
     digest = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest = digest.hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}_{digest}.so"
+    return BUILD_DIR / f"{source.stem}{variant}_{digest}.so"
+
+
+def _nvcc_cmd(source: Path, out: Path, defines=()) -> list:
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            *(f"-D{d}" for d in defines), "-Xptxas", "-v", "-o", str(out),
+            str(source)]
 
 
 def build_libraries() -> Dict[str, Tuple[Path, str]]:
@@ -58,9 +67,7 @@ def build_libraries() -> Dict[str, Tuple[Path, str]]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.so")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(source)]
+        cmd = _nvcc_cmd(source, tmp)
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((source.stem, lib, tmp, cmd, proc))
@@ -77,3 +84,22 @@ def build_libraries() -> Dict[str, Tuple[Path, str]]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return built
+
+
+def build_variant(stem: str, define: str) -> Path:
+    """``csrc/<stem>.cu`` compiled with ``-D<define>`` into its own library,
+    ``build/<stem>_<define lowercased>_<digest>.so``, once per source and
+    headers; returns its path. Raises if nvcc fails."""
+    source = CSRC / f"{stem}.cu"
+    lib = _library_path(source, "_" + define.lower())
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.so")
+        cmd = _nvcc_cmd(source, tmp, (define,))
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}")
+        os.replace(tmp, lib)
+    return lib

@@ -64,6 +64,13 @@ BWD_LAUNCHES_PER_CALL = 4
 PLAN_FIELDS = ("lanes", "cluster", "units", "threads", "iters", "w_mode",
                "smem")
 W_MODES = ("global memory", "shared memory", "registers")  # w_mode 0, 1, 2
+# The forward's step designs, by the index its plan and entries report:
+# "classic" hands the gate sums and the activated gates on through shared
+# memory, with CTA (or cluster) barriers; "ring" copies the gate inputs
+# ahead with bulk copies, activates and updates in the product's lanes, and
+# ends a step with one barrier, across a cluster pushing h with st.async
+# onto mbarriers (csrc/fused_lstm.cu).
+STEPS = ("classic", "ring")
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -286,13 +293,16 @@ _op.register_autograd(_backward, setup_context=_setup_context)
 class FusedLstmRecurrence:
     """The wrapper. ``launches`` counts launches of the forward kernel and
     ``bwd_launches`` those of the backward's four kernels, at either dtype;
-    ``bf16_launches`` and ``bf16_bwd_launches`` count the bf16
-    instantiations' share; nothing else adds to them. The kernels choose
-    how a recurrence is cut (:meth:`plan`) from H, B and the device, the
-    same at either dtype (W_hh is held in fp32 on chip)."""
+    ``launches_by_step`` splits ``launches`` by the step design the kernel
+    ran (``STEPS``); ``bf16_launches`` and ``bf16_bwd_launches`` count the
+    bf16 instantiations' share; nothing else adds to them. The kernels
+    choose how a recurrence is cut and which step it runs (:meth:`plan`)
+    from H, B and the device, the same at either dtype (W_hh is held in
+    fp32 on chip)."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.launches_by_step = dict.fromkeys(STEPS, 0)
         self.bwd_launches = 0
         self.bf16_launches = 0
         self.bf16_bwd_launches = 0
@@ -312,8 +322,9 @@ class FusedLstmRecurrence:
         bwd = ctypes.CDLL(str(built["fused_lstm_bwd"][0]))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         signatures = [
-            (fwd.fused_lstm_fwd, [ptr] * 5 + [i32] * 4 + [ptr]),
-            (fwd.fused_lstm_fwd_bf16, [ptr] * 5 + [i32] * 4 + [ptr]),
+            # ... and the step launched, an out-parameter
+            (fwd.fused_lstm_fwd, [ptr] * 5 + [i32] * 4 + [ptr] * 2),
+            (fwd.fused_lstm_fwd_bf16, [ptr] * 5 + [i32] * 4 + [ptr] * 2),
             (bwd.fused_lstm_bwd_gates, [ptr] * 4 + [i32] * 4 + [ptr]),
             (bwd.fused_lstm_bwd_gates_bf16, [ptr] * 4 + [i32] * 4 + [ptr]),
             (bwd.fused_lstm_bwd_sweep, [ptr] * 5 + [i32] * 4 + [ptr]),
@@ -350,14 +361,18 @@ class FusedLstmRecurrence:
         ``hidden`` at ``batch`` columns on the current device:
         ``PLAN_FIELDS`` -> int (lanes per unit, CTAs per cluster, units per
         CTA, threads, rows per lane, where W_hh sits as an index of
-        ``W_MODES``, shared memory bytes); None where no plan fits."""
+        ``W_MODES``, shared memory bytes), and for the forward ``"step"``,
+        its step design, one of ``STEPS``; None where no plan fits."""
         self.load()
-        out = (ctypes.c_int * len(PLAN_FIELDS))()
+        out = (ctypes.c_int * (len(PLAN_FIELDS) + 1))()
         fn = (self._bwd.fused_lstm_bwd_plan if backward
               else self._fwd.fused_lstm_fwd_plan)
         if fn(hidden, batch, ctypes.addressof(out)) != 0:
             return None
-        return dict(zip(PLAN_FIELDS, out))
+        plan = dict(zip(PLAN_FIELDS, out))
+        if not backward:
+            plan["step"] = STEPS[out[len(PLAN_FIELDS)]]
+        return plan
 
     def __call__(self, xg: torch.Tensor, w_hh: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -389,14 +404,17 @@ class FusedLstmRecurrence:
         bf16 = xg.dtype == torch.bfloat16
         entry = self._fwd.fused_lstm_fwd_bf16 if bf16 else \
             self._fwd.fused_lstm_fwd
+        step = ctypes.c_int(-1)
         with torch.cuda.device(xg.device):
             stream = torch.cuda.current_stream(xg.device).cuda_stream
             err = entry(
                 xg.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), cs.data_ptr(),
-                c_fin.data_ptr(), t, b, hid, _groups(w_hh), stream)
+                c_fin.data_ptr(), t, b, hid, _groups(w_hh), stream,
+                ctypes.byref(step))
         if err != 0:
             self._raise(self._fwd, err, "forward", xg)
         self.launches += 1
+        self.launches_by_step[STEPS[step.value]] += 1
         self.bf16_launches += bf16
         return ys, cs, c_fin
 
