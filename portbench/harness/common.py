@@ -21,23 +21,28 @@ def rng(seed: int, purpose: str) -> np.random.Generator:
     return np.random.default_rng(sub_seed(seed, purpose))
 
 
-def make_weights(specs: Sequence[Tuple[str, tuple, float]], seed: int,
-                 device, dtype=None) -> Dict:
-    """Every parameter of ``specs`` (``(name, shape, bound)``) uniform in
-    ``±bound``, drawn on ``device`` by one generator seeded from ``seed``,
-    in one call."""
+def make_weights(specs: Sequence[tuple], seed: int, device,
+                 dtype=None) -> Dict:
+    """Every entry of ``specs`` (``(name, shape, bound)`` or ``(name,
+    shape, bound, centre)``) uniform in ``±bound``, or in ``centre ±
+    bound``, drawn on ``device`` by one generator seeded from ``seed``, in
+    one call. A centre shifts its own entry only: every entry's draw is
+    the same with or without centres. A BatchNorm's running variance
+    draws around 1, its ``num_batches_tracked`` at bound 0."""
     import torch
 
     dtype = dtype or torch.float32
-    total = sum(math.prod(shape) for _, shape, _ in specs)
+    total = sum(math.prod(spec[1]) for spec in specs)
     gen = torch.Generator(device=device)
     gen.manual_seed(sub_seed(seed, "weights"))
     flat = torch.empty(total, dtype=dtype, device=device).uniform_(
         -1.0, 1.0, generator=gen)
     out, off = {}, 0
-    for name, shape, bound in specs:
+    for name, shape, bound, *centre in specs:
         size = math.prod(shape)
         out[name] = flat[off:off + size].view(shape) * bound
+        if centre:
+            out[name] += centre[0]
         off += size
     return out
 

@@ -12,7 +12,8 @@ import torch
 from portbench.harness import serve
 from portbench.harness.cell import load
 
-SERVING = ["hagcn-fd001.serve", "logo_bearing-phm2012.serve"]
+SERVING = ["hagcn-fd001.serve", "logo_bearing-phm2012.serve",
+           "fc_stgnn-fd003.serve"]
 
 
 def _exceeds(nums, limits):

@@ -2,7 +2,7 @@
 
 import pytest
 
-from portbench.counts import hagcn, logo_bearing, lstm, peaks
+from portbench.counts import fc_stgnn, gnn, hagcn, logo_bearing, lstm, peaks
 from portbench.harness.cell import load
 
 
@@ -65,3 +65,34 @@ def test_lstm_calls_follow_the_widths():
     lb = load("logo_bearing-phm2012.serve").config
     assert logo_bearing.lstm_calls(lb, 74) == [
         (74, 200, 30, 1), (74, 200, 60, 1), (74, 200, 30, 1)]
+
+
+@pytest.mark.parametrize("b,want", [(100, 540_736), (1000, 5_379_136)])
+def test_gnn_forward_bytes_are_the_chip_smoke_bounds(b, want):
+    # h and x (B, 28, 16) read once, the (28, 28) mask once, out written.
+    flops, nbytes = gnn.forward(b, 28, 16, 16)
+    assert nbytes == want
+    assert flops == 2 * b * 28 * 28 * (16 + 16)
+
+
+def test_fc_stgnn_flops_by_hand():
+    cfg = load("fc_stgnn-fd003.serve").config
+    # Encoder, per (patch, sensor) of 1 sample: Conv1d(1, 8, 2, pad 1) to
+    # 2 steps, Conv1d(8, 6, 2, pad 1) to 3, Linear(18, 48).
+    patch = 2 * 2 * 8 * 2 + 2 * 3 * 6 * 8 * 2 + 2 * 18 * 48
+    want = 50 * 14 * patch
+    # 49 + 25 graphs of 28 nodes at 48: mapping, scores and aggregation,
+    # theta to 24.
+    want += (49 + 25) * (2 * 28 * 48 * 48 + 2 * 28 * 28 * 96
+                         + 2 * 28 * 48 * 24)
+    # Head: 74 * 14 * 24 = 24,864 -> 48 -> 48 -> 24 -> 1.
+    want += 2 * (24_864 * 48 + 48 * 48 + 48 * 24 + 24)
+    assert fc_stgnn.forward_flops(cfg, 1) == want
+    assert fc_stgnn.forward_flops(cfg, 259) == 259 * want
+
+
+def test_gnn_calls_follow_the_hparams():
+    cfg = load("fc_stgnn-fd003.serve").config
+    assert fc_stgnn.gnn_calls(cfg, 259) == [(12_691, 28, 48, 48),
+                                           (6_475, 28, 48, 48)]
+    assert fc_stgnn.gnn_calls(cfg, 1) == [(49, 28, 48, 48), (25, 28, 48, 48)]

@@ -14,7 +14,8 @@ import pytest
 from portbench.harness.cell import ROOT
 from portbench.tests.conftest import run_cell, tiny_cell
 
-SERVING = ["hagcn-fd001.serve", "logo_bearing-phm2012.serve"]
+SERVING = ["hagcn-fd001.serve", "logo_bearing-phm2012.serve",
+           "fc_stgnn-fd003.serve"]
 
 
 def _altered(call):

@@ -116,7 +116,8 @@ def _inside(inner, outers):
 
 
 @pytest.mark.parametrize("workload", ["hagcn-fd001.serve",
-                                      "logo_bearing-phm2012.serve"])
+                                      "logo_bearing-phm2012.serve",
+                                      "fc_stgnn-fd003.serve"])
 def test_a_cpu_runs_trace_holds_the_spans_the_readers_read(workload):
     import torch
 

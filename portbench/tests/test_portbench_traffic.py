@@ -9,7 +9,8 @@ from portbench.harness.cell import load
 from portbench.harness.common import make_weights, make_windows, rng, sub_seed
 
 SEED = 2 ** 33 + 5
-SERVING = ["hagcn-fd001.serve", "logo_bearing-phm2012.serve"]
+SERVING = ["hagcn-fd001.serve", "logo_bearing-phm2012.serve",
+           "fc_stgnn-fd003.serve"]
 
 
 def test_schedule_repeats_from_the_seed():
@@ -38,7 +39,7 @@ def test_every_seed_sends_the_same_sizes_each_cycle(workload):
 
 def test_windows_and_weights_repeat_from_the_seed():
     import torch
-    for name in ("hagcn-fd001.serve", "logo_bearing-phm2012.serve"):
+    for name in SERVING:
         cell = load(name)
         spec = cell.config["input"]
         a = make_windows(spec, 8, rng(SEED, "traffic.pool"))
@@ -51,7 +52,8 @@ def test_windows_and_weights_repeat_from_the_seed():
         w1 = make_weights(specs, SEED, torch.device("cpu"))
         w2 = make_weights(specs, SEED, torch.device("cpu"))
         assert all(torch.equal(w1[k], w2[k]) for k in w1)
-        assert all(w1[k].abs().max() <= b for k, _, b in specs)
+        assert all((w1[k] - (c[0] if c else 0.0)).abs().max() <= b
+                   for k, _, b, *c in specs)
 
 
 def test_sub_seeds_take_large_seeds():
